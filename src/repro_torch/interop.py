@@ -1,0 +1,38 @@
+"""Carry weights and Phi state across from numpy trees.
+
+The reference package's parameters are nested dicts of arrays; converted
+with ``np.asarray`` leaf by leaf they become nested dicts of numpy arrays,
+which these functions turn into the port's tensors under the same keys and
+layouts (HWIO conv weights, (T, q, k) patterns, (T, q+1, N) PWPs). Plain
+numpy → torch copies, so both packages can run on identical weights.
+"""
+from __future__ import annotations
+
+from typing import Any, Mapping
+
+import numpy as np
+import torch
+
+from repro_torch.snn.models import PhiState
+
+
+def _tensor(x: Any, device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    return torch.from_numpy(np.array(x, copy=True)).to(device=device, dtype=dtype)
+
+
+def params_from_numpy(tree: Mapping[str, Any], device: str | torch.device
+                      ) -> dict[str, Any]:
+    """Nested dicts of numpy arrays -> the same dicts of tensors on ``device``."""
+    return {k: params_from_numpy(v, device) if isinstance(v, Mapping) else _tensor(v, device)
+            for k, v in tree.items()}
+
+
+def phi_state_from_numpy(patterns: Mapping[str, Any], pwp: Mapping[str, Any],
+                         usage: Mapping[str, Any] | None, device: str | torch.device
+                         ) -> PhiState:
+    """A ``PhiState`` from per-layer numpy patterns, PWPs and usage histograms."""
+    return PhiState(
+        patterns={k: _tensor(v, device, torch.uint8) for k, v in patterns.items()},
+        pwp={k: _tensor(v, device) for k, v in pwp.items()},
+        usage={k: np.asarray(v, np.int64) for k, v in (usage or {}).items()},
+    )

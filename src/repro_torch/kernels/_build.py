@@ -1,0 +1,110 @@
+"""Build the CUDA sources under ``csrc/`` with nvcc and load them with ctypes.
+
+Each ``csrc/*.cu`` has a plain C interface (no PyTorch headers), so nvcc
+compiles it in seconds. The sources are compiled in parallel, one nvcc
+process each, linked into one shared library under ``build/repro_torch/`` at
+the repository root, and loaded on first use. The library's file name
+carries a hash of the sources and flags, so an edited source is rebuilt and
+an unchanged one is reused. A failed build raises; nothing falls back.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+SOURCES = ("phi_fused.cu", "lif.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    "phi_fused_launch": [_P, _P, _P, ctypes.c_int, _P, _P, _P, _P, ctypes.c_longlong,
+                         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_int, ctypes.c_int, _P],
+    "lif_step_launch": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
+                        ctypes.c_int, _P],
+    "lif_sequence_launch": [_P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
+                            ctypes.c_float, ctypes.c_int, _P],
+}
+
+_lib: ctypes.CDLL | None = None
+# What the last build in this process did: seconds and ptxas resource lines.
+build_info: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found on PATH or under CUDA_HOME; cannot build "
+                           "the repro_torch CUDA kernels")
+    return str(path)
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _build(target: Path) -> None:
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / (name + ".o") for name in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for name, obj in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        for name, proc, log in zip(SOURCES, procs, logs):
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {name} (exit {proc.returncode}):\n{log}")
+        lib_tmp = Path(tmp) / target.name
+        link = subprocess.run([nvcc, "-shared", *(str(o) for o in objs), "-o", str(lib_tmp)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed (exit {link.returncode}):\n{link.stdout}")
+        os.replace(lib_tmp, target)
+    build_info.update(
+        seconds=time.perf_counter() - t0,
+        ptxas=[line.strip() for log in logs for line in log.splitlines()
+               if "Used" in line or "Compiling entry" in line])
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built from the sources on first use."""
+    global _lib
+    if _lib is None:
+        target = BUILD_DIR / f"librepro_torch_{_digest()}.so"
+        if not target.exists():
+            _build(target)
+        lib = ctypes.CDLL(str(target))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.repro_cuda_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error code."""
+    if err != 0:
+        msg = library().repro_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")

@@ -1,0 +1,65 @@
+"""Shared helpers of the repro_torch parity tests (not collected by pytest).
+
+Inputs are made with numpy from a seed and handed to both packages, so the
+JAX reference and the PyTorch port see identical values. "Dyadic" values lie
+on the 2^-10 grid: with binary activations every partial sum of a Phi
+matmul is then exact in float32, and summation order cannot change a bit.
+"""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from repro.core.patterns import _kmeans_binary_jit
+from repro_torch.core.patterns import kmeans_unique_rows
+
+
+def dyadic(x: np.ndarray) -> np.ndarray:
+    """Round onto the 2^-10 grid (float32)."""
+    return (np.round(np.asarray(x, np.float64) * 1024) / 1024).astype(np.float32)
+
+
+def binary(rng: np.random.Generator, shape, p: float = 0.3) -> np.ndarray:
+    return (rng.random(shape) < p).astype(np.float32)
+
+
+def clustered(rng: np.random.Generator, m: int, K: int, protos: int = 12,
+              flip: float = 0.03, p: float = 0.3) -> np.ndarray:
+    """Binary rows drawn around a few prototypes, so patterns match often."""
+    base = binary(rng, (protos, K), p)
+    rows = base[rng.integers(0, protos, m)]
+    return np.abs(rows - binary(rng, (m, K), flip)).astype(np.float32)
+
+
+def t(x, dtype=None) -> torch.Tensor:
+    """numpy/jax array -> CPU tensor (a copy)."""
+    return torch.from_numpy(np.array(x, copy=True)).to(dtype=dtype)
+
+
+def np_tree(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def reference_init_idx(acts: np.ndarray, k: int, q: int, seed: int = 0) -> list:
+    """The reference k-means' initial row indices for every K-partition.
+
+    ``_kmeans_binary_jit(..., iters=0, key)`` returns exactly the initial
+    centres; the unique rows are unique, so each centre names one row.
+    """
+    a = np.asarray(acts).reshape(-1, acts.shape[-1])
+    T = a.shape[1] // k
+    out = []
+    for ti in range(T):
+        uniq, counts = kmeans_unique_rows(a[:, ti * k:(ti + 1) * k])
+        if uniq.shape[0] <= q:
+            out.append(None)
+            continue
+        c0 = np.asarray(_kmeans_binary_jit(
+            jnp.asarray(uniq, jnp.float32), jnp.asarray(counts, jnp.float32), q, 0,
+            jax.random.PRNGKey(seed + ti)), np.uint8)
+        match = (c0[:, None, :] == uniq[None, :, :]).all(-1)
+        assert (match.sum(1) == 1).all()
+        out.append(match.argmax(1))
+    return out
