@@ -4,12 +4,29 @@
     python3 chip_smoke.py
 
 Phases, one JSON object per line, in order: ``env`` (versions, the card),
-``build`` (nvcc time), ``main_path`` (calibrate, then Phi inference over four
-batches of the VGG configuration at VGG-16 stage widths, logits bitwise
-equal to dense inference), ``parity`` (each kernel against its plain PyTorch
-version on the main path's tensors), ``timing`` (CUDA events) and the
-``kernels`` summary. The card's ``nvidia-smi`` name and power limit sit on
-their own line before the summary; the last line is the result object.
+``build`` (nvcc time), then for each of the two paths its main path, parity
+and timing phases, and the ``kernels`` summary:
+
+* VGG — ``main_path`` (calibrate, then Phi inference over four batches of a
+  VGG at VGG-16 stage widths, logits bitwise equal to dense inference),
+  ``parity`` (both fused kernels and the LIF kernels against their plain
+  PyTorch versions on the main path's tensors), ``timing`` (CUDA events);
+* Spikformer-4-384 with softmax attention — ``spikformer_main_path`` (the
+  same, every attention site on the Phi flash-attention kernel, every
+  spiking GEMM on the fused kernel the shape gate picks),
+  ``spikformer_parity`` (both fused kernels on every GEMM's activations, the
+  LIF kernel on the path's currents, the attention kernel on each site's q,
+  k, v and on causal, window, chunk and ragged-S cases, each against its
+  plain version), ``spikformer_timing``.
+
+Every spiking GEMM runs on the kernel ``ops.fused_shape_viable`` picks (the
+first fused kernel, or the K-streaming one where the K loop is long); the
+parity and timing phases run both kernels on every GEMM, so their times sit
+side by side.
+
+Each path is driven with every kernel's launch count set to 0 just before
+it and read just after. The card's ``nvidia-smi`` name and power limit sit
+on their own line before the summary; the last line is the result object.
 
 Any failure raises and exits non-zero: no phase is caught. Without a CUDA
 card, or run where ``src/repro_torch`` is not beside it, it exits 1 and
@@ -33,7 +50,8 @@ SRC = ROOT / "src"
 WIDTHS = (64, 128, 256, 512, 512)
 BATCH = 32
 BATCHES = 4
-GAIN = 3.0     # every weight but conv0's: keeps spikes alive at depth (random init)
+GAIN = 3.0     # every weight but the encoder's: keeps spikes alive at depth (random init)
+ATTN_ULPS = 16  # phi_flash_attention against its plain version, in ulps of max|V|
 SEED = 0
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 CUDA-core FLOP/s.
@@ -88,13 +106,16 @@ def device_profile(fn, wall_ms: float) -> dict:
             "top": [[name[:90], ms, n] for name, ms, n in kernels[:10]]}
 
 
-def fused_bound_ms(M, K, N, T, q, k, l2_entries) -> tuple[float, float]:
+def fused_bound_ms(M, K, N, T, q, k, l2_entries, pwp_rows=None) -> tuple[float, float]:
     """Least time for one fused Phi matmul: bytes (inputs once, output once)
     against HBM, float32 operations of this run's data against the CUDA-core
     peak (L1: a multiply and an add per row, partition and column; L2: an add
-    per residual entry and column; the final add). The integer match work is
-    not counted: the table of peaks has no integer CUDA-core rate."""
-    nbytes = 4 * M * K + T * q * k + 4 * T * (q + 1) * N + 4 * T * (q + 1) + 4 * K * N \
+    per residual entry and column; the final add). ``pwp_rows`` is the number
+    of PWP rows (and scales) the call needs: the whole bank, T·(q+1), unless
+    the prefetching kernel's active sets leave fewer. The integer match work
+    is not counted: the table of peaks has no integer CUDA-core rate."""
+    pwp_rows = T * (q + 1) if pwp_rows is None else pwp_rows
+    nbytes = 4 * M * K + T * q * k + 4 * pwp_rows * N + 4 * pwp_rows + 4 * K * N \
         + 4 * M * N + 4 * -(-M // 256)
     flops = 2 * M * T * N + l2_entries * N + M * N
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
@@ -106,12 +127,401 @@ def lif_bound_ms(T, n) -> tuple[float, float]:
     return 8 * T * n / HBM_BYTES_PER_S * 1e3, 3 * T * n / F32_FLOP_PER_S * 1e3
 
 
+def attn_bound_ms(B, S, H, D, T, qp, kp, bq, bkv, pattern_bits, nnz_sum) -> tuple[float, float]:
+    """Least time for one Phi flash-attention call: bytes (q, k, v and the
+    packed bank read once; out and l2_nnz written once) against HBM, and the
+    float32 operations of this run's data against the CUDA-core peak, over
+    the blocks the kernel tiles: pattern x Q products (an add per set pattern
+    bit and query row, once per q-block), L1 (T adds per score), L2 (an add
+    per residual entry and query row: ``nnz_sum`` already counts every
+    q-block), the final L1 + L2 add, the ragged tail (2 per tail feature and
+    score), the scale, the online softmax (max, subtract, exp, sum: 4 per
+    score), p.V (2 D per score) and the rescaling of den and acc (2 (D + 1)
+    per query row and kv-block)."""
+    nq, nkv = -(-S // bq), -(-S // bkv)
+    BH = B * H
+    nbytes = 16 * B * S * H * D + 8 * T * qp + 4 * BH * nq
+    scores = BH * nq * nkv * bq * bkv
+    flops = BH * nq * bq * pattern_bits + nnz_sum * bq \
+        + scores * (T + 1 + 2 * (D - T * kp) + 1 + 4 + 2 * D) + BH * nq * nkv * bq * 2 * (D + 1)
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+
+
+def active_sets(args, p_active):
+    """Per-stripe active sets for the prefetching kernel on one GEMM: P from
+    the layer's calibration usage where it shows skew (``PhiState.p_active``;
+    the gate then routes the GEMM to that kernel), else P = 16, which checks
+    and times the kernel at the GEMM's shape all the same."""
+    from repro_torch.kernels.phi_fused import stripe_active_sets
+
+    return stripe_active_sets(args[0], args[1], p_active or 16, 256)
+
+
+def fused_checks(label, args, packed, active) -> int:
+    """The three fused kernels against their plain versions on one GEMM's
+    operands: ``out`` and ``l2_nnz`` bitwise; with an f32 bank the
+    prefetching kernel's ``out`` also equals the full-bank one (exact
+    whatever the sets). Returns the full-bank residual entries."""
+    import torch
+
+    from repro_torch.kernels.phi_fused import (
+        phi_fused_cuda, phi_fused_plain, phi_fused_prefetch_cuda, phi_fused_prefetch_plain,
+        phi_fused_stream_cuda)
+
+    pout, pnnz = phi_fused_plain(*args, block_m=256)
+    runs = [(kern, kern(*args, block_m=256, packed=packed), (pout, pnnz))
+            for kern in (phi_fused_cuda, phi_fused_stream_cuda)]
+    runs.append((phi_fused_prefetch_cuda,
+                 phi_fused_prefetch_cuda(*args, active, block_m=256, packed=packed),
+                 phi_fused_prefetch_plain(*args, active, block_m=256)))
+    torch.cuda.synchronize()
+    for kern, (out, nnz), (want, want_nnz) in runs:
+        if not (torch.equal(out, want) and torch.equal(nnz, want_nnz)):
+            raise AssertionError(f"{label}: {kern.__name__} != plain version, max |diff| "
+                                 f"{float((out - want).abs().max())}, l2_nnz "
+                                 f"{int(nnz.sum())} vs {int(want_nnz.sum())}")
+    if args[2].dtype == torch.float32 and not torch.equal(runs[2][1][0], pout):
+        raise AssertionError(f"{label}: phi_fused_prefetch != the full-bank output")
+    return int(pnnz.sum())
+
+
+def fused_timing(name, args, packed, route, active, plain_runs) -> dict:
+    """CUDA-event times of one GEMM on the three fused kernels, the plain
+    version of the kernel the path runs and ``torch.matmul``, and that
+    kernel's bound; ``ms`` is the kernel the path runs."""
+    import torch
+
+    from repro_torch.kernels.phi_fused import (
+        phi_fused_cuda, phi_fused_plain, phi_fused_prefetch_cuda, phi_fused_prefetch_plain,
+        phi_fused_stream_cuda)
+
+    a, pats, _, _, w2 = args
+    T, q, k = pats.shape
+    calls = {"fused": lambda: phi_fused_cuda(*args, block_m=256, packed=packed),
+             "fused_stream": lambda: phi_fused_stream_cuda(*args, block_m=256, packed=packed),
+             "fused_prefetch": lambda: phi_fused_prefetch_cuda(*args, active, block_m=256,
+                                                               packed=packed)}
+    _, nnz = calls[route]()
+    pwp_rows = None
+    if route == "fused_prefetch":                 # the bank rows the active sets name
+        pwp_rows = sum(int(active[:, t].unique().numel()) + 1 for t in range(T))
+    b_ms, o_ms = fused_bound_ms(a.shape[0], a.shape[1], w2.shape[1], T, q, k, int(nnz.sum()),
+                                pwp_rows)
+    times = {impl: cuda_time_ms(fn) for impl, fn in calls.items()}
+    plain = (lambda: phi_fused_prefetch_plain(*args, active, block_m=256)) \
+        if route == "fused_prefetch" else (lambda: phi_fused_plain(*args, block_m=256))
+    return {"layer": name, "M": a.shape[0], "K": a.shape[1], "N": w2.shape[1], "T": T,
+            "route": route, "p_active": active.shape[-1], "ms": times[route],
+            **{f"ms_{impl}": t for impl, t in times.items()},
+            "plain_ms": cuda_time_ms(plain, runs=plain_runs, warmup=1),
+            "library_ms": cuda_time_ms(lambda: torch.matmul(a, w2)),
+            "bytes_ms": b_ms, "ops_ms": o_ms, "bound_ms": max(b_ms, o_ms),
+            "launches_per_batch": 1}
+
+
+def lif_rows(inputs) -> tuple[list, float]:
+    """The LIF sequence kernel against the plain version (and the autograd
+    ``lif_sequence``) on each recorded input, hard and soft reset, bitwise;
+    the step kernel against ``lif_ref``. Returns per-input timing rows and
+    the largest difference seen."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.lif import lif_sequence_cuda, lif_sequence_plain, lif_step_cuda
+    from repro_torch.snn import lif as snn_lif
+
+    rows, err = [], 0.0
+    for x_seq in inputs:
+        for reset in ("hard", "soft"):
+            got = lif_sequence_cuda(x_seq, reset=reset)
+            with torch.enable_grad():
+                want = snn_lif.lif_sequence(x_seq.clone().requires_grad_(),
+                                            snn_lif.LIFConfig(reset=reset)).detach()
+            plain = lif_sequence_plain(x_seq, reset=reset)
+            v = torch.randn(x_seq.shape[1:], generator=torch.Generator().manual_seed(1))
+            v = v.to(x_seq.device)
+            s, vn = lif_step_cuda(v, x_seq[0], reset=reset)
+            rs, rv = ref.lif_ref(v, x_seq[0], 0.5, 1.0, reset)
+            errs = [float((x - y).abs().max()) for x, y in
+                    ((got, want), (got, plain), (s, rs), (vn, rv))]
+            err = max([err] + errs)
+            if not (torch.equal(got, want) and torch.equal(got, plain)):
+                raise AssertionError(f"lif_sequence kernel != plain, shape {tuple(x_seq.shape)}, "
+                                     f"max |diff| {max(errs[:2])}")
+            if not (torch.equal(s, rs) and torch.equal(vn, rv)):
+                raise AssertionError(f"lif_step kernel != lif_ref, shape {tuple(v.shape)}, "
+                                     f"max |diff| {max(errs[2:])}")
+        b_ms, o_ms = lif_bound_ms(x_seq.shape[0], x_seq[0].numel())
+        rows.append({
+            "shape": list(x_seq.shape),
+            "ms": cuda_time_ms(lambda: lif_sequence_cuda(x_seq)),
+            "plain_ms": cuda_time_ms(lambda: lif_sequence_plain(x_seq), runs=10),
+            "bytes_ms": b_ms, "ops_ms": o_ms, "bound_ms": max(b_ms, o_ms)})
+    return rows, err
+
+
+def record_lif_inputs(fn) -> list:
+    """The currents every LIF sequence kernel launch of ``fn()`` receives."""
+    from repro_torch.snn import lif as snn_lif
+
+    inputs, real = [], snn_lif.lif_sequence_cuda
+
+    def recording(x_seq, **kw):
+        inputs.append(x_seq.clone())
+        return real(x_seq, **kw)
+
+    snn_lif.lif_sequence_cuda = recording
+    try:
+        fn()
+    finally:
+        snn_lif.lif_sequence_cuda = real
+    return inputs
+
+
+def gate_routes(params, state, acts) -> dict:
+    """The fused kernel ``ops.fused_shape_viable`` gives each calibrated GEMM
+    of a path, from its shape and calibration usage, as ``phi_apply`` asks."""
+    from repro_torch.kernels import ops
+
+    return {name: ops.fused_shape_viable(act.shape[0], act.shape[1],
+                                         params[name]["w"].shape[-1],
+                                         *state.patterns[name].shape[:2],
+                                         p_active=state.p_active[name])
+            for name, act in acts.items() if not name.endswith("_attn")}
+
+
+def check_fused_launches(launches, routes, path) -> None:
+    """Each fused kernel launched once per batch for every GEMM routed to it."""
+    for impl in ("fused", "fused_stream", "fused_prefetch"):
+        want = BATCHES * sum(r == impl for r in routes.values())
+        if launches[f"phi_{impl}_cuda"] != want:
+            raise AssertionError(f"{path}: phi_{impl} launches {launches[f'phi_{impl}_cuda']} "
+                                 f"!= {want}: routes {routes}")
+
+
 def bound(rows) -> tuple[float, str]:
     """Sum of per-call bounds, and what bounds the sum (bytes or operations)."""
     total = sum(max(r["bytes_ms"], r["ops_ms"]) for r in rows)
     by = "bytes" if sum(r["bytes_ms"] for r in rows) >= sum(r["ops_ms"] for r in rows) \
         else "operations"
     return total, by
+
+
+def spikformer_path(dev, images, smi) -> dict:
+    """The spikformer phases: Spikformer-4-384 Phi inference with every
+    attention site on the phi_flash_attention kernel and every GEMM on the
+    fused kernel the shape gate picks; each kernel against its plain version
+    at the path's shapes (the attention also on the masks and a ragged S);
+    timings. Returns the attention kernel's entry of the ``kernels`` line,
+    the path's fused and LIF timing rows, the largest LIF difference and the
+    main path's launch counts."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.patterns import PhiConfig
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.lif import lif_sequence_cuda, lif_step_cuda
+    from repro_torch.kernels.phi_attention import (
+        flash_attention_cuda, phi_flash_attention_cuda, phi_flash_attention_plain)
+    from repro_torch.kernels.phi_fused import (
+        phi_fused_cuda, phi_fused_prefetch_cuda, phi_fused_stream_cuda)
+    from repro_torch.snn import models as M
+
+    cfg = M.SNNConfig(kind="spikformer", input_size=32, input_channels=3, num_classes=10,
+                      timesteps=4, dim=384, heads=12, blocks=4, attn="flash",
+                      phi=PhiConfig(k=16, q=128, iters=20))
+    params = M.init(cfg, torch.Generator().manual_seed(SEED), device=dev)
+    for name, leaf in params.items():
+        leaf["w"] = dyadic(leaf["w"] * (1.0 if name == "embed" else GAIN))
+    calib_x, batches = images[:BATCH], images[BATCH:].split(BATCH)
+    policy = dispatch.PhiExecutionPolicy()
+    prev_policy = dispatch.set_policy(policy)
+    counted = (phi_fused_cuda, phi_fused_stream_cuda, phi_fused_prefetch_cuda, lif_sequence_cuda,
+               lif_step_cuda, phi_flash_attention_cuda, flash_attention_cuda)
+
+    # ------------------------------------------------------ main path ---
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        state, acts = M.calibrate_model(params, cfg, calib_x)
+        torch.cuda.synchronize()
+        calib_s = time.perf_counter() - t0
+        logits = [(M.phi_apply(params, cfg, state, x), M.apply(params, cfg, x))
+                  for x in batches]
+        torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counted}
+    main_s = time.perf_counter() - t0
+    decisions = policy.decisions()
+
+    n_attn = sum(name.endswith("_attn") for name in state.patterns)
+    n_mm = len(state.patterns) - n_attn
+    if n_attn != cfg.blocks or n_mm != 4 * cfg.blocks + 1:
+        raise AssertionError(f"calibrated sites {sorted(state.patterns)}")
+    if launches["phi_flash_attention_cuda"] != BATCHES * cfg.blocks:
+        raise AssertionError(f"phi_flash_attention launches {launches} != {BATCHES} x 4")
+    # The gate's kernel per GEMM: fc2 (K = 1536, T = 96) streamed, a GEMM
+    # whose calibration usage is skewed prefetched, the rest on the first one.
+    routes = gate_routes(params, state, acts)
+    check_fused_launches(launches, routes, "spikformer")
+    if launches["lif_sequence_cuda"] <= 0:
+        raise AssertionError("the LIF sequence kernel never launched on the spikformer path")
+    for b in range(cfg.blocks):
+        key = (f"snn.b{b}_attn", "phi_flash", "spike_qk_phi_flash_native")
+        if decisions.get(key) != BATCHES:
+            raise AssertionError(f"{key} resolved {decisions.get(key)} times: {decisions}")
+    if any(reason.endswith("_xla") for _, _, reason in decisions):
+        raise AssertionError(f"a plain (_xla) row fired on the card: {decisions}")
+    for i, (p, d) in enumerate(logits):
+        if p.shape != (BATCH, 10) or not torch.isfinite(p).all():
+            raise AssertionError(f"spikformer batch {i}: logits not finite/(B, 10)")
+        if not torch.equal(p, d):
+            raise AssertionError(f"spikformer batch {i}: phi_apply != dense apply, max |diff| "
+                                 f"{float((p - d).abs().max())}")
+        if float(p.abs().sum()) == 0:
+            raise AssertionError(f"spikformer batch {i}: all logits are zero")
+    density = {name: float(act.mean()) for name, act in acts.items()}
+    if min(density.values()) < 0.01:
+        raise AssertionError(f"a Phi site has input spike density < 1%: {density}")
+    # The CPU plain versions on the same input: reported, not required equal
+    # (the kernel's softmax rounds in another order than the plain one).
+    cpu_params = {n: {"w": leaf["w"].cpu()} for n, leaf in params.items()}
+    cpu_state = M.PhiState({n: p.cpu() for n, p in state.patterns.items()},
+                           {n: p.cpu() for n, p in state.pwp.items()}, state.usage)
+    cpu_logits = M.phi_apply(cpu_params, cfg, cpu_state, batches[0].cpu())
+    emit({"phase": "spikformer_main_path",
+          "config": {"kind": cfg.kind, "dim": cfg.dim, "heads": cfg.heads,
+                     "blocks": cfg.blocks, "attn": cfg.attn, "input_size": cfg.input_size,
+                     "timesteps": cfg.timesteps, "k": cfg.phi.k, "q": cfg.phi.q,
+                     "iters": cfg.phi.iters, "batch": BATCH, "batches": BATCHES},
+          "calibrate_s": calib_s, "main_path_s": main_s, "launches": launches,
+          "decisions": [[*key, n] for key, n in sorted(decisions.items())],
+          "routes": routes,
+          "logits_bitwise_equal_dense": True, "density": density,
+          "cpu_plain_logits_max_abs_diff": float((cpu_logits - logits[0][0].cpu()).abs().max())})
+
+    # --------------------------------------------------------- parity ---
+    sites = []
+    real_attention = policy.attention
+
+    def recording(q, k, v, patterns=None, **kw):
+        sites.append((kw["site"], q, k, v, patterns, kw.get("packed")))
+        return real_attention(q, k, v, patterns, **kw)
+
+    policy.attention = recording
+    try:
+        with torch.no_grad():
+            lif_inputs = record_lif_inputs(lambda: M.phi_apply(params, cfg, state, batches[0]))
+    finally:
+        policy.attention = real_attention
+        dispatch.set_policy(prev_policy)
+    fused_args = {name: (act.contiguous(), state.patterns[name], state.pwp[name],
+                         torch.ones(state.pwp[name].shape[:2], device=dev), params[name]["w"])
+                  for name, act in acts.items() if not name.endswith("_attn")}
+    sets = {name: active_sets(args, state.p_active[name]) for name, args in fused_args.items()}
+    gemm_checks = {name: fused_checks(f"spikformer {name}", args, state.packed[name],
+                                      sets[name])
+                   for name, args in fused_args.items()}
+    lif_timing, lif_err = lif_rows(lif_inputs)
+    attn_err, checks = 0.0, []
+
+    def check(label, q, k, v, pats, packed, **kw):
+        nonlocal attn_err
+        out, nnz = phi_flash_attention_cuda(q, k, v, pats, packed=packed, **kw)
+        pout, pnnz = phi_flash_attention_plain(q, k, v, pats, **kw)
+        dense = flash_attention_cuda(q, k, v, **{"causal": False, **kw})
+        torch.cuda.synchronize()
+        err = float((out - pout).abs().max())
+        # Scores and l2_nnz are exact; the softmax sums p and p.V in another
+        # order than the plain version and uses expf: each output is a convex
+        # combination of V rows, so the bound is ATTN_ULPS ulps of max|V|.
+        tol = ATTN_ULPS * 2.0 ** -24 * float(v.abs().max())
+        if not torch.equal(nnz, pnnz):
+            raise AssertionError(f"{label}: l2_nnz differs from the plain version")
+        if err > tol:
+            raise AssertionError(f"{label}: kernel != plain, max |diff| {err} > {tol}")
+        if not torch.equal(out, dense):
+            raise AssertionError(f"{label}: Phi and dense instantiations differ, max |diff| "
+                                 f"{float((out - dense).abs().max())}")
+        attn_err = max(attn_err, err)
+        checks.append({"case": label, "shape": list(q.shape), "max_abs_err": err, "tol": tol,
+                       "l2_nnz": int(nnz.sum())})
+
+    blocks = {}
+    for site, q, k, v, pats, packed in sites:
+        blocks[site] = policy.last_decision(site).blocks
+        check(site, q, k, v, pats, packed, block_q=blocks[site][0], block_kv=blocks[site][1])
+    _, q, k, v, pats, packed = sites[0]
+    for label, kw in (("causal", dict(causal=True, block_q=32, block_kv=16)),
+                      ("window", dict(causal=True, window=9, block_q=16, block_kv=32)),
+                      ("chunk", dict(chunk=16, block_q=32, block_kv=32)),
+                      ("ragged_s", dict(block_q=16, block_kv=16))):
+        if label == "ragged_s":
+            q, k, v = (x[:, :37].contiguous() for x in (q, k, v))
+        check(label, q, k, v, pats, packed, **kw)
+    emit({"phase": "spikformer_parity", "phi_flash_attention": checks,
+          "max_abs_err": attn_err, "fused_bitwise_l2_nnz": gemm_checks,
+          "lif_shapes": [r["shape"] for r in lif_timing], "lif_bitwise": True,
+          "lif_max_abs_err": lif_err})
+
+    # --------------------------------------------------------- timing ---
+    rows = []
+    for site, q, k, v, pats, packed in sites:
+        bq, bkv = blocks[site]
+        kw = dict(causal=False, block_q=bq, block_kv=bkv)
+        _, nnz = phi_flash_attention_cuda(q, k, v, pats, packed=packed, **kw)
+        B, S, H, D = q.shape
+        T, qp, kp = pats.shape
+        b_ms, o_ms = attn_bound_ms(B, S, H, D, T, qp, kp, min(bq, S), min(bkv, S),
+                                   int((pats != 0).sum()), int(nnz.sum()))
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        rows.append({
+            "site": site, "shape": [B, S, H, D], "blocks": [bq, bkv],
+            "ms": cuda_time_ms(lambda: phi_flash_attention_cuda(q, k, v, pats, packed=packed,
+                                                                **kw)),
+            "dense_ms": cuda_time_ms(lambda: flash_attention_cuda(q, k, v, **kw)),
+            # a smaller q-block: less shared memory per block, more blocks per SM
+            "ms_block_q32": cuda_time_ms(lambda: phi_flash_attention_cuda(
+                q, k, v, pats, packed=packed, **{**kw, "block_q": 32})),
+            "plain_ms": cuda_time_ms(lambda: phi_flash_attention_plain(q, k, v, pats, **kw),
+                                     runs=10),
+            "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh)),
+            "bytes_ms": b_ms, "ops_ms": o_ms, "bound_ms": max(b_ms, o_ms),
+            "launches_per_batch": 1})
+    # Both fused kernels at this path's 17 GEMMs of one batch (the
+    # calibration batch's activations have a main-path batch's shapes).
+    fused_rows = [fused_timing(name, args, state.packed[name], routes[name], sets[name],
+                               plain_runs=3)
+                  for name, args in fused_args.items()]
+    with torch.no_grad():
+        phi_ms = cuda_time_ms(lambda: M.phi_apply(params, cfg, state, batches[0]), runs=10)
+        dense_ms = cuda_time_ms(lambda: M.apply(params, cfg, batches[0]), runs=10)
+        profiles = {"phi_apply": device_profile(
+                        lambda: M.phi_apply(params, cfg, state, batches[0]), phi_ms),
+                    "apply": device_profile(lambda: M.apply(params, cfg, batches[0]), dense_ms)}
+    emit({"phase": "spikformer_timing", "device": torch.cuda.get_device_name(0),
+          "nvidia_smi": smi, "phi_fused": fused_rows,
+          "phi_fused_per_batch": {
+              "ms": sum(r["ms"] for r in fused_rows),
+              **{f"ms_all_{impl}": sum(r[f"ms_{impl}"] for r in fused_rows)
+                 for impl in ("fused", "fused_stream", "fused_prefetch")}},
+          "lif_sequence": lif_timing,
+          "phi_flash_attention": rows,
+          "phi_apply_ms_per_batch": phi_ms, "apply_ms_per_batch": dense_ms,
+          "profile": profiles})
+    total, by = bound(rows)
+    # Times are per batch of the main path: the sum over its four sites.
+    attn_entry = {"name": "phi_flash_attention", "route": "cuda",
+                  "source": "src/repro_torch/kernels/csrc/phi_attention.cu",
+                  "replaces": "src/repro/kernels/phi_attention.py:158",
+                  "launches": launches["phi_flash_attention_cuda"], "max_abs_err": attn_err,
+                  "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+                  "bound_ms": total, "bound_by": by,
+                  "library_ms": sum(r["library_ms"] for r in rows),
+                  "dense_instantiation_ms": sum(r["dense_ms"] for r in rows),
+                  "dense_instantiation_launches": launches["flash_attention_cuda"]}
+    return {"attn_entry": attn_entry, "fused_rows": fused_rows, "lif_rows": lif_timing,
+            "lif_err": lif_err, "launches": launches}
 
 
 def main() -> int:
@@ -129,10 +539,12 @@ def main() -> int:
 
     from repro_torch.core.assign import phi_stats
     from repro_torch.core.patterns import PhiConfig, pattern_weight_products, quantize_pwp
-    from repro_torch.kernels import _build, ref
-    from repro_torch.kernels.lif import lif_sequence_cuda, lif_sequence_plain, lif_step_cuda
-    from repro_torch.kernels.phi_fused import phi_fused_cuda, phi_fused_plain
-    from repro_torch.snn import lif as snn_lif
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.lif import lif_sequence_cuda, lif_step_cuda
+    from repro_torch.kernels.phi_attention import flash_attention_cuda, phi_flash_attention_cuda
+    from repro_torch.kernels.phi_fused import (
+        phi_fused_cuda, phi_fused_plain, phi_fused_prefetch_cuda, phi_fused_prefetch_plain,
+        phi_fused_stream_cuda)
     from repro_torch.snn import models as M
     from repro_torch.snn.data import synthetic_images
 
@@ -170,7 +582,10 @@ def main() -> int:
     images = dyadic(torch.from_numpy(images)).to(dev)
     calib_x, batches = images[:BATCH], images[BATCH:].split(BATCH)
 
-    phi_fused_cuda.launches = lif_sequence_cuda.launches = lif_step_cuda.launches = 0
+    counted = (phi_fused_cuda, phi_fused_stream_cuda, phi_fused_prefetch_cuda, lif_sequence_cuda,
+               lif_step_cuda, phi_flash_attention_cuda, flash_attention_cuda)
+    for fn in counted:
+        fn.launches = 0
     t0 = time.perf_counter()
     with torch.no_grad():
         state, acts = M.calibrate_model(params, cfg, calib_x)
@@ -182,9 +597,7 @@ def main() -> int:
             dense_logits = M.apply(params, cfg, x)
             logits.append((phi_logits, dense_logits))
         torch.cuda.synchronize()
-    launches = {"phi_fused": phi_fused_cuda.launches,
-                "lif_sequence": lif_sequence_cuda.launches,
-                "lif_step": lif_step_cuda.launches}
+    launches = {fn.__name__: fn.launches for fn in counted}
     main_s = time.perf_counter() - t0
 
     for i, (p, d) in enumerate(logits):
@@ -195,10 +608,14 @@ def main() -> int:
                                  f"|diff| {float((p - d).abs().max())}")
         if float(p.abs().sum()) == 0:
             raise AssertionError(f"batch {i}: all logits are zero (no spikes reached the head)")
-    n_phi = len(state.patterns)
-    if launches["phi_fused"] != BATCHES * n_phi or n_phi != 5:
-        raise AssertionError(f"fused launches {launches['phi_fused']} != {BATCHES} x 5")
-    if launches["lif_sequence"] <= 0:
+    # The gate's kernel per layer: conv3 and conv4 (T >= 96) streamed, a
+    # layer whose calibration usage is skewed prefetched, the rest on the
+    # first kernel; five Phi GEMMs a batch.
+    routes = gate_routes(params, state, acts)
+    if len(routes) != 5:
+        raise AssertionError(f"calibrated layers {sorted(routes)} != 5")
+    check_fused_launches(launches, routes, "vgg")
+    if launches["lif_sequence_cuda"] <= 0:
         raise AssertionError("the LIF sequence kernel never launched on the main path")
 
     layers = {}
@@ -226,6 +643,7 @@ def main() -> int:
                                            "q": cfg.phi.q, "iters": cfg.phi.iters,
                                            "batch": BATCH, "batches": BATCHES},
           "calibrate_s": calib_s, "main_path_s": main_s, "launches": launches,
+          "routes": routes,
           "logits_bitwise_equal_dense": True, "logits_equal_cpu_plain": True,
           "layers": layers})
 
@@ -236,7 +654,7 @@ def main() -> int:
         scale = torch.ones(pwp.shape[:2], device=dev) if scale is None else scale
         return [acts[name].contiguous(), pats, pwp, scale, w2]
 
-    fused_err, fused_checks = 0.0, []
+    fused_errs, fused_rows_checked = {}, []
     for name in acts:
         w2 = params[name]["w"].reshape(-1, layers[name]["N"])
         L, T = layers[name], layers[name]["T"]
@@ -249,29 +667,31 @@ def main() -> int:
         cases["ragged_m"] = ragged
         packed = state.packed[name]
         for case, args in cases.items():
-            out, nnz = phi_fused_cuda(*args, block_m=256, packed=packed)
-            pout, pnnz = phi_fused_plain(*args, block_m=256)
-            torch.cuda.synchronize()
-            if not (torch.equal(out, pout) and torch.equal(nnz, pnnz)):
-                raise AssertionError(f"{name} {case}: fused kernel != plain version, max |diff| "
-                                     f"{float((out - pout).abs().max())}")
-            if case == "f32" and int(nnz.sum()) != round(L["l2_density"] * L["M"] * L["K"]):
-                raise AssertionError(f"{name}: l2_nnz {int(nnz.sum())} disagrees with phi_stats")
+            nnz = fused_checks(f"{name} {case}", args, packed,
+                               active_sets(args, state.p_active[name]))
+            if case == "f32" and nnz != round(L["l2_density"] * L["M"] * L["K"]):
+                raise AssertionError(f"{name}: l2_nnz {nnz} disagrees with phi_stats")
         # Off the 2^-10 grid only the order of each partition's <= k-term L2
-        # sum differs (ascending set bits in the kernel, a matmul in the plain
+        # sum differs (ascending set bits in the kernels, a matmul in the plain
         # version). Bound: T partitions x k terms x k*max|w| x 2^-24.
         wr = raw_w[name].reshape(-1, L["N"])
         pwp_r = pattern_weight_products(state.patterns[name], wr)
         args = fused_args(name, wr, pwp_r)
-        out, _ = phi_fused_cuda(*args, block_m=256, packed=packed)
         pout, _ = phi_fused_plain(*args, block_m=256)
-        err = float((out - pout).abs().max())
+        active = active_sets(args, state.p_active[name])
+        ppout, _ = phi_fused_prefetch_plain(*args, active, block_m=256)
         tol = T * 16 * 16 * float(wr.abs().max()) * 2.0 ** -24
-        if err > tol:
-            raise AssertionError(f"{name} unrounded weights: max |diff| {err} > {tol}")
-        fused_err = max(fused_err, err)
-        fused_checks.append({"layer": name, "bitwise": list(cases), "unrounded_err": err,
-                             "unrounded_tol": tol})
+        errs = {}
+        for kern, extra, want in ((phi_fused_cuda, (), pout), (phi_fused_stream_cuda, (), pout),
+                                  (phi_fused_prefetch_cuda, (active,), ppout)):
+            out, _ = kern(*args, *extra, block_m=256, packed=packed)
+            errs[kern.__name__] = float((out - want).abs().max())
+            if errs[kern.__name__] > tol:
+                raise AssertionError(f"{name} unrounded weights, {kern.__name__}: max |diff| "
+                                     f"{errs[kern.__name__]} > {tol}")
+        fused_errs = {kern: max(err, fused_errs.get(kern, 0.0)) for kern, err in errs.items()}
+        fused_rows_checked.append({"layer": name, "bitwise": list(cases), "unrounded_err": errs,
+                                   "unrounded_tol": tol})
     refused = []
     for what, call in (
         ("k=128", lambda: phi_fused_cuda(
@@ -282,6 +702,10 @@ def main() -> int:
             torch.zeros((8, 16), device=dev), torch.zeros((1, 1024, 16), device=dev),
             torch.zeros((1, 1025, 8), device=dev), torch.ones((1, 1025), device=dev),
             torch.zeros((16, 8), device=dev), block_m=8)),
+        ("stream group_t=9", lambda: phi_fused_stream_cuda(
+            torch.zeros((8, 16), device=dev), torch.zeros((1, 4, 16), device=dev),
+            torch.zeros((1, 5, 8), device=dev), torch.ones((1, 5), device=dev),
+            torch.zeros((16, 8), device=dev), block_m=8, group_t=9)),
         ("lif float64", lambda: lif_sequence_cuda(torch.zeros((4, 8), device=dev,
                                                               dtype=torch.float64))),
     ):
@@ -293,69 +717,20 @@ def main() -> int:
             raise AssertionError(f"the kernel took a refused input ({what}) without raising")
 
     # LIF: the currents each spiking layer's LIF sees on the main path.
-    lif_inputs: list = []
-    real_seq = snn_lif.lif_sequence_cuda
-
-    def recording(x_seq, **kw):
-        lif_inputs.append(x_seq.clone())
-        return real_seq(x_seq, **kw)
-
-    snn_lif.lif_sequence_cuda = recording
-    try:
-        with torch.no_grad():
-            M.apply(params, cfg, batches[0])
-    finally:
-        snn_lif.lif_sequence_cuda = real_seq
-    lif_checks, lif_err = [], 0.0
-    for x_seq in lif_inputs:
-        for reset in ("hard", "soft"):
-            lcfg = snn_lif.LIFConfig(reset=reset)
-            got = lif_sequence_cuda(x_seq, reset=reset)
-            with torch.enable_grad():
-                want = snn_lif.lif_sequence(x_seq.clone().requires_grad_(), lcfg).detach()
-            plain = lif_sequence_plain(x_seq, reset=reset)
-            v = torch.randn(x_seq.shape[1:], generator=torch.Generator().manual_seed(1)).to(dev)
-            s, vn = lif_step_cuda(v, x_seq[0], reset=reset)
-            rs, rv = ref.lif_ref(v, x_seq[0], 0.5, 1.0, reset)
-            errs = [float((x - y).abs().max()) for x, y in
-                    ((got, want), (got, plain), (s, rs), (vn, rv))]
-            lif_err = max([lif_err] + errs)
-            if not (torch.equal(got, want) and torch.equal(got, plain)):
-                raise AssertionError(f"lif_sequence kernel != plain, shape {tuple(x_seq.shape)}, "
-                                     f"max |diff| {max(errs[:2])}")
-            if not (torch.equal(s, rs) and torch.equal(vn, rv)):
-                raise AssertionError(f"lif_step kernel != lif_ref, shape {tuple(v.shape)}, "
-                                     f"max |diff| {max(errs[2:])}")
-        lif_checks.append(list(x_seq.shape))
+    with torch.no_grad():
+        lif_inputs = record_lif_inputs(lambda: M.apply(params, cfg, batches[0]))
+    lif_timing, lif_err = lif_rows(lif_inputs)
     torch.cuda.synchronize()
-    emit({"phase": "parity", "phi_fused": fused_checks, "phi_fused_max_abs_err": fused_err,
-          "lif_shapes": lif_checks, "lif_bitwise": True, "lif_max_abs_err": lif_err,
-          "refused": refused})
+    emit({"phase": "parity", "phi_fused": fused_rows_checked, "max_abs_err": fused_errs,
+          "lif_shapes": [r["shape"] for r in lif_timing], "lif_bitwise": True,
+          "lif_max_abs_err": lif_err, "refused": refused})
 
     # ------------------------------------------------------------- timing ---
     timing = []
     for name in acts:
-        L = layers[name]
-        w2 = params[name]["w"].reshape(-1, L["N"])
-        args, packed = fused_args(name, w2), state.packed[name]
-        _, nnz = phi_fused_cuda(*args, block_m=256, packed=packed)
-        b_ms, o_ms = fused_bound_ms(L["M"], L["K"], L["N"], L["T"], cfg.phi.q, cfg.phi.k,
-                                    int(nnz.sum()))
-        timing.append({
-            "layer": name, "M": L["M"], "K": L["K"], "N": L["N"], "T": L["T"],
-            "ms": cuda_time_ms(lambda: phi_fused_cuda(*args, block_m=256, packed=packed)),
-            "plain_ms": cuda_time_ms(lambda: phi_fused_plain(*args, block_m=256), runs=10),
-            "library_ms": cuda_time_ms(lambda: torch.matmul(args[0], w2)),
-            "bytes_ms": b_ms, "ops_ms": o_ms, "bound_ms": max(b_ms, o_ms),
-            "launches_per_batch": 1})
-    lif_rows = []
-    for x_seq in lif_inputs:
-        b_ms, o_ms = lif_bound_ms(x_seq.shape[0], x_seq[0].numel())
-        lif_rows.append({
-            "shape": list(x_seq.shape),
-            "ms": cuda_time_ms(lambda: lif_sequence_cuda(x_seq)),
-            "plain_ms": cuda_time_ms(lambda: lif_sequence_plain(x_seq), runs=10),
-            "bytes_ms": b_ms, "ops_ms": o_ms, "bound_ms": max(b_ms, o_ms)})
+        args = fused_args(name, params[name]["w"].reshape(-1, layers[name]["N"]))
+        timing.append(fused_timing(name, args, state.packed[name], routes[name],
+                                   active_sets(args, state.p_active[name]), plain_runs=5))
     with torch.no_grad():
         phi_ms = cuda_time_ms(lambda: M.phi_apply(params, cfg, state, batches[0]), runs=10)
         dense_ms = cuda_time_ms(lambda: M.apply(params, cfg, batches[0]), runs=10)
@@ -363,30 +738,50 @@ def main() -> int:
                         lambda: M.phi_apply(params, cfg, state, batches[0]), phi_ms),
                     "apply": device_profile(lambda: M.apply(params, cfg, batches[0]), dense_ms)}
     emit({"phase": "timing", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-          "phi_fused": timing, "lif_sequence": lif_rows,
+          "phi_fused": timing, "lif_sequence": lif_timing,
           "phi_apply_ms_per_batch": phi_ms, "apply_ms_per_batch": dense_ms,
           "profile": profiles})
 
+    # --------------------------------------------------------- spikformer ---
+    spk = spikformer_path(dev, images, smi)
+
     # ------------------------------------------------------------ summary ---
-    # Times are per batch of the main path: the sum over the calls one batch
-    # makes (the five Phi layers; the five spiking layers' LIF sequences).
+    # Times are per batch of the main paths: the sum over the calls one
+    # batch of each path makes (the VGG's five Phi GEMMs and the
+    # spikformer's seventeen, each on the kernel its path runs; both paths'
+    # LIF sequences; the spikformer's four attention sites). Launches are the
+    # counts of the main paths' runs, VGG and spikformer added.
     print(smi, flush=True)
-    fused_bound, fused_by = bound(timing)
-    lif_bound, lif_by = bound(lif_rows)
+    all_fused = timing + spk["fused_rows"]
+    all_lif = lif_timing + spk["lif_rows"]
+    spk_launches = spk["launches"]
+
+    def fused_entry(impl, replaces):
+        rows = [r for r in all_fused if r["route"] == impl]
+        n = launches[f"phi_{impl}_cuda"] + spk_launches[f"phi_{impl}_cuda"]
+        if not rows or n == 0:
+            raise AssertionError(f"phi_{impl} ran on neither main path")
+        b_ms, by = bound(rows)
+        return {"name": f"phi_{impl}", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/phi_fused.cu", "replaces": replaces,
+                "launches": n,
+                "max_abs_err": fused_errs[f"phi_{impl}_cuda"], "ms": sum(r["ms"] for r in rows),
+                "plain_ms": sum(r["plain_ms"] for r in rows), "bound_ms": b_ms, "bound_by": by,
+                "library_ms": sum(r["library_ms"] for r in rows)}
+
+    lif_bound, lif_by = bound(all_lif)
     emit({"kernels": [
-        {"name": "phi_fused", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/phi_fused.cu",
-         "replaces": "src/repro/kernels/phi_fused.py:135",
-         "launches": launches["phi_fused"], "max_abs_err": fused_err,
-         "ms": sum(r["ms"] for r in timing), "plain_ms": sum(r["plain_ms"] for r in timing),
-         "bound_ms": fused_bound, "bound_by": fused_by,
-         "library_ms": sum(r["library_ms"] for r in timing)},
+        fused_entry("fused", "src/repro/kernels/phi_fused.py:135"),
         {"name": "lif_sequence", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lif.cu",
          "replaces": "src/repro/kernels/lif.py:39",
-         "launches": launches["lif_sequence"], "max_abs_err": lif_err,
-         "ms": sum(r["ms"] for r in lif_rows), "plain_ms": sum(r["plain_ms"] for r in lif_rows),
+         "launches": launches["lif_sequence_cuda"] + spk_launches["lif_sequence_cuda"],
+         "max_abs_err": max(lif_err, spk["lif_err"]),
+         "ms": sum(r["ms"] for r in all_lif), "plain_ms": sum(r["plain_ms"] for r in all_lif),
          "bound_ms": lif_bound, "bound_by": lif_by, "library_ms": None},
+        spk["attn_entry"],
+        fused_entry("fused_stream", "src/repro/kernels/phi_fused.py:326"),
+        fused_entry("fused_prefetch", "src/repro/kernels/phi_fused.py:549"),
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

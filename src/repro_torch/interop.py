@@ -30,7 +30,11 @@ def params_from_numpy(tree: Mapping[str, Any], device: str | torch.device
 def phi_state_from_numpy(patterns: Mapping[str, Any], pwp: Mapping[str, Any],
                          usage: Mapping[str, Any] | None, device: str | torch.device
                          ) -> PhiState:
-    """A ``PhiState`` from per-layer numpy patterns, PWPs and usage histograms."""
+    """A ``PhiState`` from per-layer numpy patterns, PWPs and usage histograms.
+
+    Attention sites (``*_attn``) have patterns and usage but no PWP: ``pwp``
+    need not name every layer of ``patterns``.
+    """
     return PhiState(
         patterns={k: _tensor(v, device, torch.uint8) for k, v in patterns.items()},
         pwp={k: _tensor(v, device) for k, v in pwp.items()},

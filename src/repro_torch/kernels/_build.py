@@ -20,7 +20,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("phi_fused.cu", "lif.cu")
+SOURCES = ("phi_fused.cu", "lif.cu", "phi_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -29,11 +29,23 @@ _SIGNATURES = {
     "phi_fused_launch": [_P, _P, _P, ctypes.c_int, _P, _P, _P, _P, ctypes.c_longlong,
                          ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                          ctypes.c_int, ctypes.c_int, _P],
+    "phi_fused_stream_launch": [_P, _P, _P, ctypes.c_int, _P, _P, _P, _P, ctypes.c_longlong,
+                                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+    "phi_fused_stream_smem_bytes": [ctypes.c_int] * 3,
+    "phi_fused_prefetch_launch": [_P, _P, _P, ctypes.c_int, _P, _P, _P, _P, ctypes.c_longlong,
+                                  ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  ctypes.c_int, ctypes.c_int, _P, ctypes.c_int, _P],
     "lif_step_launch": [_P, _P, _P, _P, ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
                         ctypes.c_int, _P],
     "lif_sequence_launch": [_P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
                             ctypes.c_float, ctypes.c_int, _P],
+    "phi_attention_launch": [_P] * 6 + [ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_int, _P],
+    "phi_attention_smem_bytes": [ctypes.c_int] * 6,
 }
+# Return types other than the launch functions' CUDA error code.
+_RESTYPES = {"phi_attention_smem_bytes": ctypes.c_longlong,
+             "phi_fused_stream_smem_bytes": ctypes.c_longlong}
 
 _lib: ctypes.CDLL | None = None
 # What the last build in this process did: seconds and ptxas resource lines.
@@ -96,7 +108,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
         lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -1,11 +1,14 @@
-"""Public wrappers around the Phi kernels (port of ``repro/kernels/ops.py``, main-path slice).
+"""Public wrappers around the Phi kernels (port of ``repro/kernels/ops.py``, in slices).
 
 Responsibilities:
   * shape handling: flatten leading axes, pick the ``l2_nnz`` block, default
     the PWP dequant scales;
-  * the composite ``phi_matmul`` for the ported lowerings ``ref``, ``coo``
-    and ``fused``;
-  * ``lif_step`` on tensors of any shape.
+  * the composite ``phi_matmul`` for the ported lowerings ``ref``, ``coo``,
+    ``fused``, ``fused_stream`` and ``fused_prefetch``, and the gate between
+    the three fused kernels (``fused_shape_viable``);
+  * ``lif_step`` on tensors of any shape;
+  * ``phi_flash_attention`` and the attention kernel's shared-memory model
+    and block choice.
 
 The kernel wrappers choose by the device of their tensors: CPU tensors run
 the plain PyTorch versions, CUDA tensors the Hopper kernels (or an error).
@@ -17,9 +20,13 @@ import os
 import torch
 
 from repro_torch.core.assign import assign_patterns, pack_l2_coo_jit
+from repro_torch.core.patterns import active_pattern_sets
 from repro_torch.kernels import IMPLS, ref
 from repro_torch.kernels.lif import lif_step_cuda
-from repro_torch.kernels.phi_fused import phi_fused_cuda
+from repro_torch.kernels.phi_attention import SMEM_LIMIT, phi_flash_attention_cuda, smem_bytes
+from repro_torch.kernels.phi_fused import (
+    MAX_GROUP_T, MAX_K, MAX_Q, phi_fused_cuda, phi_fused_prefetch_cuda, phi_fused_stream_cuda,
+    stream_smem_bytes, stripe_active_sets)
 from repro_torch.utils import cdiv
 
 # Rows per l2_nnz audit block when the caller names none (the reference
@@ -30,8 +37,6 @@ FUSED_BLOCK_M = 256
 # Lowerings of the reference that the port has not reached yet, with the
 # ROADMAP item that carries each.
 _NOT_PORTED = {
-    "fused_stream": "ROADMAP queue 2 item 3 (phi_fused_stream_pallas)",
-    "fused_prefetch": "ROADMAP queue 2 item 4 (phi_fused_prefetch_pallas)",
     "pallas": "ROADMAP queue 2 items 5-7 (matcher, l1_gather, l2_spmm)",
 }
 
@@ -82,6 +87,116 @@ def phi_fused(a: torch.Tensor, patterns: torch.Tensor, pwp: torch.Tensor, w: tor
     out, nnz = phi_fused_cuda(a2.to(torch.float32).contiguous(), patterns, pwp, pwp_scale,
                               w.to(torch.float32).contiguous(), block_m=bm, packed=packed)
     return out.reshape(*lead, N), nnz
+
+
+def stream_group_t(q: int, k: int) -> int | None:
+    """Deepest stage (partitions per group, 8 down to 1) of the streaming
+    kernel whose two stages fit a block's shared memory; None when none does."""
+    return next((gt for gt in range(MAX_GROUP_T, 0, -1)
+                 if stream_smem_bytes(q, k, gt) <= SMEM_LIMIT), None)
+
+
+def phi_fused_stream(a: torch.Tensor, patterns: torch.Tensor, pwp: torch.Tensor,
+                     w: torch.Tensor, *, pwp_scale: torch.Tensor | None = None,
+                     block_m: int | None = None, group_t: int | None = None,
+                     packed: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """K-streaming fused Phi matmul: the contract and result of :func:`phi_fused`.
+
+    ``group_t`` K-partitions per shared-memory stage (None: the deepest that
+    fits, :func:`stream_group_t`); the next group's patterns and activations
+    are copied while this one is matched and contracted. Unlike the
+    reference's, ``group_t`` need not divide T: the last group is shorter.
+    """
+    lead = a.shape[:-1]
+    K = a.shape[-1]
+    T, q, k = patterns.shape
+    N = w.shape[-1]
+    a2 = a.reshape(-1, K)
+    bm, pwp_scale = _fused_prologue(a2, pwp, pwp_scale, T, q, block_m or FUSED_BLOCK_M)
+    group_t = group_t or stream_group_t(q, k)
+    if group_t is None:
+        raise ValueError(f"phi_fused_stream: no stage of q={q}, k={k} fits shared memory")
+    out, nnz = phi_fused_stream_cuda(a2.to(torch.float32).contiguous(), patterns, pwp,
+                                     pwp_scale, w.to(torch.float32).contiguous(), block_m=bm,
+                                     group_t=group_t, packed=packed)
+    return out.reshape(*lead, N), nnz
+
+
+def phi_fused_prefetch(a: torch.Tensor, patterns: torch.Tensor, pwp: torch.Tensor,
+                       w: torch.Tensor, *, usage=None, p_active: int | None = None,
+                       pwp_scale: torch.Tensor | None = None, block_m: int | None = None,
+                       packed: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """PWP-prefetching fused Phi matmul: each M-stripe of ``block_m`` rows is
+    matched only against its P most referenced patterns per partition.
+
+    P comes from ``p_active``, else from the calibration ``usage`` histogram
+    ((T, q+1) counts) through ``active_pattern_sets``, which must show skew.
+    The sets come from a pre-pass over the activations
+    (``stripe_active_sets``); the reference's alternative, sets from the
+    policy's runtime match telemetry, comes with the policy's matmul half.
+    Returns ``(out, l2_nnz)`` like :func:`phi_fused`: the output is exact for
+    any sets; ``l2_nnz`` counts the residual of the restricted match.
+    """
+    lead = a.shape[:-1]
+    K = a.shape[-1]
+    T, q, k = patterns.shape
+    N = w.shape[-1]
+    a2 = a.reshape(-1, K)
+    if p_active is None:
+        if usage is None:
+            raise ValueError("phi_fused_prefetch needs a pattern-usage histogram (usage=) or "
+                             "an explicit gather size (p_active=)")
+        active_sets, _ = active_pattern_sets(usage)
+        if active_sets is None:
+            raise ValueError("usage histogram shows no exploitable skew; use impl='fused'")
+        p_active = int(active_sets.shape[-1])
+    p_active = min(int(p_active), q)
+    bm, pwp_scale = _fused_prologue(a2, pwp, pwp_scale, T, q, block_m or FUSED_BLOCK_M)
+    a2 = a2.to(torch.float32).contiguous()
+    active = stripe_active_sets(a2, patterns, p_active, bm)
+    out, nnz = phi_fused_prefetch_cuda(a2, patterns, pwp, pwp_scale,
+                                       w.to(torch.float32).contiguous(), active, block_m=bm,
+                                       packed=packed)
+    return out.reshape(*lead, N), nnz
+
+
+# Fewest K-partitions at which the gate sends a GEMM to the streaming kernel.
+# Neither kernel's shared memory grows with K on the Hopper, and the two take
+# the same time within a few percent at every GEMM of the VGG and
+# Spikformer-4-384 configurations (PERF.md), so the threshold is the
+# reference's: its policy streams K for fc2 of Spikformer-4-384 (T = 96) and
+# conv3/conv4 of the VGG at VGG-16 stage widths (T = 144, 288), and for none
+# of their GEMMs below T = 96.
+STREAM_MIN_T = 96
+
+
+def fused_shape_viable(M: int, K: int, N: int, T: int, q: int, usage=None,
+                       p_active: int | None = None) -> str:
+    """Which fused kernel the Hopper takes for an (M, K) × (K, N) Phi GEMM
+    with T partitions of q patterns: ``"fused_prefetch"``, ``"fused"``,
+    ``"fused_stream"`` or ``"coo"`` (no kernel takes the bank).
+
+    In the reference's order, re-derived from the kernels rather than from
+    its VMEM model: with a calibration ``usage`` histogram that shows skew
+    (``active_pattern_sets``; or an explicit ``p_active``), the prefetching
+    kernel, which matches only the P hot patterns (P ≤ 512); else the
+    streaming kernel where the K loop is long (T ≥ :data:`STREAM_MIN_T`) or q
+    is past the first kernel's 512, and the first kernel elsewhere. Every
+    kernel takes k ≤ 64, and the streaming one any q whose two stages fit
+    227 KB.
+    """
+    k = K // T
+    if k > MAX_K:
+        return "coo"
+    if p_active is None and usage is not None:
+        active, _ = active_pattern_sets(usage)
+        p_active = None if active is None else int(active.shape[-1])
+    if p_active is not None and p_active <= MAX_Q:
+        return "fused_prefetch"
+    if q > MAX_Q:
+        return "fused_stream" if stream_group_t(q, k) is not None else "coo"
+    return "fused_stream" if T >= STREAM_MIN_T else "fused"
 
 
 # -------------------------------------------------------------------- LIF ---
@@ -146,17 +261,22 @@ def phi_matmul(a: torch.Tensor, w: torch.Tensor, patterns: torch.Tensor, pwp: to
                *, impl: str = "fused", nnz_budget: float = 0.08,
                block_m: int | None = None, gather_dtype: torch.dtype | None = None,
                pwp_scale: torch.Tensor | None = None,
-               packed: torch.Tensor | None = None) -> torch.Tensor:
+               packed: torch.Tensor | None = None, usage=None,
+               p_active: int | None = None) -> torch.Tensor:
     """Full Phi sparse matmul: a (..., K) binary × w (K, N) -> (..., N) f32.
 
     impl:
-      "fused" — the single-pass Hopper kernel (plain version on the CPU);
-      "coo"   — the row-chunked gather/scatter lowering in plain PyTorch;
-      "ref"   — the dense L2 oracle.
-    The reference's other lowerings raise ``NotImplementedError`` until
+      "fused"          — the single-pass Hopper kernel (plain version on the CPU);
+      "fused_stream"   — its K-streaming variant (same result);
+      "fused_prefetch" — its variant matching each M-stripe against its hot
+                         patterns only (same result; needs ``usage`` or
+                         ``p_active``);
+      "coo"            — the row-chunked gather/scatter lowering in plain PyTorch;
+      "ref"            — the dense L2 oracle.
+    The reference's "pallas" lowering raises ``NotImplementedError`` until
     ported. ``nnz_budget`` (the static L2 capacity as a fraction of the
     chunk's rows × K) applies to "coo" only; ``packed`` (the bank from
-    ``pack_patterns``) to "fused" only.
+    ``pack_patterns``) to the fused kernels only.
     """
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} not in {IMPLS}")
@@ -171,7 +291,101 @@ def phi_matmul(a: torch.Tensor, w: torch.Tensor, patterns: torch.Tensor, pwp: to
     elif impl == "fused":
         out, _ = phi_fused(a2, patterns, pwp, w, pwp_scale=pwp_scale, block_m=block_m,
                            packed=packed)
+    elif impl == "fused_stream":
+        out, _ = phi_fused_stream(a2, patterns, pwp, w, pwp_scale=pwp_scale, block_m=block_m,
+                                  packed=packed)
+    elif impl == "fused_prefetch":
+        out, _ = phi_fused_prefetch(a2, patterns, pwp, w, usage=usage, p_active=p_active,
+                                    pwp_scale=pwp_scale, block_m=block_m, packed=packed)
     else:
         out = _phi_matmul_coo_chunked(a2, w, patterns, pwp, nnz_budget,
                                       gather_dtype=gather_dtype, pwp_scale=pwp_scale)
     return out.reshape(*lead, N)
+
+
+# -------------------------------------------------------------- attention ---
+def _attn_smem_bytes(bq: int, bkv: int, S: int, D: int, T: int, qp: int) -> int:
+    """Shared memory of one block of the attention kernel at blocks (bq, bkv).
+
+    The kernel streams kv-blocks (``csrc/phi_attention.cu``), so unlike the
+    reference's VMEM model nothing here grows with S: the blocks are clamped
+    to S and the bytes are the kernel's own layout
+    (``phi_attention.smem_bytes``). ``T = 0`` is the dense instantiation.
+    """
+    return smem_bytes(min(bq, S), min(bkv, S), D, T, qp)
+
+
+def _attn_candidates(S: int) -> list[tuple[int, int]]:
+    """(block_q, block_kv) pairs the block choice considers for sequence length S."""
+    cap = max(8, 1 << (max(S, 1) - 1).bit_length())
+    sizes = sorted({min(b, cap) for b in (32, 64, 128)})
+    return [(bq, bkv) for bq in sizes for bkv in sizes]
+
+
+def attn_shape_viable(S: int, D: int, T: int, qp: int, kp: int) -> bool:
+    """Shared-memory gate of the execution policy's attention row: True when
+    the kernel takes the bank (kp ≤ 64, T·kp ≤ D) and some candidate block
+    pair fits the 227 KB a block may use."""
+    if T and (kp > MAX_K or T * kp > D):
+        return False
+    return min(_attn_smem_bytes(bq, bkv, S, D, T, qp)
+               for bq, bkv in _attn_candidates(S)) <= SMEM_LIMIT
+
+
+_ATTN_TUNE_CACHE: dict[tuple, tuple[int, int]] = {}
+
+
+def autotune_attn_blocks(S: int, D: int, T: int, qp: int, kp: int) -> tuple[int, int]:
+    """Pick (block_q, block_kv) for the attention kernel.
+
+    Heuristic, as in the reference: the largest blocks whose shared memory
+    fits, preferring wide kv blocks (fewer online-softmax rescales). There is
+    no timed pass: the dense A/B arm must run the *same* blocks for the
+    bitwise contract. Where nothing fits, the smallest footprint.
+    """
+    key = (S, D, T, qp, kp)
+    if key in _ATTN_TUNE_CACHE:
+        return _ATTN_TUNE_CACHE[key]
+    cands = [c for c in _attn_candidates(S)
+             if _attn_smem_bytes(c[0], c[1], S, D, T, qp) <= SMEM_LIMIT]
+    cands = cands or [min(_attn_candidates(S),
+                          key=lambda c: _attn_smem_bytes(c[0], c[1], S, D, T, qp))]
+    best = max(cands, key=lambda c: (c[0] * c[1], c[1]))
+    _ATTN_TUNE_CACHE[key] = best
+    return best
+
+
+def phi_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        patterns: torch.Tensor, *, causal: bool = False,
+                        window: int | None = None, chunk: int | None = None,
+                        block_q: int | None = None, block_kv: int | None = None,
+                        packed: torch.Tensor | None = None) -> torch.Tensor:
+    """Phi-sparse flash attention: q/k/v (B, S, H, D) with binary spike Q/K,
+    patterns (T, qp, kp) calibrated on the K rows (T·kp ≤ D; the ragged tail
+    is contracted densely). The output equals ``models.flash.flash_attention``
+    with the same blocks bitwise (binary operands make every score block
+    integer-exact, and scale is applied after the contraction).
+
+    CUDA tensors launch the hand-written kernel, or raise where it refuses
+    the shape; CPU tensors run its plain version, the reference's "xla"
+    lowering. ``packed`` is the bank as the kernel reads it
+    (``pack_patterns``). Forward only: raises where autograd would need a
+    backward.
+    """
+    from repro_torch.models.flash import refuse_autograd
+
+    refuse_autograd("phi_flash_attention", q, k, v)
+    B, S, H, D = q.shape
+    T, qp, kp = patterns.shape
+    if T * kp > D:
+        raise ValueError(
+            f"phi_flash_attention: pattern bank covers {T}×{kp}={T * kp} features but "
+            f"head_dim is only {D} — the bank was calibrated for a different head layout")
+    if block_q is None or block_kv is None:
+        bq, bkv = autotune_attn_blocks(S, D, T, qp, kp)
+        block_q, block_kv = block_q or bq, block_kv or bkv
+    q32, k32, v32 = (x.to(torch.float32).contiguous() for x in (q, k, v))
+    out, _ = phi_flash_attention_cuda(q32, k32, v32, patterns, packed=packed, causal=causal,
+                                      window=window, chunk=chunk, block_q=block_q,
+                                      block_kv=block_kv)
+    return out.to(q.dtype)

@@ -1,15 +1,22 @@
-"""Fused single-pass Phi matmul: the Hopper kernel and its plain version.
+"""Fused single-pass Phi matmul: the Hopper kernels and their plain version.
 
-Port of ``repro/kernels/phi_fused.py::phi_fused_pallas``. Per row and per
+Port of ``repro/kernels/phi_fused.py::phi_fused_pallas`` and of its
+K-streaming and PWP-prefetching variants ``phi_fused_stream_pallas`` and
+``phi_fused_prefetch_pallas``. Per row and per
 K-partition: Hamming match against the bank (first-index argmin, strictly
 better than the row's own popcount, else "no pattern"), the selected PWP row
 times its scale into the L1 accumulator, the ±1 residual against the weight
 rows into the L2 accumulator; ``out = acc1 + acc2`` once at the end, and the
-residual entries counted per ``block_m`` rows. The CUDA kernel lives in
-``csrc/phi_fused.cu``, whose note says how it is laid out on the card.
+residual entries counted per ``block_m`` rows. The CUDA kernels live in
+``csrc/phi_fused.cu``, whose note says how they are laid out on the card.
+The streaming one copies each group of ``group_t`` partitions into shared
+memory one group ahead; it does the first kernel's sums in the same order,
+so :func:`phi_fused_plain` serves both. The prefetching one matches each
+row only against its M-stripe's active pattern set (:func:`stripe_active_sets`)
+and has its own plain version, :func:`phi_fused_prefetch_plain`.
 
-:func:`phi_fused_cuda` chooses by the device of its tensors: CPU tensors go
-through :func:`phi_fused_plain`; CUDA tensors launch the kernel or raise.
+The ``*_cuda`` wrappers choose by the device of their tensors: CPU tensors go
+through the plain versions; CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -18,10 +25,15 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.utils import cdiv, pad_rows
 
-# Shapes the CUDA kernel takes (csrc/phi_fused.cu): one 64-bit word per row
-# partition, and a stage of 8 partitions' patterns in 48 KB of shared memory.
+# Shapes the CUDA kernels take (csrc/phi_fused.cu): one 64-bit word per row
+# partition; for the first kernel a stage of 8 partitions' patterns in 48 KB
+# of shared memory; for the streaming one up to 8 partitions per stage and
+# two stages in the 227 KB a block may use.
 MAX_K = 64
 MAX_Q = 512
+MAX_GROUP_T = 8
+SMEM_LIMIT = 232448         # shared memory a block may use on an H100 (227 KB)
+_BM = 32                    # rows per output tile of the fused kernels
 _PWP_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
@@ -46,20 +58,22 @@ def _partition_body(at: torch.Tensor, p: torch.Tensor, pwp_t: torch.Tensor,
                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """One K-partition: match → L1 → L2, as the reference's ``_partition_body``.
 
-    at (M, k) f32 binary, p (q, k) f32, pwp_t (q+1, N), scale_t (q+1,) f32,
-    w_t (k, N). Returns the updated accumulators and the residual entries of
-    each row. The one-hot products of the reference are row gathers here:
-    they select the same values.
+    at (..., M, k) f32 binary, p (q, k) f32, pwp_t (..., q+1, N), scale_t
+    (q+1,) f32, w_t (..., k, N); leading axes batch independent problems
+    (the attention score blocks of many heads). Returns the updated
+    accumulators and the residual entries of each row. The one-hot products
+    of the reference are row gathers here: they select the same values.
     """
-    dot = at @ p.T                                         # (M, q)
+    dot = at @ p.T                                         # (..., M, q)
     pop_a = at.sum(-1)
-    ham = pop_a[:, None] + p.sum(-1)[None, :] - 2.0 * dot
+    ham = pop_a[..., None] + p.sum(-1) - 2.0 * dot
     best = ham.argmin(-1)                                  # first index on ties
     use = ham.amin(-1) < pop_a                             # strict rule
     idx = torch.where(use, best, q)
-    acc1 = acc1 + pwp_t[idx].to(torch.float32) * scale_t[idx][:, None]
-    chosen = torch.where(use[:, None], p[best], 0.0)
-    residual = at - chosen                                 # (M, k) in {−1, 0, +1}
+    rows = torch.take_along_dim(pwp_t, idx[..., None], dim=-2)
+    acc1 = acc1 + rows.to(torch.float32) * scale_t[idx][..., None]
+    chosen = torch.where(use[..., None], p[best], 0.0)
+    residual = at - chosen                                 # (..., M, k) in {−1, 0, +1}
     acc2 = acc2 + residual @ w_t.to(torch.float32)
     return acc1, acc2, residual.abs().sum(-1).to(torch.int32)
 
@@ -90,13 +104,81 @@ def phi_fused_plain(a: torch.Tensor, patterns: torch.Tensor, pwp: torch.Tensor,
     return acc1 + acc2, nnz
 
 
-def _check_cuda_operands(a, patterns, packed, pwp, pwp_scale, w) -> None:
+def stream_smem_bytes(q: int, k: int, group_t: int) -> int:
+    """Shared memory of one block of the streaming kernel, in bytes: two
+    stages of ``group_t`` packed pattern rows (stride q+1, rounded to 16
+    bytes) and a (32 rows × group_t·k floats) activation tile, plus the match
+    tile (index, scale and ± masks of 32 × 8 pairs). The C layout is
+    ``csrc/phi_fused.cu::phi_fused_stream_smem_bytes``."""
+    pat = -(-group_t * (q + 1) * 8 // 16) * 16
+    return 2 * (pat + 4 * _BM * group_t * k) + _BM * MAX_GROUP_T * (4 + 4 + 8 + 8)
+
+
+def stripe_active_sets(a2: torch.Tensor, patterns: torch.Tensor, p_active: int,
+                       block_m: int) -> torch.Tensor:
+    """Per-M-stripe active pattern sets: (ceil(M / block_m), T, p_active) int32.
+
+    For each stripe of ``block_m`` rows and each K-partition, the
+    ``p_active`` patterns the stripe's rows match most often under the full
+    bank (first-index argmin, strict rule), most referenced first, ties to
+    the lower index, as the reference's ``stripe_active_sets`` (``top_k``)
+    orders them. Rows past M count as zero rows, which match nothing.
+    """
+    M, K = a2.shape
+    T, q, k = patterns.shape
+    at = pad_rows(a2, block_m).reshape(-1, block_m, T, k).to(torch.float32)
+    pf = patterns.to(device=a2.device, dtype=torch.float32)
+    pop_a = at.sum(-1)                                              # (gm, bm, T)
+    ham = pop_a[..., None] + pf.sum(-1) - 2.0 * torch.einsum("gmtk,tqk->gmtq", at, pf)
+    best = ham.argmin(-1)
+    use = ham.amin(-1) < pop_a
+    counts = torch.zeros((at.shape[0], T, q + 1), dtype=torch.int32, device=a2.device)
+    counts.scatter_add_(2, torch.where(use, best, q).transpose(1, 2),
+                        torch.ones_like(best, dtype=torch.int32).transpose(1, 2))
+    order = torch.sort(counts[..., :q], dim=-1, descending=True, stable=True).indices
+    return order[..., :p_active].to(torch.int32).contiguous()
+
+
+def phi_fused_prefetch_plain(a: torch.Tensor, patterns: torch.Tensor, pwp: torch.Tensor,
+                             pwp_scale: torch.Tensor, w: torch.Tensor, active: torch.Tensor,
+                             *, block_m: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the prefetching kernel: per stripe of ``block_m``
+    rows, :func:`phi_fused_plain` over the compact bank the stripe's active
+    sets select (patterns, PWP rows and scales, plus the "no pattern" slot),
+    as the reference's interpret lowering runs its kernel."""
+    T, q, _ = patterns.shape
+    P = active.shape[-1]
+    tidx = torch.arange(T, device=a.device)[:, None]
+    outs, nnzs = [], []
+    for g, act in enumerate(active.long()):                        # act (T, P)
+        rows = a[g * block_m:(g + 1) * block_m]
+        pats_c = patterns.to(a.device)[tidx, act]                   # (T, P, k)
+        pwp_c = torch.cat([pwp[tidx, act], pwp[:, q:]], dim=1)      # (T, P+1, N)
+        scale_c = torch.cat([pwp_scale[tidx, act], pwp_scale[:, q:]], dim=1)
+        out, nnz = phi_fused_plain(rows, pats_c, pwp_c, scale_c, w, block_m=block_m)
+        outs.append(out)
+        nnzs.append(nnz)
+    if not outs:
+        return (torch.empty((0, w.shape[-1]), dtype=torch.float32, device=a.device),
+                torch.zeros((0,), dtype=torch.int32, device=a.device))
+    return torch.cat(outs), torch.cat(nnzs)
+
+
+def _check_cuda_operands(a, patterns, packed, pwp, pwp_scale, w, group_t=None) -> None:
     M, K = a.shape
     T, q, k = patterns.shape
     N = w.shape[-1]
-    if k > MAX_K or q > MAX_Q:
+    if group_t is None and (k > MAX_K or q > MAX_Q):
         raise ValueError(f"phi_fused CUDA kernel takes k <= {MAX_K} and q <= {MAX_Q}; "
                          f"got k={k}, q={q}")
+    if group_t is not None:
+        if k > MAX_K or not 1 <= group_t <= MAX_GROUP_T:
+            raise ValueError(f"phi_fused_stream CUDA kernel takes k <= {MAX_K} and 1 <= "
+                             f"group_t <= {MAX_GROUP_T}; got k={k}, group_t={group_t}")
+        if stream_smem_bytes(q, k, group_t) > SMEM_LIMIT:
+            raise ValueError(f"phi_fused_stream: q={q}, k={k}, group_t={group_t} needs "
+                             f"{stream_smem_bytes(q, k, group_t)} B of shared memory, more "
+                             f"than {SMEM_LIMIT}")
     for name, x in (("a", a), ("packed", packed), ("pwp", pwp),
                     ("pwp_scale", pwp_scale), ("w", w)):
         if x.device != a.device:
@@ -119,6 +201,33 @@ def _check_cuda_operands(a, patterns, packed, pwp, pwp_scale, w) -> None:
                          f"{tuple(pwp_scale.shape)}, w {tuple(w.shape)}")
 
 
+def _launch(fn: str, a, patterns, pwp, pwp_scale, w, block_m, packed, *, group_t=None,
+            active=None) -> tuple[torch.Tensor, torch.Tensor]:
+    if a.device.type != "cuda":
+        raise ValueError(f"{fn}: unsupported device {a.device}")
+    packed = pack_patterns(patterns) if packed is None else packed
+    _check_cuda_operands(a, patterns, packed, pwp, pwp_scale, w, group_t)
+    M, K = a.shape
+    T, q, k = patterns.shape
+    N = w.shape[-1]
+    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    nnz = torch.zeros((cdiv(M, block_m),), dtype=torch.int32, device=a.device)
+    if M == 0 or N == 0:
+        return out, nnz
+    lib = _build.library()
+    extra = () if group_t is None else (group_t,)
+    if active is not None:
+        extra = (active.data_ptr(), active.shape[-1])
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = getattr(lib, fn)(
+            a.data_ptr(), packed.data_ptr(), pwp.data_ptr(), _PWP_DTYPES[pwp.dtype],
+            pwp_scale.data_ptr(), w.data_ptr(), out.data_ptr(), nnz.data_ptr(),
+            M, K, N, T, q, k, block_m, *extra, stream)
+    _build.check(err, fn)
+    return out, nnz
+
+
 def phi_fused_cuda(a: torch.Tensor, patterns: torch.Tensor, pwp: torch.Tensor,
                    pwp_scale: torch.Tensor, w: torch.Tensor, *, block_m: int,
                    packed: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
@@ -134,27 +243,71 @@ def phi_fused_cuda(a: torch.Tensor, patterns: torch.Tensor, pwp: torch.Tensor,
     """
     if a.device.type == "cpu":
         return phi_fused_plain(a, patterns, pwp, pwp_scale, w, block_m=block_m)
-    if a.device.type != "cuda":
-        raise ValueError(f"phi_fused: unsupported device {a.device}")
-    packed = pack_patterns(patterns) if packed is None else packed
-    _check_cuda_operands(a, patterns, packed, pwp, pwp_scale, w)
-    M, K = a.shape
-    T, q, k = patterns.shape
-    N = w.shape[-1]
-    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
-    nnz = torch.zeros((cdiv(M, block_m),), dtype=torch.int32, device=a.device)
-    if M == 0 or N == 0:
-        return out, nnz
-    lib = _build.library()
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = lib.phi_fused_launch(
-            a.data_ptr(), packed.data_ptr(), pwp.data_ptr(), _PWP_DTYPES[pwp.dtype],
-            pwp_scale.data_ptr(), w.data_ptr(), out.data_ptr(), nnz.data_ptr(),
-            M, K, N, T, q, k, block_m, stream)
-    _build.check(err, "phi_fused_launch")
+    out = _launch("phi_fused_launch", a, patterns, pwp, pwp_scale, w, block_m, packed)
     phi_fused_cuda.launches += 1
-    return out, nnz
+    return out
 
 
 phi_fused_cuda.launches = 0
+
+
+def phi_fused_stream_cuda(a: torch.Tensor, patterns: torch.Tensor, pwp: torch.Tensor,
+                          pwp_scale: torch.Tensor, w: torch.Tensor, *, block_m: int,
+                          group_t: int = MAX_GROUP_T, packed: torch.Tensor | None = None
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """K-streaming single-pass Phi matmul: the contract of :func:`phi_fused_cuda`.
+
+    ``group_t`` K-partitions per shared-memory stage (1..8; the last group
+    may be shorter, so it need not divide T), copied one group ahead of the
+    match. Takes any q whose two stages fit (:func:`stream_smem_bytes`). CPU
+    tensors run the plain version; CUDA tensors launch the kernel, counted
+    in ``.launches``, or raise.
+    """
+    if a.device.type == "cpu":
+        return phi_fused_plain(a, patterns, pwp, pwp_scale, w, block_m=block_m)
+    out = _launch("phi_fused_stream_launch", a, patterns, pwp, pwp_scale, w, block_m, packed,
+                  group_t=group_t)
+    phi_fused_stream_cuda.launches += 1
+    return out
+
+
+phi_fused_stream_cuda.launches = 0
+
+
+def phi_fused_prefetch_cuda(a: torch.Tensor, patterns: torch.Tensor, pwp: torch.Tensor,
+                            pwp_scale: torch.Tensor, w: torch.Tensor, active: torch.Tensor, *,
+                            block_m: int, packed: torch.Tensor | None = None
+                            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """PWP-prefetching single-pass Phi matmul: the contract of
+    :func:`phi_fused_cuda` plus ``active`` ((ceil(M / block_m), T, P) int32,
+    :func:`stripe_active_sets`): each row is matched only against its
+    stripe's P patterns, in that order, and a row whose best pattern is
+    outside them goes whole to the exact L2 residual. ``l2_nnz`` counts that
+    residual. The kernel takes P ≤ q, P ≤ 512, and ``block_m`` a multiple of
+    32 unless one stripe holds every row. CPU tensors run
+    :func:`phi_fused_prefetch_plain`; CUDA tensors launch the kernel, counted
+    in ``.launches``, or raise.
+    """
+    if a.device.type == "cpu":
+        return phi_fused_prefetch_plain(a, patterns, pwp, pwp_scale, w, active,
+                                        block_m=block_m)
+    M = a.shape[0]
+    T, q, _ = patterns.shape
+    P = active.shape[-1]
+    if active.dtype != torch.int32 or active.device != a.device or not active.is_contiguous() \
+            or active.shape != (cdiv(M, block_m), T, P):
+        raise ValueError(f"active must be a contiguous ({cdiv(M, block_m)}, {T}, P) int32 "
+                         f"tensor on {a.device}, got {tuple(active.shape)} {active.dtype}")
+    if not 1 <= P <= min(q, MAX_Q):
+        raise ValueError(f"phi_fused_prefetch: P={P} active patterns, the kernel takes "
+                         f"1 <= P <= min(q, {MAX_Q})")
+    if block_m % _BM and M > block_m:
+        raise ValueError(f"phi_fused_prefetch: block_m={block_m} must be a multiple of {_BM} "
+                         "(a tile of the kernel lies in one stripe)")
+    out = _launch("phi_fused_prefetch_launch", a, patterns, pwp, pwp_scale, w, block_m, packed,
+                  active=active)
+    phi_fused_prefetch_cuda.launches += 1
+    return out
+
+
+phi_fused_prefetch_cuda.launches = 0

@@ -19,8 +19,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.patterns import (
-    PhiConfig, calibrate, pattern_usage, pattern_weight_products)
-from repro_torch.kernels import ops
+    PhiConfig, active_pattern_sets, calibrate, pattern_usage, pattern_weight_products)
+from repro_torch.kernels import dispatch, ops
 from repro_torch.kernels.phi_fused import pack_patterns
 from repro_torch.snn.lif import LIFConfig, lif_sequence
 from repro_torch.utils import cdiv, resolve_device
@@ -37,13 +37,14 @@ class SNNConfig:
     dim: int = 128               # spikformer embed dim
     heads: int = 4
     blocks: int = 2
-    attn: str = "ssa"            # "ssa" (softmax-free spiking SA) | "flash" (not ported)
+    attn: str = "ssa"            # "ssa" (softmax-free spiking SA) | "flash" (Phi-dispatched)
     lif: LIFConfig = LIFConfig()
     phi: PhiConfig = PhiConfig()
 
 
 Params = dict[str, dict[str, torch.Tensor]]
 MatmulFn = Callable[[torch.Tensor, torch.Tensor, str], torch.Tensor]
+AttnFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, str], torch.Tensor]
 
 
 def _dense_init(gen: torch.Generator, k_in: int, n_out: int, device: torch.device):
@@ -140,6 +141,32 @@ def _plain_matmul(a: torch.Tensor, w: torch.Tensor, name: str) -> torch.Tensor:
     return a @ w
 
 
+def spike_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          patterns: torch.Tensor | None = None, *, site: str = "snn.attn",
+                          impl: str | None = None, packed: torch.Tensor | None = None
+                          ) -> torch.Tensor:
+    """Policy-dispatched softmax attention over spikformer head tensors.
+
+    q/k/v: (T, B, H, S, Dh) spike tensors (spikformer head layout). Folds
+    timesteps into the batch axis (each timestep's attention is independent)
+    and routes through ``kernels.dispatch``: with a calibrated ``patterns``
+    bank the site resolves ``phi_flash`` (L1 pattern gather + L2 residual
+    score blocks), without one it keeps dense flash. ``impl`` forces an
+    ``ATTN_IMPLS`` arm (the bitwise A/B hook ``phi_apply`` exposes as
+    ``attn_impl``); both arms share the decision's (block_q, block_kv).
+    ``packed`` is the bank as the kernel reads it.
+    """
+    T, B, H, S, Dh = q.shape
+
+    def fold(z):
+        return z.reshape(T * B, H, S, Dh).movedim(1, 2).contiguous()  # (TB, S, H, Dh)
+
+    out = dispatch.get_policy().attention(
+        fold(q), fold(k), fold(v), patterns, site=site, causal=False, spike_qk=True,
+        override=impl, packed=packed)
+    return out.movedim(2, 1).reshape(T, B, H, S, Dh)
+
+
 def _avg_pool2(h: torch.Tensor) -> torch.Tensor:
     """2×2 stride-2 VALID window sum / 4 over (T, B, H, W, C)."""
     H2, W2 = h.shape[2] // 2 * 2, h.shape[3] // 2 * 2
@@ -149,17 +176,17 @@ def _avg_pool2(h: torch.Tensor) -> torch.Tensor:
 
 
 def apply(params: Params, cfg: SNNConfig, x: torch.Tensor, *,
-          capture: dict | None = None, matmul: MatmulFn = _plain_matmul) -> torch.Tensor:
+          capture: dict | None = None, matmul: MatmulFn = _plain_matmul,
+          attention: AttnFn | None = None) -> torch.Tensor:
     """Forward pass. x: (B,H,W,C) images or (B,T,H,W,C) event frames.
 
     Returns logits (B, classes). ``matmul`` is the injection point for Phi:
     it receives (spike_activations, weight, layer_name) for every spiking
-    GEMM. Spikformer runs with ``attn="ssa"``; ``attn="flash"`` is not
-    ported yet (ROADMAP queue 1 item 9).
+    GEMM. With ``attn="flash"``, ``attention`` receives (q, k, v, site) for
+    every spikformer attention site, in the (T, B, H, S, Dh) head layout;
+    None routes the site through the execution policy without a bank
+    (dense flash).
     """
-    if cfg.kind == "spikformer" and cfg.attn == "flash":
-        raise NotImplementedError(
-            "spikformer attn='flash' is not ported yet (ROADMAP queue 1 item 9)")
     T = cfg.timesteps
     if x.ndim == 5:  # event stream: (B, T, H, W, C) — use frames as timesteps
         xs = x.movedim(1, 0)
@@ -225,7 +252,18 @@ def apply(params: Params, cfg: SNNConfig, x: torch.Tensor, *,
             q, k_, v = qkv.split(D, dim=-1)
             q, k_, v = (lif_sequence(heads(q), lif), lif_sequence(heads(k_), lif),
                         lif_sequence(heads(v), lif))
-            attn = (q @ k_.transpose(-1, -2)) @ v * 0.125  # spiking SA: no softmax
+            if cfg.attn == "flash":
+                # Softmax attention over binary spike Q/K, the Phi-sparse hot
+                # path. K spike rows are captured for pattern calibration
+                # (the site has no weight; the bank decomposes the scores).
+                if D // H >= cfg.phi.k:
+                    _maybe_capture(capture, f"b{b}_attn", k_, cfg.phi.k)
+                if attention is not None:
+                    attn = attention(q, k_, v, f"b{b}_attn")
+                else:
+                    attn = spike_flash_attention(q, k_, v, site=f"snn.b{b}_attn")
+            else:
+                attn = (q @ k_.transpose(-1, -2)) @ v * 0.125  # spiking SA: no softmax
             attn = attn.permute(0, 1, 3, 2, 4).reshape(T, B, -1, D)
             sa = lif_sequence(attn, lif)
             _maybe_capture(capture, f"b{b}_proj", sa, cfg.phi.k)
@@ -249,21 +287,32 @@ def apply(params: Params, cfg: SNNConfig, x: torch.Tensor, *,
 class PhiState:
     """Calibrated Phi state: per-layer patterns, PWPs and usage histograms.
 
-    patterns: layer -> (T, q, k) uint8; pwp: layer -> (T, q+1, N); usage:
-    layer -> (T, q+1) pattern-reference counts of the calibration batch;
-    packed: layer -> (T, q) int64, the patterns as the fused CUDA kernel
-    reads them, made at construction for every layer not given.
+    patterns: layer -> (T, q, k) uint8; pwp: layer -> (T, q+1, N), for every
+    layer but the attention sites (``b{i}_attn``: their score-block "weight"
+    is the q-block, so the pattern×Q products are built per block at run
+    time); usage:
+    layer -> (T, q+1) pattern-reference counts of the calibration batch.
+    Made at construction for every layer not given: packed: layer -> (T, q)
+    int64, the patterns as the CUDA kernels read them; p_active: layer ->
+    the prefetching kernel's gather size where the layer's usage shows skew
+    (``active_pattern_sets``), else None. Both are constant after
+    calibration, so no call recomputes them.
     """
 
     patterns: dict[str, torch.Tensor]
     pwp: dict[str, torch.Tensor]
     usage: dict[str, np.ndarray] = dataclasses.field(default_factory=dict)
     packed: dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
+    p_active: dict[str, int | None] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self) -> None:
         for name, pats in self.patterns.items():
             if name not in self.packed:
                 self.packed[name] = pack_patterns(pats)
+        for name, u in self.usage.items():
+            if name not in self.p_active:
+                active, _ = active_pattern_sets(u)
+                self.p_active[name] = None if active is None else int(active.shape[-1])
 
 
 def _layer_weight(params: Params, name: str) -> torch.Tensor:
@@ -276,7 +325,8 @@ def calibrate_model(params: Params, cfg: SNNConfig, calib_x: torch.Tensor
     """Run the Phi calibration stage on a calibration batch.
 
     Returns (PhiState, captured spike activations in GEMM layout). The
-    patterns, PWPs and activations stay on ``calib_x``'s device.
+    patterns, PWPs and activations stay on ``calib_x``'s device. Attention
+    sites (``*_attn``) get patterns and usage but no PWP.
     """
     cap: dict[str, torch.Tensor] = {}
     with torch.no_grad():
@@ -287,21 +337,33 @@ def calibrate_model(params: Params, cfg: SNNConfig, calib_x: torch.Tensor
             K = pats.shape[0] * cfg.phi.k
             patterns[name] = pats
             usage[name] = pattern_usage(act[:, :K], pats)
-            pwps[name] = pattern_weight_products(pats, _layer_weight(params, name)[:K])
+            if not name.endswith("_attn"):
+                pwps[name] = pattern_weight_products(pats, _layer_weight(params, name)[:K])
     return PhiState(patterns, pwps, usage), cap
 
 
 def phi_apply(params: Params, cfg: SNNConfig, phi: PhiState, x: torch.Tensor,
-              impl: str | None = None) -> torch.Tensor:
+              impl: str | None = None, attn_impl: str | None = None) -> torch.Tensor:
     """Inference with Phi sparse matmuls substituted for every spiking GEMM.
 
-    ``impl`` names a lowering of ``ops.phi_matmul``; ``None`` takes
-    ``cfg.phi.impl`` and, failing that, ``"fused"``. (The reference resolves
-    ``None`` through its execution policy, whose single-device answer is
-    ``fused``; until that policy is ported, ``None`` means ``fused`` here.)
-    Runs without autograd: the kernels have no backward.
+    ``impl`` names a lowering of ``ops.phi_matmul`` for every layer; ``None``
+    takes ``cfg.phi.impl`` and, failing that, the answer of
+    ``ops.fused_shape_viable`` per layer, given the layer's calibration
+    usage: the prefetching kernel where that usage is skewed, the streaming
+    kernel where the K loop is long (T ≥ 96 partitions: fc2 of
+    Spikformer-4-384, conv3 and conv4 of the VGG at VGG-16 stage widths), the
+    first fused kernel elsewhere. The reference resolves ``impl=None`` per
+    call through the matmul half of its execution policy, whose TPU gate
+    gives the same answers at those shapes (but streams a skewed conv4,
+    whose compact bank busts its VMEM); that half itself (its registry,
+    telemetry and override rows) is not ported yet. When ``cfg.attn ==
+    "flash"`` the spikformer attention sites route through the attention
+    half of the policy with the site's calibrated bank; ``attn_impl`` forces
+    an ``ATTN_IMPLS`` arm (``"flash"`` is the dense A/B arm, bitwise equal to
+    the resolved ``phi_flash`` for binary Q/K). Runs without autograd: the
+    kernels have no backward.
     """
-    impl = impl or cfg.phi.impl or "fused"
+    impl = impl or cfg.phi.impl
 
     def phi_mm(a, w, name):
         if name not in phi.patterns:
@@ -318,11 +380,21 @@ def phi_apply(params: Params, cfg: SNNConfig, phi: PhiState, x: torch.Tensor,
                 f"K={usable_K} at phi.k={cfg.phi.k}); re-run calibrate_model with "
                 "the SNNConfig used for apply")
         a_k = a if K == a.shape[-1] else a[..., :K]
-        out = ops.phi_matmul(a_k, w[:K], pats, phi.pwp[name], impl=impl,
+        T, q = pats.shape[:2]
+        p_active = phi.p_active.get(name)
+        site_impl = impl or ops.fused_shape_viable(a_k.numel() // K, K, w.shape[-1], T, q,
+                                                   p_active=p_active)
+        out = ops.phi_matmul(a_k, w[:K], pats, phi.pwp[name], impl=site_impl,
+                             usage=phi.usage.get(name), p_active=p_active,
                              nnz_budget=cfg.phi.nnz_budget, packed=phi.packed[name])
         if K < a.shape[-1]:  # dense ragged tail (K not a multiple of phi.k)
             out = out + a[..., K:] @ w[K:]
         return out.to(w.dtype)
 
+    def phi_attn(qh, kh, vh, name):
+        return spike_flash_attention(qh, kh, vh, phi.patterns.get(name), site=f"snn.{name}",
+                                     impl=attn_impl, packed=phi.packed.get(name))
+
     with torch.no_grad():
-        return apply(params, cfg, x, matmul=phi_mm)
+        return apply(params, cfg, x, matmul=phi_mm,
+                     attention=phi_attn if cfg.attn == "flash" else None)

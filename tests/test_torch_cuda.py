@@ -6,8 +6,14 @@ package, so it runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance 0 throughout: with dyadic weights every partial sum is exact, and
-the kernels round each product and sum separately as the plain versions do.
+Tolerance 0 for the three fused matmul kernels and the LIF kernels: with
+dyadic weights every partial sum is exact, and the kernels round each
+product and sum separately as the plain versions do. The attention kernel's scores and ``l2_nnz`` are
+exact too (binary Q and K), but its softmax sums ``p`` and ``p·V`` in
+another order than the plain version and uses CUDA's ``expf``: its output
+is held to ATTN_ATOL_ULPS ulps of max|V| (each output is a convex
+combination of V rows). Its Phi and dense instantiations share the softmax
+code and are compared bitwise.
 """
 from __future__ import annotations
 
@@ -16,9 +22,30 @@ import pytest
 import torch
 
 from repro_torch.core.patterns import PhiConfig, calibrate, pattern_weight_products, quantize_pwp
-from repro_torch.kernels import ref
+from repro_torch.kernels import _build, dispatch, ops, ref
 from repro_torch.kernels.lif import lif_sequence_cuda, lif_sequence_plain, lif_step_cuda
-from repro_torch.kernels.phi_fused import phi_fused_cuda, phi_fused_plain
+from repro_torch.kernels.phi_attention import (
+    flash_attention_cuda, phi_flash_attention_cuda, phi_flash_attention_plain, smem_bytes)
+from repro_torch.kernels.phi_fused import (
+    pack_patterns, phi_fused_cuda, phi_fused_plain, phi_fused_prefetch_cuda,
+    phi_fused_prefetch_plain, phi_fused_stream_cuda, stream_smem_bytes, stripe_active_sets)
+
+_FUSED = {"fused": phi_fused_cuda, "fused_stream": phi_fused_stream_cuda,
+          "fused_prefetch": phi_fused_prefetch_cuda}
+
+
+def _gate_launches(params, state, acts):
+    """Launches one phi_apply makes of each fused kernel: the gate's answer
+    per calibrated GEMM, from its shape and calibration usage."""
+    want = dict.fromkeys(_FUSED, 0)
+    for name, act in acts.items():
+        if not name.endswith("_attn"):
+            T, q = state.patterns[name].shape[:2]
+            want[ops.fused_shape_viable(act.shape[0], act.shape[1],
+                                        params[name]["w"].shape[-1], T, q,
+                                        usage=state.usage[name])] += 1
+    return want
+from repro_torch.models.flash import flash_attention
 from repro_torch.snn import models as M
 from repro_torch.snn.data import synthetic_images
 
@@ -62,6 +89,76 @@ def test_fused_kernel_matches_plain(dev, kind, M_):
     assert torch.equal(out, pout) and torch.equal(nnz, pnnz) and int(nnz.sum()) > 0
 
 
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("M_,group_t", [(256, 8), (293, 8), (293, 4), (64, 1)])
+def test_stream_kernel_matches_plain_and_the_first_kernel(dev, kind, M_, group_t):
+    # K = 208: T = 13 partitions, so every group depth but 1 ends on a short group
+    a, w, pats, pwp = _setup(M_, 208, 72, 16, dev, seed=M_ + group_t)
+    scale = torch.ones(pwp.shape[:2], device=dev)
+    if kind == "bf16":
+        pwp = pwp.to(torch.bfloat16)
+    elif kind == "int8":
+        pwp, scale = quantize_pwp(pwp)
+    before = phi_fused_stream_cuda.launches
+    out, nnz = phi_fused_stream_cuda(a, pats, pwp, scale, w, block_m=64, group_t=group_t)
+    assert phi_fused_stream_cuda.launches == before + 1
+    pout, pnnz = phi_fused_plain(a, pats, pwp, scale, w, block_m=64)
+    fout, fnnz = phi_fused_cuda(a, pats, pwp, scale, w, block_m=64)
+    torch.cuda.synchronize()
+    assert torch.equal(out, pout) and torch.equal(nnz, pnnz) and int(nnz.sum()) > 0
+    assert torch.equal(out, fout) and torch.equal(nnz, fnnz)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("M_,P", [(256, 4), (293, 8), (20, 16)])
+def test_prefetch_kernel_matches_plain(dev, kind, M_, P):
+    a, w, pats, pwp = _setup(M_, 96, 72, 16, dev, seed=M_ + P)
+    scale = torch.ones(pwp.shape[:2], device=dev)
+    if kind == "bf16":
+        pwp = pwp.to(torch.bfloat16)
+    elif kind == "int8":
+        pwp, scale = quantize_pwp(pwp)
+    bm = 64 if M_ > 32 else 32                          # M_ = 20: one stripe, rows < 32
+    active = stripe_active_sets(a, pats, P, bm)
+    before = phi_fused_prefetch_cuda.launches
+    out, nnz = phi_fused_prefetch_cuda(a, pats, pwp, scale, w, active, block_m=bm)
+    assert phi_fused_prefetch_cuda.launches == before + 1
+    pout, pnnz = phi_fused_prefetch_plain(a, pats, pwp, scale, w, active, block_m=bm)
+    torch.cuda.synchronize()
+    assert torch.equal(out, pout) and torch.equal(nnz, pnnz) and int(nnz.sum()) > 0
+    if kind == "f32":                                   # exact whatever the sets
+        assert torch.equal(out, phi_fused_cuda(a, pats, pwp, scale, w, block_m=bm)[0])
+
+
+def test_prefetch_kernel_refuses_what_it_cannot_take(dev):
+    a, w, pats, pwp = _setup(100, 32, 8, 16, dev)
+    scale = torch.ones(pwp.shape[:2], device=dev)
+    active = stripe_active_sets(a, pats, 4, 16)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        phi_fused_prefetch_cuda(a, pats, pwp, scale, w, active, block_m=16)
+    with pytest.raises(ValueError, match="int32"):
+        phi_fused_prefetch_cuda(a, pats, pwp, scale, w, active.long(), block_m=16)
+    with pytest.raises(ValueError, match="P=17"):
+        phi_fused_prefetch_cuda(a, pats, pwp, scale, w,
+                                torch.zeros((4, 2, 17), dtype=torch.int32, device=dev),
+                                block_m=32)
+
+
+def test_stream_kernel_smem_model_and_refusals(dev):
+    lib = _build.library()
+    for q, k, gt in [(128, 16, 8), (7, 5, 3), (512, 64, 8), (1024, 16, 2)]:
+        assert lib.phi_fused_stream_smem_bytes(q, k, gt) == stream_smem_bytes(q, k, gt)
+    a, w, pats, pwp = _setup(64, 32, 8, 4, dev)
+    scale = torch.ones(pwp.shape[:2], device=dev)
+    for gt in (0, 9):
+        with pytest.raises(ValueError, match="group_t"):
+            phi_fused_stream_cuda(a, pats, pwp, scale, w, block_m=32, group_t=gt)
+    big = torch.zeros((2, 1 << 14, 16), device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        phi_fused_stream_cuda(a, big, torch.zeros((2, (1 << 14) + 1, 8), device=dev),
+                              torch.ones((2, (1 << 14) + 1), device=dev), w, block_m=32)
+
+
 def test_fused_kernel_refuses_k_above_64(dev):
     with pytest.raises(ValueError, match="k <= 64"):
         phi_fused_cuda(torch.zeros((8, 128), device=dev), torch.zeros((1, 4, 128), device=dev),
@@ -94,10 +191,112 @@ def test_vgg16_widths_phi_apply_equals_apply(dev):
     x = torch.from_numpy(np.round(x * 1024) / 1024).to(dev)
     with torch.no_grad():
         state, acts = M.calibrate_model(params, cfg, x)
-        launches = phi_fused_cuda.launches, lif_sequence_cuda.launches
+        before = {impl: fn.launches for impl, fn in _FUSED.items()}
+        lif_before = lif_sequence_cuda.launches
         got = M.phi_apply(params, cfg, state, x)
-        assert phi_fused_cuda.launches - launches[0] == 5
-        assert lif_sequence_cuda.launches > launches[1]
+        want = _gate_launches(params, state, acts)
+        assert {impl: fn.launches - before[impl] for impl, fn in _FUSED.items()} == want
+        assert sum(want.values()) == 5
+        assert lif_sequence_cuda.launches > lif_before
         assert torch.equal(got, M.apply(params, cfg, x))
+    for act in acts.values():
+        assert float(act.mean()) >= 0.01
+
+
+# ------------------------------------------------------------- attention ---
+ATTN_ATOL_ULPS = 16
+# (B, S, H, D, T, kp, qp, causal, window, chunk, block_q, block_kv)
+ATTN_CASES = {
+    "slice": (8, 64, 12, 32, 2, 16, 128, False, None, None, 64, 64),
+    "causal": (2, 96, 3, 32, 2, 16, 64, True, None, None, 32, 64),
+    "window": (2, 96, 3, 32, 2, 16, 64, True, 7, None, 64, 32),
+    "chunk": (2, 96, 3, 32, 2, 16, 64, False, None, 16, 32, 32),
+    "ragged_s": (3, 37, 2, 32, 2, 16, 32, False, None, None, 16, 16),
+    "ragged_d": (2, 50, 2, 40, 2, 16, 32, True, None, None, 32, 32),
+}
+
+
+def _attn_inputs(B, S, H, D, T, kp, qp, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q = (torch.rand((B, S, H, D), generator=g) < 0.3).float()
+    k = (torch.rand((B, S, H, D), generator=g) < 0.3).float()
+    v = torch.randn((B, S, H, D), generator=g)
+    rows = k.reshape(-1, D)[torch.randint(0, B * S * H, (qp,), generator=g), :T * kp]
+    pats = rows.reshape(qp, T, kp).transpose(0, 1).to(torch.uint8).contiguous()
+    return q.to(dev), k.to(dev), v.to(dev), pats.to(dev)
+
+
+@pytest.mark.parametrize("case", list(ATTN_CASES))
+def test_attention_kernel_matches_plain(dev, case):
+    B, S, H, D, T, kp, qp, causal, window, chunk, bq, bkv = ATTN_CASES[case]
+    q, k, v, pats = _attn_inputs(B, S, H, D, T, kp, qp, dev)
+    kw = dict(causal=causal, window=window, chunk=chunk, block_q=bq, block_kv=bkv)
+    before = phi_flash_attention_cuda.launches
+    out, nnz = phi_flash_attention_cuda(q, k, v, pats, packed=pack_patterns(pats), **kw)
+    assert phi_flash_attention_cuda.launches == before + 1
+    pout, pnnz = phi_flash_attention_plain(q, k, v, pats, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(nnz, pnnz) and int(nnz.sum()) > 0
+    atol = ATTN_ATOL_ULPS * 2.0 ** -24 * float(v.abs().max())
+    assert float((out - pout).abs().max()) <= atol
+    before = flash_attention_cuda.launches
+    dense = flash_attention(q, k, v, causal, window, chunk, bq, bkv)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1
+    assert torch.equal(out, dense)           # Phi and dense instantiations, bitwise
+
+
+def test_attention_smem_model_is_the_kernels(dev):
+    lib = _build.library()
+    for bq, bkv, D, T, qp in [(64, 64, 32, 2, 128), (32, 128, 40, 2, 8), (128, 128, 64, 0, 0),
+                              (16, 8, 128, 8, 512)]:
+        assert lib.phi_attention_smem_bytes(bq, bkv, D, T, qp, int(T > 0)) \
+            == smem_bytes(bq, bkv, D, T, qp)
+
+
+def test_attention_kernel_refuses_what_it_cannot_take(dev):
+    q, k, v, pats = _attn_inputs(1, 16, 2, 32, 2, 16, 8, dev)
+    with pytest.raises(ValueError, match="<= 64"):
+        phi_flash_attention_cuda(torch.zeros((1, 16, 1, 128), device=dev),
+                                 torch.zeros((1, 16, 1, 128), device=dev),
+                                 torch.zeros((1, 16, 1, 128), device=dev),
+                                 torch.zeros((1, 4, 128), dtype=torch.uint8, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        phi_flash_attention_cuda(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), pats)
+    with pytest.raises(TypeError, match="float32"):
+        flash_attention_cuda(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="shared memory"):
+        phi_flash_attention_cuda(*_attn_inputs(1, 256, 1, 64, 4, 16, 512, dev), block_q=256,
+                                 block_kv=256)
+
+
+def test_spikformer_phi_apply_equals_apply(dev):
+    """One batch of Spikformer-4-384 through the Hopper kernels."""
+    cfg = M.SNNConfig(kind="spikformer", input_size=32, dim=384, heads=12, blocks=4,
+                      attn="flash", phi=PhiConfig(k=16, q=128, iters=20))
+    params = M.init(cfg, torch.Generator().manual_seed(0), device=dev)
+    for name, leaf in params.items():
+        gain = 1.0 if name == "embed" else 3.0      # keeps spikes alive at depth
+        leaf["w"] = torch.round(leaf["w"] * gain * 1024) / 1024
+    x, _ = synthetic_images(16, size=32, seed=1)
+    x = torch.from_numpy(np.round(x * 1024) / 1024).to(dev)
+    prev = dispatch.set_policy(dispatch.PhiExecutionPolicy())
+    try:
+        with torch.no_grad():
+            state, acts = M.calibrate_model(params, cfg, x)
+            before = {impl: fn.launches for impl, fn in _FUSED.items()}
+            attn_before = phi_flash_attention_cuda.launches
+            got = M.phi_apply(params, cfg, state, x)
+            want = _gate_launches(params, state, acts)
+            assert {impl: fn.launches - before[impl] for impl, fn in _FUSED.items()} == want
+            assert sum(want.values()) == 4 * 4 + 1
+            assert phi_flash_attention_cuda.launches - attn_before == 4
+            assert torch.equal(got, M.apply(params, cfg, x))
+        decisions = dispatch.get_policy().decisions()
+        for b in range(4):
+            assert decisions[(f"snn.b{b}_attn", "phi_flash", "spike_qk_phi_flash_native")] == 1
+    finally:
+        dispatch.set_policy(prev)
+    assert torch.isfinite(got).all() and float(got.abs().sum()) > 0
     for act in acts.values():
         assert float(act.mean()) >= 0.01

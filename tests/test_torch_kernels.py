@@ -21,12 +21,16 @@ from repro.core import patterns as RP
 from repro.kernels import ops as RO
 from repro.kernels import ref as RR
 from repro.kernels.lif import lif_pallas
-from repro.kernels.phi_fused import phi_fused_pallas
+from repro.kernels.phi_fused import phi_fused_pallas, phi_fused_prefetch_pallas
+from repro.kernels.phi_fused import phi_fused_stream_pallas
+from repro.kernels.phi_fused import stripe_active_sets as ref_stripe_active_sets
 from repro.snn import lif as RL
 from repro_torch.core import patterns as P
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.lif import lif_sequence_cuda, lif_sequence_plain, lif_step_cuda
-from repro_torch.kernels.phi_fused import pack_patterns, phi_fused_cuda, phi_fused_plain
+from repro_torch.kernels.phi_fused import (
+    SMEM_LIMIT, pack_patterns, phi_fused_cuda, phi_fused_plain, phi_fused_prefetch_cuda,
+    phi_fused_stream_cuda, stream_smem_bytes, stripe_active_sets)
 from repro_torch.snn import lif as L
 from repro_torch.snn.models import PhiState
 
@@ -83,6 +87,143 @@ def test_plain_fused_bitwise_vs_pallas_interpret(kind, M, K, N, q, bm, bn):
     assert int(nnz.sum()) > 0                     # the L2 path was exercised
 
 
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("M,K,N,q,bm,bn,gt", [(64, 128, 32, 8, 32, 32, 4),
+                                              (96, 96, 24, 16, 32, 24, 2),
+                                              (32, 64, 16, 8, 32, 16, 1)])
+def test_plain_fused_stream_bitwise_vs_pallas_interpret(kind, M, K, N, q, bm, bn, gt):
+    # The streaming kernel sums each partition in the same order as the first
+    # one; its wrapper's plain version is the same function, held here against
+    # the reference's streaming kernel, whatever its group depth.
+    a, w, pats, pwp = _setup(M, K, N, q, seed=M + K + q)
+    jp, js, tp, ts = _pwp_variant(pwp, kind)
+    rout, rnnz = phi_fused_stream_pallas(jnp.asarray(a), jnp.asarray(pats), jp, js,
+                                         jnp.asarray(w), block_m=bm, block_n=bn, group_t=gt,
+                                         interpret=True)
+    out, nnz = phi_fused_stream_cuda(t(a), t(pats), tp, ts, t(w), block_m=bm, group_t=gt)
+    _assert_fused_equal(kind, out.numpy(), np.asarray(rout))
+    np.testing.assert_array_equal(nnz.numpy(), np.asarray(rnnz))
+    assert int(nnz.sum()) > 0
+
+
+@pytest.mark.parametrize("M", [37, 100])
+def test_ops_phi_fused_stream_ragged_m_and_short_last_group(M):
+    # T = 6 partitions in groups of 4: the port's last group is shorter (the
+    # reference's group_t must divide T, so it runs 2 and is compared at 2).
+    a, w, pats, pwp = _setup(M, 96, 40, 8, seed=M)
+    rout, rnnz = RO.phi_fused_stream(jnp.asarray(a), jnp.asarray(pats), jnp.asarray(pwp),
+                                     jnp.asarray(w), block_m=32, block_n=40, group_t=2)
+    for gt in (2, 4, None):
+        out, nnz = ops.phi_fused_stream(t(a), t(pats), t(pwp), t(w), block_m=32, group_t=gt)
+        assert out.shape == (M, 40) and nnz.shape == (-(-M // 32),)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(rout))
+        np.testing.assert_array_equal(nnz.numpy(), np.asarray(rnnz))
+
+
+def test_stream_smem_model_and_group_choice():
+    # two stages of (group_t pattern rows of stride q+1, 16-byte rounded) and a
+    # 32-row activation tile of group_t·k floats, plus the match tile
+    assert stream_smem_bytes(128, 16, 8) == 2 * (8 * 129 * 8 + 4 * 32 * 8 * 16) + 32 * 8 * 24
+    assert stream_smem_bytes(7, 5, 3) == 2 * (-(-3 * 8 * 8 // 16) * 16 + 4 * 32 * 3 * 5) \
+        + 32 * 8 * 24
+    assert ops.stream_group_t(128, 16) == 8
+    gt = ops.stream_group_t(4096, 64)
+    assert stream_smem_bytes(4096, 64, gt) <= SMEM_LIMIT < stream_smem_bytes(4096, 64, gt + 1)
+    assert ops.stream_group_t(1 << 16, 16) is None
+
+
+# The slice's GEMMs (M, K, N) at k = 16, q = 128: Spikformer-4-384's qkv,
+# proj, fc1, fc2 and head, then the VGG's conv1-conv4 and head.
+SLICE_GEMMS = [(8192, 384, 1152), (8192, 384, 384), (8192, 384, 1536), (8192, 1536, 384),
+               (128, 384, 10), (32768, 576, 128), (8192, 1152, 256), (2048, 2304, 512),
+               (512, 4608, 512), (128, 512, 10)]
+
+
+def test_fused_shape_viable_is_the_hopper_gate():
+    # Without usage skew the gate streams where T >= STREAM_MIN_T, which at
+    # the slice's GEMMs is where the reference's VMEM gate streams.
+    assert ops.STREAM_MIN_T == 96
+    for M, K, N in SLICE_GEMMS:
+        want = RO.fused_shape_viable(M, K, N, K // 16, 128)
+        assert ops.fused_shape_viable(M, K, N, K // 16, 128) == want, (M, K, N)
+    assert [RO.fused_shape_viable(M, K, N, K // 16, 128) for M, K, N in SLICE_GEMMS].count(
+        "fused_stream") == 3
+    # With skew the prefetching kernel, at every GEMM (the reference's VMEM
+    # gate streams conv4 instead; the Hopper kernel's footprint is P-sized)
+    for M, K, N in SLICE_GEMMS:
+        assert ops.fused_shape_viable(M, K, N, K // 16, 128, p_active=24) == "fused_prefetch"
+    assert ops.fused_shape_viable(256, 64, 64, 4, 1024) == "fused_stream"   # q past 512
+    assert ops.fused_shape_viable(256, 64, 64, 4, 1 << 16) == "coo"        # no stage fits
+    assert ops.fused_shape_viable(256, 256, 64, 2, 8) == "coo"             # k = 128
+
+
+def _skewed_usage(T, q, hot, seed=0):
+    """(T, q+1) usage counts: most matches on ``hot`` patterns per partition."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, 3, (T, q + 1)).astype(np.int64)
+    u[:, :hot] += 1000
+    return u
+
+
+@pytest.mark.parametrize("hot", [0, 8, 24])
+def test_gate_reads_usage_skew_as_the_reference(hot):
+    u = _skewed_usage(24, 128, hot) if hot else np.ones((24, 129), np.int64)
+    want = RO.fused_shape_viable(8192, 384, 384, 24, 128, usage=u)
+    assert ops.fused_shape_viable(8192, 384, 384, 24, 128, usage=u) == want
+    assert want == ("fused_prefetch" if hot else "fused")
+
+
+@pytest.mark.parametrize("M,bm,P", [(128, 32, 4), (100, 64, 8), (256, 256, 3)])
+def test_stripe_active_sets_bitwise_vs_reference(M, bm, P):
+    a, _, pats, _ = _setup(M, 64, 8, 16, seed=M + P)
+    pad = -M % bm
+    want = ref_stripe_active_sets(jnp.asarray(np.pad(a, ((0, pad), (0, 0)))),
+                                  jnp.asarray(pats), P, bm)
+    got = stripe_active_sets(t(a), t(pats), P, bm)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert got.dtype == torch.int32 and got.shape == (-(-M // bm), 4, P)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("M,K,N,q,bm,bn,P", [(64, 64, 32, 16, 32, 32, 4),
+                                             (96, 48, 24, 16, 32, 24, 8)])
+def test_plain_fused_prefetch_bitwise_vs_pallas_interpret(kind, M, K, N, q, bm, bn, P):
+    a, w, pats, pwp = _setup(M, K, N, q, seed=M + P)
+    jp, js, tp, ts = _pwp_variant(pwp, kind)
+    active = ref_stripe_active_sets(jnp.asarray(a), jnp.asarray(pats), P, bm)
+    rout, rnnz = phi_fused_prefetch_pallas(jnp.asarray(a), jnp.asarray(pats), jp, js,
+                                           jnp.asarray(w), active, block_m=bm, block_n=bn,
+                                           interpret=True)
+    out, nnz = phi_fused_prefetch_cuda(t(a), t(pats), tp, ts, t(w), t(active), block_m=bm)
+    _assert_fused_equal(kind, out.numpy(), np.asarray(rout))
+    np.testing.assert_array_equal(nnz.numpy(), np.asarray(rnnz))
+    # with an f32 bank exact whatever the sets (a bf16 or int8 bank rounds its
+    # rows, so another decomposition rounds otherwise); the restricted match
+    # leaves more residual
+    full, fnnz = phi_fused_plain(t(a), t(pats), tp, ts, t(w), block_m=bm)
+    if kind == "f32":
+        np.testing.assert_array_equal(out.numpy(), full.numpy())
+    assert (nnz >= fnnz).all() and int(nnz.sum()) > int(fnnz.sum())
+
+
+@pytest.mark.parametrize("M", [37, 100])
+def test_ops_phi_fused_prefetch_from_usage_vs_reference(M):
+    a, w, pats, pwp = _setup(M, 64, 40, 16, seed=M)
+    usage = np.asarray(RP.pattern_usage(jnp.asarray(a), jnp.asarray(pats)))
+    usage[:, :4] += 10 * M                          # skew: four hot patterns a partition
+    rout, rnnz = RO.phi_fused_prefetch(jnp.asarray(a), jnp.asarray(pats), jnp.asarray(pwp),
+                                       jnp.asarray(w), usage=usage, block_m=32, block_n=40)
+    out, nnz = ops.phi_fused_prefetch(t(a), t(pats), t(pwp), t(w), usage=usage, block_m=32)
+    assert out.shape == (M, 40) and nnz.shape == (-(-M // 32),)
+    np.testing.assert_array_equal(out.numpy(), np.asarray(rout))
+    np.testing.assert_array_equal(nnz.numpy(), np.asarray(rnnz))
+    np.testing.assert_array_equal(out.numpy(), a @ w)                    # lossless
+    with pytest.raises(ValueError, match="no exploitable skew"):
+        ops.phi_fused_prefetch(t(a), t(pats), t(pwp), t(w), usage=np.ones((4, 17)))
+    with pytest.raises(ValueError, match="usage"):
+        ops.phi_fused_prefetch(t(a), t(pats), t(pwp), t(w))
+
+
 def test_plain_fused_undyadic_weights_within_tolerance():
     # Off the dyadic grid only the order of the k-term L2 sum of a partition
     # differs (a matmul on each side): a few float32 ulps of the row sums.
@@ -121,14 +262,18 @@ def test_ops_phi_fused_ragged_m(M):
 
 # The ref lowering takes no dequant scale in either package: no int8 case.
 @pytest.mark.parametrize("impl,int8", [("ref", False), ("coo", False), ("fused", False),
-                                       ("coo", True), ("fused", True)])
+                                       ("fused_stream", False), ("fused_prefetch", False),
+                                       ("coo", True), ("fused", True), ("fused_stream", True),
+                                       ("fused_prefetch", True)])
 def test_phi_matmul_bitwise_vs_reference(impl, int8):
     a, w, pats, pwp = _setup(80, 64, 48, 16, seed=7)
     a3 = a.reshape(2, 40, 64)
     kw, tkw, jp, tp = {}, {}, jnp.asarray(pwp), t(pwp)
+    if impl == "fused_prefetch":
+        kw, tkw = {"p_active": 6}, {"p_active": 6}
     if int8:
         jp, js = RP.quantize_pwp(jnp.asarray(pwp))
-        kw, tkw, tp = {"pwp_scale": js}, {"pwp_scale": t(js)}, t(jp)
+        kw, tkw, tp = {**kw, "pwp_scale": js}, {**tkw, "pwp_scale": t(js)}, t(jp)
     want = RO.phi_matmul(jnp.asarray(a3), jnp.asarray(w), jnp.asarray(pats), jp,
                          impl=impl, **kw)
     got = ops.phi_matmul(t(a3), t(w), t(pats), tp, impl=impl, **tkw)
@@ -140,7 +285,7 @@ def test_phi_matmul_bitwise_vs_reference(impl, int8):
 
 def test_phi_matmul_refuses_unported_and_unknown_impls():
     a, w, pats, pwp = _setup(16, 32, 8, 4)
-    for impl in ("fused_stream", "fused_prefetch", "pallas"):
+    for impl in ("pallas",):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ops.phi_matmul(t(a), t(w), t(pats), t(pwp), impl=impl)
     with pytest.raises(ValueError):
@@ -229,6 +374,12 @@ def test_wrappers_refuse_devices_they_have_no_kernel_for():
     meta = torch.empty((4, 32), device="meta")
     with pytest.raises(ValueError):
         lif_sequence_cuda(meta)
-    with pytest.raises(ValueError):
-        phi_fused_cuda(meta, torch.zeros(2, 4, 16), torch.zeros(2, 5, 8),
-                       torch.ones(2, 5), torch.zeros(32, 8), block_m=32)
+    for fn in (phi_fused_cuda, phi_fused_stream_cuda):
+        with pytest.raises(ValueError, match="unsupported device"):
+            fn(meta, torch.zeros(2, 4, 16), torch.zeros(2, 5, 8), torch.ones(2, 5),
+               torch.zeros(32, 8), block_m=32)
+    with pytest.raises(ValueError, match="unsupported device"):
+        phi_fused_prefetch_cuda(meta, torch.zeros(2, 4, 16), torch.zeros(2, 5, 8),
+                                torch.ones(2, 5), torch.zeros(32, 8),
+                                torch.zeros((1, 2, 2), dtype=torch.int32, device="meta"),
+                                block_m=32)

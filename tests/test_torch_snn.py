@@ -21,6 +21,7 @@ from repro.snn import models as RM
 from repro_torch.core.assign import phi_stats
 from repro_torch.core.patterns import PhiConfig
 from repro_torch.interop import params_from_numpy, phi_state_from_numpy
+from repro_torch.kernels import dispatch
 from repro_torch.snn import models as M
 from repro_torch.snn.data import synthetic_images
 
@@ -100,7 +101,7 @@ def test_phi_apply_bitwise_vs_reference_with_injected_phi_matmul(impl):
     params = params_from_numpy(w, "cpu")
     got = M.phi_apply(params, cfg, state, t(x), impl=impl)
     np.testing.assert_array_equal(got.numpy(), want)
-    # impl=None means "fused" until the execution policy is ported
+    # impl=None takes the gate's kernel per layer: the same exact sums
     np.testing.assert_array_equal(M.phi_apply(params, cfg, state, t(x)).numpy(), want)
 
 
@@ -110,7 +111,7 @@ def test_phi_apply_is_lossless(kind):
     params = params_from_numpy(w, "cpu")
     state, acts = M.calibrate_model(params, cfg, t(x))
     dense = M.apply(params, cfg, t(x))
-    for impl in ("fused", "coo", "ref"):
+    for impl in ("fused", "fused_stream", "coo", "ref"):
         np.testing.assert_array_equal(M.phi_apply(params, cfg, state, t(x), impl=impl).numpy(),
                                       dense.numpy())
     # the decomposition did real work: patterns matched and residuals remain
@@ -127,11 +128,50 @@ def test_phi_apply_refuses_a_state_of_another_model():
         M.phi_apply(params, cfg, state, t(x))
 
 
+def test_phi_apply_routes_each_layer_through_the_gate(monkeypatch):
+    """impl=None: each layer on the kernel ``ops.fused_shape_viable`` picks
+    from its shape and calibration usage; the logits stay bitwise dense."""
+    from repro_torch.kernels import ops
+
+    rcfg, cfg, w, x = _both("vgg")
+    params = params_from_numpy(w, "cpu")
+    state, _ = M.calibrate_model(params, cfg, t(x))
+    T, q = state.patterns["conv1"].shape[:2]
+    T_head, q_head = state.patterns["head"].shape[:2]
+    skewed = np.ones((T_head, q_head + 1), np.int64)
+    skewed[:, :4] = 1000                                            # four hot patterns
+    usage = {"conv1": np.ones((T, q + 1), np.int64), "head": skewed}  # conv1 flat: no skew
+    state = M.PhiState(state.patterns, state.pwp, usage)
+    assert state.p_active == {"conv1": None, "head": 8}
+    calls = []
+    for name in ("phi_fused", "phi_fused_stream", "phi_fused_prefetch"):
+        real = getattr(ops, name)
+        monkeypatch.setattr(ops, name, lambda *a, _n=name, _r=real, **k: (calls.append(_n),
+                                                                          _r(*a, **k))[1])
+    monkeypatch.setattr(ops, "STREAM_MIN_T", 1)                    # stream every long-K GEMM
+    got = M.phi_apply(params, cfg, state, t(x))
+    assert calls == ["phi_fused_stream", "phi_fused_prefetch"]      # conv1, then the head
+    assert torch.equal(got, M.apply(params, cfg, t(x)))
+
+
 def test_spikformer_flash_attention_is_not_ported_yet():
-    cfg = M.SNNConfig(**{**SMALL["spikformer"], "attn": "flash"})
-    params = M.init(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        M.apply(params, cfg, torch.zeros((1, 8, 8, 3)))
+    """Named when ``attn="flash"`` raised NotImplementedError; now checks the
+    ported path: it runs, and its attention sites resolve ``phi_flash``."""
+    rcfg, cfg, w, x = _both("spikformer")
+    cfg = M.SNNConfig(**{**SMALL["spikformer"], "attn": "flash"},
+                      phi=PhiConfig(k=16, q=16, iters=3))
+    params = params_from_numpy(w, "cpu")
+    state, _ = M.calibrate_model(params, cfg, t(x))
+    assert "b0_attn" in state.patterns and "b0_attn" not in state.pwp
+    prev = dispatch.set_policy(dispatch.PhiExecutionPolicy())
+    try:
+        got = M.phi_apply(params, cfg, state, t(x))
+        d = dispatch.get_policy().last_decision("snn.b0_attn")
+    finally:
+        dispatch.set_policy(prev)
+    assert (d.impl, d.reason) == ("phi_flash", "spike_qk_phi_flash_xla")
+    assert got.shape == (3, 10) and torch.isfinite(got).all()
+    assert torch.equal(got, M.apply(params, cfg, t(x)))
 
 
 @pytest.mark.parametrize("kh,kw,stride,pad", [(3, 3, 1, "SAME"), (3, 3, 2, "SAME"),
