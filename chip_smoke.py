@@ -1,32 +1,33 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA card and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA card and check them.
 
     python3 chip_smoke.py
 
 Phases, one JSON object per line, in order: ``env`` (versions, the card),
-``build`` (nvcc time), then for each of the two paths its main path, parity
-and timing phases, and the ``kernels`` summary:
+``build`` (nvcc time), then for each path its main path, parity and timing
+phases, and the ``kernels`` summary:
 
 * VGG — ``main_path`` (calibrate, then Phi inference over four batches of a
-  VGG at VGG-16 stage widths, logits bitwise equal to dense inference),
-  ``parity`` (both fused kernels and the LIF kernels against their plain
-  PyTorch versions on the main path's tensors), ``timing`` (CUDA events);
+  VGG at VGG-16 stage widths through the execution policy, logits bitwise
+  equal to dense inference), ``parity`` (the fused kernels and the LIF
+  kernels against their plain PyTorch versions on the main path's tensors),
+  ``timing`` (CUDA events);
+* VGG under ``PhiConfig(impl="pallas")`` — ``pallas_main_path`` (the same
+  configuration and data, every GEMM on the matcher, L1-gather and L2-spmm
+  kernels, logits bitwise equal to dense inference, every capacity audit
+  zero), ``pallas_parity`` (the three kernels against their plain versions
+  at every GEMM's operands and at odd shapes), ``pallas_timing``;
 * Spikformer-4-384 with softmax attention — ``spikformer_main_path`` (the
   same, every attention site on the Phi flash-attention kernel, every
-  spiking GEMM on the fused kernel the shape gate picks),
-  ``spikformer_parity`` (both fused kernels on every GEMM's activations, the
-  LIF kernel on the path's currents, the attention kernel on each site's q,
-  k, v and on causal, window, chunk and ragged-S cases, each against its
-  plain version), ``spikformer_timing``.
+  spiking GEMM on the fused kernel the policy resolves; the prefetch sites
+  take their gather sets from runtime telemetry from the second batch on),
+  ``spikformer_parity``, ``spikformer_timing``.
 
-Every spiking GEMM runs on the kernel ``ops.fused_shape_viable`` picks (the
-first fused kernel, or the K-streaming one where the K loop is long); the
-parity and timing phases run both kernels on every GEMM, so their times sit
-side by side.
-
-Each path is driven with every kernel's launch count set to 0 just before
-it and read just after. The card's ``nvidia-smi`` name and power limit sit
-on their own line before the summary; the last line is the result object.
+Every ``*main_path`` phase prints the policy's decisions (site, impl,
+reason, count). Each main path is driven with every kernel's launch count
+set to 0 just before it and read just after. The card's ``nvidia-smi`` name
+and power limit sit on their own line before the summary; the last line is
+the result object.
 
 Any failure raises and exits non-zero: no phase is caught. Without a CUDA
 card, or run where ``src/repro_torch`` is not beside it, it exits 1 and
@@ -299,6 +300,15 @@ def check_fused_launches(launches, routes, path) -> None:
                                  f"!= {want}: routes {routes}")
 
 
+def check_decisions(decisions, routes, path) -> None:
+    """Every GEMM site resolved once a batch, each to the kernel it is routed to."""
+    for name, route in routes.items():
+        got = {(impl, reason): n for (site, impl, reason), n in decisions.items()
+               if site == f"snn.{name}"}
+        if sum(got.values()) != BATCHES or any(impl != route for impl, _ in got):
+            raise AssertionError(f"{path}: snn.{name} resolved {got}, want {route} x {BATCHES}")
+
+
 def bound(rows) -> tuple[float, str]:
     """Sum of per-call bounds, and what bounds the sum (bytes or operations)."""
     total = sum(max(r["bytes_ms"], r["ops_ms"]) for r in rows)
@@ -319,7 +329,7 @@ def spikformer_path(dev, images, smi) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.core.patterns import PhiConfig
-    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import dispatch, ops
     from repro_torch.kernels.lif import lif_sequence_cuda, lif_step_cuda
     from repro_torch.kernels.phi_attention import (
         flash_attention_cuda, phi_flash_attention_cuda, phi_flash_attention_plain)
@@ -340,6 +350,7 @@ def spikformer_path(dev, images, smi) -> dict:
                lif_step_cuda, phi_flash_attention_cuda, flash_attention_cuda)
 
     # ------------------------------------------------------ main path ---
+    prepass, real_prepass = [], ops.stripe_active_sets
     for fn in counted:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -347,8 +358,12 @@ def spikformer_path(dev, images, smi) -> dict:
         state, acts = M.calibrate_model(params, cfg, calib_x)
         torch.cuda.synchronize()
         calib_s = time.perf_counter() - t0
-        logits = [(M.phi_apply(params, cfg, state, x), M.apply(params, cfg, x))
-                  for x in batches]
+        ops.stripe_active_sets = lambda *a, **k: (prepass.append(1), real_prepass(*a, **k))[1]
+        try:
+            logits = [(M.phi_apply(params, cfg, state, x), M.apply(params, cfg, x))
+                      for x in batches]
+        finally:
+            ops.stripe_active_sets = real_prepass
         torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counted}
     main_s = time.perf_counter() - t0
@@ -364,6 +379,20 @@ def spikformer_path(dev, images, smi) -> dict:
     # whose calibration usage is skewed prefetched, the rest on the first one.
     routes = gate_routes(params, state, acts)
     check_fused_launches(launches, routes, "spikformer")
+    check_decisions(decisions, routes, "spikformer")
+    # A prefetch site runs the pre-pass on its first batch only; from the
+    # second on its runtime match histogram supplies the gather sets.
+    prefetched = [name for name, route in routes.items() if route == "fused_prefetch"]
+    for name in prefetched:
+        for reason, n in (("pattern_usage_prefetch_native", 1),
+                          ("pattern_usage_prefetch_native_runtime_sets", BATCHES - 1)):
+            if decisions.get((f"snn.{name}", "fused_prefetch", reason)) != n:
+                raise AssertionError(f"snn.{name}: {reason} resolved "
+                                     f"{decisions.get((f'snn.{name}', 'fused_prefetch', reason))}"
+                                     f" times, want {n}")
+    if len(prepass) != len(prefetched):
+        raise AssertionError(f"the prefetch pre-pass ran {len(prepass)} times, want "
+                             f"{len(prefetched)} (once per prefetch site)")
     if launches["lif_sequence_cuda"] <= 0:
         raise AssertionError("the LIF sequence kernel never launched on the spikformer path")
     for b in range(cfg.blocks):
@@ -396,7 +425,9 @@ def spikformer_path(dev, images, smi) -> dict:
                      "iters": cfg.phi.iters, "batch": BATCH, "batches": BATCHES},
           "calibrate_s": calib_s, "main_path_s": main_s, "launches": launches,
           "decisions": [[*key, n] for key, n in sorted(decisions.items())],
-          "routes": routes,
+          "routes": routes, "prepass_launches": len(prepass),
+          "runtime_sets_decisions": sum(n for (_, _, reason), n in decisions.items()
+                                        if reason.endswith("_runtime_sets")),
           "logits_bitwise_equal_dense": True, "density": density,
           "cpu_plain_logits_max_abs_diff": float((cpu_logits - logits[0][0].cpu()).abs().max())})
 
@@ -524,6 +555,260 @@ def spikformer_path(dev, images, smi) -> dict:
             "lif_err": lif_err, "launches": launches}
 
 
+def unit_bounds(a, pats, idx, pwp, entries, w_cols, N, G_bm) -> dict:
+    """Least times of the three per-unit kernels on one GEMM, (bytes, operations)
+    each: inputs read once, outputs written once, over 3.35 TB/s; float32
+    operations of this run's data over 67 TFLOP/s. The matcher reads a and
+    the packed bank and writes idx and the int8 residual; its match is integer
+    work, which the table of peaks has no CUDA-core rate for, so it is not
+    counted. The gather reads idx and the bank rows the indices name (each
+    distinct (t, index) row once) and writes the output; T - 1 adds per
+    output. The spmm reads the real entries (4 + 4 + 1 bytes) and the weight
+    rows they name and writes the (G·bm, N) output; an add per entry and
+    column."""
+    import torch
+
+    M, K = a.shape
+    T, q, _ = pats.shape
+    rows_named = int(torch.unique(idx.long() + torch.arange(T, device=idx.device)
+                                  * (q + 1)).numel())
+    return {
+        "matcher": ((4 * M * K + 8 * T * q + 4 * M * T + M * K) / HBM_BYTES_PER_S * 1e3, 0.0),
+        "l1_gather": ((4 * M * T + rows_named * N * pwp.element_size() + 4 * M * N)
+                      / HBM_BYTES_PER_S * 1e3, M * N * (T - 1) / F32_FLOP_PER_S * 1e3),
+        "l2_spmm": ((9 * entries + 4 * w_cols * N + 4 * G_bm * N) / HBM_BYTES_PER_S * 1e3,
+                    entries * N / F32_FLOP_PER_S * 1e3)}
+
+
+def unit_operands(a, pats, pwp, w, nnz_budget):
+    """The three kernels' operands for one GEMM, as ``ops.phi_matmul(impl=
+    "pallas")`` builds them: idx and residual from the matcher, the COO of the
+    residual bucketed per 256-row block with the lowering's capacities."""
+    from repro_torch.core.assign import pack_l2_coo_jit
+    from repro_torch.kernels import ops
+
+    M, K = a.shape
+    idx, res = ops.matcher(a, pats)
+    cap = max(128, int(nnz_budget * M * K))
+    rows, cols, signs, _ = pack_l2_coo_jit(res, cap)
+    bm = ops.effective_block_m(M, 256)
+    G = -(-M // bm)
+    br, bc, bs, dropped = ops.bucket_coo(rows, cols, signs, G * bm, bm,
+                                         ops.l2_per_block_cap(nnz_budget, 256, K, cap))
+    if int(dropped):
+        raise AssertionError(f"bucket_coo dropped {int(dropped)} entries at M={M}, K={K}")
+    return idx, res, (br, bc, bs, bm), (rows, cols, signs)
+
+
+def unit_checks(label, a, pats, packed, pwp, w, nnz_budget) -> dict:
+    """The matcher, gather and spmm kernels against their plain versions on one
+    GEMM's operands, bitwise; the gather also on the bank in bf16. (The
+    reference's two modes of the gather and the spmm are one kernel here.)"""
+    import torch
+
+    from repro_torch.kernels.matcher import matcher_cuda, matcher_plain
+    from repro_torch.kernels.phi_gather import l1_gather_cuda, l1_gather_plain
+    from repro_torch.kernels.phi_spmm import l2_spmm_cuda, l2_spmm_plain
+
+    idx, res = matcher_cuda(a, pats, packed=packed)
+    pidx, pres = matcher_plain(a, pats)
+    _, _, (br, bc, bs, bm), _ = unit_operands(a, pats, pwp, w, nnz_budget)
+    runs = {"matcher": [(idx, pidx), (res, pres)]}
+    runs["l1_gather"] = [(l1_gather_cuda(pidx, bank), l1_gather_plain(pidx, bank))
+                         for bank in (pwp, pwp.to(torch.bfloat16))]
+    runs["l2_spmm"] = [(l2_spmm_cuda(br, bc, bs, w, block_m=bm),
+                        l2_spmm_plain(br, bc, bs, w, block_m=bm))]
+    torch.cuda.synchronize()
+    errs = {}
+    for kern, pairs in runs.items():
+        errs[kern] = max(float((x.float() - y.float()).abs().max()) if x.numel() else 0.0
+                         for x, y in pairs)
+        if not all(torch.equal(x, y) for x, y in pairs):
+            raise AssertionError(f"{label}: {kern} kernel != plain version, max |diff| "
+                                 f"{errs[kern]}")
+    return {"case": label, "M": a.shape[0], "K": a.shape[1], "N": w.shape[1],
+            "l2_entries": int((bs != 0).sum()), "max_abs_err": errs}
+
+
+def pallas_path(dev, cfg, params, state, batches, dense_logits, smi) -> dict:
+    """The pallas phases: the VGG main path's configuration and data under
+    ``PhiConfig(impl="pallas")``; the three kernels against their plain
+    versions at every GEMM and at odd shapes; timings. Returns the three
+    kernels' entries of the ``kernels`` line."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core.patterns import pattern_weight_products
+    from repro_torch.core.patterns import quantize_pwp
+    from repro_torch.kernels import dispatch, ops
+    from repro_torch.kernels.lif import lif_sequence_cuda
+    from repro_torch.kernels.matcher import matcher_cuda, matcher_plain
+    from repro_torch.kernels.phi_fused import phi_fused_cuda, phi_fused_stream_cuda
+    from repro_torch.kernels.phi_fused import phi_fused_prefetch_cuda
+    from repro_torch.kernels.phi_gather import l1_gather_cuda, l1_gather_plain
+    from repro_torch.kernels.phi_spmm import l2_spmm_cuda, l2_spmm_plain
+    from repro_torch.snn import models as M
+
+    pcfg = dataclasses.replace(cfg, phi=dataclasses.replace(cfg.phi, impl="pallas"))
+    budget = pcfg.phi.nnz_budget
+    units = (matcher_cuda, l1_gather_cuda, l2_spmm_cuda)
+    counted = units + (phi_fused_cuda, phi_fused_stream_cuda, phi_fused_prefetch_cuda,
+                       lif_sequence_cuda)
+    policy = dispatch.PhiExecutionPolicy()
+    prev_policy = dispatch.set_policy(policy)
+
+    # ------------------------------------------------------ main path ---
+    for fn in counted:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits = [M.phi_apply(params, pcfg, state, x) for x in batches]
+        torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    launches = {fn.__name__: fn.launches for fn in counted}
+    decisions = policy.decisions()
+    dispatch.set_policy(prev_policy)
+    for i, (p, d) in enumerate(zip(logits, dense_logits)):
+        if not torch.equal(p, d):
+            raise AssertionError(f"pallas batch {i}: phi_apply != dense apply, max |diff| "
+                                 f"{float((p - d).abs().max())}")
+    for fn in units:                      # once per GEMM a batch: 5 at the slice's widths
+        if launches[fn.__name__] != len(state.patterns) * BATCHES:
+            raise AssertionError(f"pallas: {fn.__name__} launches {launches}, want "
+                                 f"{len(state.patterns)} x {BATCHES}")
+    if any(launches[fn.__name__] for fn in counted[3:6]):
+        raise AssertionError(f"pallas: a fused kernel ran: {launches}")
+    check_decisions(decisions, {name: "pallas" for name in state.patterns}, "pallas")
+    if any(reason != "config_override" for _, _, reason in decisions):
+        raise AssertionError(f"pallas: {decisions}")
+    # The budgeted lowering is exact only if no capacity dropped an entry:
+    # audit every GEMM of every batch (its activations from dense apply).
+    audits = []
+    with torch.no_grad():
+        for i, x in enumerate(batches):
+            cap = {}
+            M.apply(params, cfg, x, capture=cap)
+            for name, act in cap.items():
+                aud = ops.phi_l2_audit(act, state.patterns[name], nnz_budget=budget)
+                audits.append({"batch": i, "layer": name, **aud})
+                if aud["pack_overflow"] or aud["bucket_dropped"] or aud["chunk_overflow"]:
+                    raise AssertionError(f"pallas batch {i} {name}: capacity audit {aud}")
+    emit({"phase": "pallas_main_path", "impl": "pallas", "nnz_budget": budget,
+          "main_path_s": main_s, "launches": launches,
+          "decisions": [[*key, n] for key, n in sorted(decisions.items())],
+          "logits_bitwise_equal_dense": True, "audits": audits})
+
+    # --------------------------------------------------------- parity ---
+    acts = {}
+    with torch.no_grad():
+        M.apply(params, cfg, batches[0], capture=acts)
+    gemms = {}
+    for name, act in acts.items():
+        w2 = params[name]["w"].reshape(-1, params[name]["w"].shape[-1])
+        gemms[name] = (act.contiguous(), state.patterns[name], state.packed[name],
+                       state.pwp[name], w2)
+    checks = [unit_checks(name, *args, budget) for name, args in gemms.items()]
+    a1, pats1, packed1, _, w1 = gemms["conv1"]
+    ragged = torch.cat([a1, a1[:37]])
+    checks.append(unit_checks("conv1 M+37", ragged, pats1, packed1, state.pwp["conv1"], w1,
+                              budget))
+    w384 = dyadic(torch.randn((w1.shape[0], 384), generator=torch.Generator().manual_seed(2))
+                  .to(dev) * 0.05)
+    if ops._pick_block_n(384, 256) != 192:
+        raise AssertionError("block_n for N = 384 is not 192")
+    checks.append(unit_checks("conv1 N=384", a1, pats1, packed1,
+                              pattern_weight_products(pats1, w384), w384, budget))
+    refused = []
+    for what, call, exc in (
+        ("matcher k=128", lambda: matcher_cuda(
+            torch.zeros((8, 128), device=dev),
+            torch.zeros((1, 4, 128), dtype=torch.uint8, device=dev)), ValueError),
+        ("l1_gather int8 bank", lambda: l1_gather_cuda(
+            torch.zeros((8, 1), dtype=torch.int32, device=dev),
+            torch.zeros((1, 5, 8), dtype=torch.int8, device=dev)), TypeError),
+        ("l1_gather idx past q", lambda: l1_gather_cuda(
+            torch.full((8, 1), 5, dtype=torch.int32, device=dev),
+            torch.zeros((1, 5, 8), device=dev)), ValueError),
+        ("policy k=128", lambda: dispatch.PhiExecutionPolicy().matmul(
+            torch.zeros((8, 512), device=dev), torch.zeros((512, 8), device=dev),
+            torch.zeros((4, 8, 128), dtype=torch.uint8, device=dev),
+            torch.zeros((4, 9, 8), device=dev), site="wide_k"), ValueError),
+        ("pallas int8 bank", lambda: ops.phi_matmul(
+            a1, w1, pats1, quantize_pwp(state.pwp["conv1"])[0], impl="pallas"), ValueError),
+    ):
+        try:
+            call()
+        except exc as err:
+            refused.append({"case": what, "raised": type(err).__name__})
+        else:
+            raise AssertionError(f"the kernel took a refused input ({what}) without raising")
+    unit_errs = {kern: max(c["max_abs_err"][kern] for c in checks)
+                 for kern in ("matcher", "l1_gather", "l2_spmm")}
+    emit({"phase": "pallas_parity", "checks": checks, "bitwise": True,
+          "max_abs_err": unit_errs, "refused": refused})
+
+    # --------------------------------------------------------- timing ---
+    rows = []
+    for name, (a, pats, packed, pwp, w2) in gemms.items():
+        idx, res, (br, bc, bs, bm), (crows, ccols, csigns) = unit_operands(a, pats, pwp, w2,
+                                                                          budget)
+        M_, K = a.shape
+        T, q, _ = pats.shape
+        N = w2.shape[1]
+        real = csigns != 0
+        entries = int(real.sum())
+        w_cols = int(torch.unique(ccols[real]).numel())
+        bounds = unit_bounds(a, pats, idx, pwp, entries, w_cols, N, br.shape[0] * bm)
+        offsets = (torch.arange(T, device=dev) * (q + 1))[None]
+        bags = (idx.long() + offsets).contiguous()
+        table = pwp.reshape(T * (q + 1), N)
+        sparse = torch.sparse_coo_tensor(torch.stack([crows[real].long(), ccols[real].long()]),
+                                         csigns[real].float(), (M_, K)).coalesce()
+        calls = {
+            "matcher": (lambda: matcher_cuda(a, pats, packed=packed),
+                        lambda: matcher_plain(a, pats), None),
+            "l1_gather": (lambda: l1_gather_cuda(idx, pwp), lambda: l1_gather_plain(idx, pwp),
+                          lambda: F.embedding_bag(bags, table, mode="sum")),
+            "l2_spmm": (lambda: l2_spmm_cuda(br, bc, bs, w2, block_m=bm),
+                        lambda: l2_spmm_plain(br, bc, bs, w2, block_m=bm),
+                        lambda: torch.sparse.mm(sparse, w2)),
+        }
+        for kern, (fn, plain, lib) in calls.items():
+            b_ms, o_ms = bounds[kern]
+            rows.append({"kernel": kern, "layer": name, "M": M_, "K": K, "N": N, "T": T,
+                         "l2_entries": entries, "ms": cuda_time_ms(fn),
+                         "plain_ms": cuda_time_ms(plain, runs=3, warmup=1),
+                         "library_ms": None if lib is None else cuda_time_ms(lib),
+                         "bytes_ms": b_ms, "ops_ms": o_ms, "bound_ms": max(b_ms, o_ms),
+                         "launches_per_batch": 1})
+    with torch.no_grad():
+        x = batches[0]
+        times = {"pallas": lambda: M.phi_apply(params, pcfg, state, x),
+                 "policy": lambda: M.phi_apply(params, cfg, state, x),
+                 "dense": lambda: M.apply(params, cfg, x)}
+        per_batch = {path: cuda_time_ms(fn, runs=10) for path, fn in times.items()}
+        profile = device_profile(times["pallas"], per_batch["pallas"])
+    emit({"phase": "pallas_timing", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "units": rows, "phi_apply_ms_per_batch": per_batch, "profile_pallas": profile})
+
+    entries = []
+    for kern, source, replaces in (
+            ("matcher", "matcher.cu", "src/repro/kernels/matcher.py:48"),
+            ("l1_gather", "phi_gather.cu", "src/repro/kernels/phi_gather.py:52"),
+            ("l2_spmm", "phi_spmm.cu", "src/repro/kernels/phi_spmm.py:50")):
+        krows = [r for r in rows if r["kernel"] == kern]
+        b_ms, by = bound(krows)
+        entries.append({
+            "name": kern, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
+            "replaces": replaces, "launches": launches[f"{kern}_cuda"],
+            "max_abs_err": unit_errs[kern], "ms": sum(r["ms"] for r in krows),
+            "plain_ms": sum(r["plain_ms"] for r in krows), "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None if kern == "matcher" else sum(r["library_ms"] for r in krows)})
+    return entries
+
+
 def main() -> int:
     import torch
 
@@ -539,7 +824,7 @@ def main() -> int:
 
     from repro_torch.core.assign import phi_stats
     from repro_torch.core.patterns import PhiConfig, pattern_weight_products, quantize_pwp
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, dispatch
     from repro_torch.kernels.lif import lif_sequence_cuda, lif_step_cuda
     from repro_torch.kernels.phi_attention import flash_attention_cuda, phi_flash_attention_cuda
     from repro_torch.kernels.phi_fused import (
@@ -584,6 +869,8 @@ def main() -> int:
 
     counted = (phi_fused_cuda, phi_fused_stream_cuda, phi_fused_prefetch_cuda, lif_sequence_cuda,
                lif_step_cuda, phi_flash_attention_cuda, flash_attention_cuda)
+    policy = dispatch.PhiExecutionPolicy()
+    prev_policy = dispatch.set_policy(policy)
     for fn in counted:
         fn.launches = 0
     t0 = time.perf_counter()
@@ -599,6 +886,8 @@ def main() -> int:
         torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counted}
     main_s = time.perf_counter() - t0
+    decisions = policy.decisions()
+    dispatch.set_policy(prev_policy)
 
     for i, (p, d) in enumerate(logits):
         if p.shape != (BATCH, 10) or not torch.isfinite(p).all():
@@ -615,6 +904,7 @@ def main() -> int:
     if len(routes) != 5:
         raise AssertionError(f"calibrated layers {sorted(routes)} != 5")
     check_fused_launches(launches, routes, "vgg")
+    check_decisions(decisions, routes, "vgg")
     if launches["lif_sequence_cuda"] <= 0:
         raise AssertionError("the LIF sequence kernel never launched on the main path")
 
@@ -643,7 +933,7 @@ def main() -> int:
                                            "q": cfg.phi.q, "iters": cfg.phi.iters,
                                            "batch": BATCH, "batches": BATCHES},
           "calibrate_s": calib_s, "main_path_s": main_s, "launches": launches,
-          "routes": routes,
+          "decisions": [[*key, n] for key, n in sorted(decisions.items())], "routes": routes,
           "logits_bitwise_equal_dense": True, "logits_equal_cpu_plain": True,
           "layers": layers})
 
@@ -742,6 +1032,9 @@ def main() -> int:
           "phi_apply_ms_per_batch": phi_ms, "apply_ms_per_batch": dense_ms,
           "profile": profiles})
 
+    # ------------------------------------------------------------- pallas ---
+    unit_entries = pallas_path(dev, cfg, params, state, batches, [d for _, d in logits], smi)
+
     # --------------------------------------------------------- spikformer ---
     spk = spikformer_path(dev, images, smi)
 
@@ -749,8 +1042,9 @@ def main() -> int:
     # Times are per batch of the main paths: the sum over the calls one
     # batch of each path makes (the VGG's five Phi GEMMs and the
     # spikformer's seventeen, each on the kernel its path runs; both paths'
-    # LIF sequences; the spikformer's four attention sites). Launches are the
-    # counts of the main paths' runs, VGG and spikformer added.
+    # LIF sequences; the spikformer's four attention sites; the pallas path's
+    # five GEMMs for the matcher, gather and spmm). Launches are the counts
+    # of the main paths' runs, VGG and spikformer added.
     print(smi, flush=True)
     all_fused = timing + spk["fused_rows"]
     all_lif = lif_timing + spk["lif_rows"]
@@ -782,6 +1076,7 @@ def main() -> int:
         spk["attn_entry"],
         fused_entry("fused_stream", "src/repro/kernels/phi_fused.py:326"),
         fused_entry("fused_prefetch", "src/repro/kernels/phi_fused.py:549"),
+        *unit_entries,
     ]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

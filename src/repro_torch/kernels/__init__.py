@@ -2,8 +2,10 @@
 
 ``IMPLS`` and ``ATTN_IMPLS`` are the port's copies of the reference execution
 policy's lowering names (``repro/kernels/dispatch.py``); ``PhiConfig``
-validates against ``IMPLS``. Every matmul lowering but ``pallas`` (the
-three per-unit kernels) is ported; both attention lowerings are.
+validates against ``IMPLS``. Every lowering of both is ported: the three
+fused matmul kernels, the per-unit ``pallas`` kernels (matcher, L1 gather,
+L2 spmm), the plain ``coo`` and ``ref`` lowerings, and both attention
+lowerings.
 """
 
 IMPLS = ("fused", "fused_stream", "fused_prefetch", "pallas", "coo", "ref")

@@ -20,7 +20,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("phi_fused.cu", "lif.cu", "phi_attention.cu")
+SOURCES = ("phi_fused.cu", "lif.cu", "phi_attention.cu", "matcher.cu", "phi_gather.cu",
+           "phi_spmm.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,6 +43,10 @@ _SIGNATURES = {
                             ctypes.c_float, ctypes.c_int, _P],
     "phi_attention_launch": [_P] * 6 + [ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_int, _P],
     "phi_attention_smem_bytes": [ctypes.c_int] * 6,
+    "matcher_launch": [_P, _P, _P, _P, ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P],
+    "l1_gather_launch": [_P, _P, ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_int,
+                         ctypes.c_int, ctypes.c_int, _P],
+    "l2_spmm_launch": [_P] * 5 + [ctypes.c_int] * 4 + [_P],
 }
 # Return types other than the launch functions' CUDA error code.
 _RESTYPES = {"phi_attention_smem_bytes": ctypes.c_longlong,

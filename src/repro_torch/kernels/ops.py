@@ -1,11 +1,17 @@
-"""Public wrappers around the Phi kernels (port of ``repro/kernels/ops.py``, in slices).
+"""Public wrappers around the Phi kernels (port of ``repro/kernels/ops.py``).
 
 Responsibilities:
-  * shape handling: flatten leading axes, pick the ``l2_nnz`` block, default
-    the PWP dequant scales;
-  * the composite ``phi_matmul`` for the ported lowerings ``ref``, ``coo``,
-    ``fused``, ``fused_stream`` and ``fused_prefetch``, and the gate between
-    the three fused kernels (``fused_shape_viable``);
+  * shape handling: flatten leading axes, pad rows to the block where the
+    reference does, pick the ``l2_nnz`` and N blocks, default the PWP
+    dequant scales;
+  * the per-unit stages of the ``pallas`` lowering (``matcher``,
+    ``l1_gather``, ``l2_spmm``) and, in plain PyTorch as the reference has
+    them in XLA, COO bucketing (``bucket_coo``), its capacities and the
+    capacity audit ``phi_l2_audit``;
+  * the composite ``phi_matmul`` for every lowering of the reference
+    (``ref``, ``coo``, ``pallas``, ``fused``, ``fused_stream``,
+    ``fused_prefetch``), and the gate between the three fused kernels
+    (``fused_shape_viable``);
   * ``lif_step`` on tensors of any shape;
   * ``phi_flash_attention`` and the attention kernel's shared-memory model
     and block choice.
@@ -23,28 +29,179 @@ from repro_torch.core.assign import assign_patterns, pack_l2_coo_jit
 from repro_torch.core.patterns import active_pattern_sets
 from repro_torch.kernels import IMPLS, ref
 from repro_torch.kernels.lif import lif_step_cuda
+from repro_torch.kernels.matcher import matcher_cuda
 from repro_torch.kernels.phi_attention import SMEM_LIMIT, phi_flash_attention_cuda, smem_bytes
 from repro_torch.kernels.phi_fused import (
     MAX_GROUP_T, MAX_K, MAX_Q, phi_fused_cuda, phi_fused_prefetch_cuda, phi_fused_stream_cuda,
     stream_smem_bytes, stripe_active_sets)
-from repro_torch.utils import cdiv
+from repro_torch.kernels.phi_gather import l1_gather_cuda
+from repro_torch.kernels.phi_spmm import l2_spmm_cuda
+from repro_torch.utils import cdiv, pad_rows
 
 # Rows per l2_nnz audit block when the caller names none (the reference
 # kernel's default block_m). The CUDA kernel's own tiles are fixed in
 # csrc/phi_fused.cu and do not depend on it.
 FUSED_BLOCK_M = 256
 
-# Lowerings of the reference that the port has not reached yet, with the
-# ROADMAP item that carries each.
-_NOT_PORTED = {
-    "pallas": "ROADMAP queue 2 items 5-7 (matcher, l1_gather, l2_spmm)",
-}
-
 
 def effective_block_m(M: int, block_m: int) -> int:
     """Block-m actually used for an M-row problem: requested size clamped to
     the next power of two ≥ M."""
     return min(block_m, max(8, 1 << (M - 1).bit_length()))
+
+
+def _pick_block_n(N: int, block_n: int) -> int:
+    """Largest block size ≤ block_n that divides N (e.g. N = 384 with
+    block_n = 256 -> 192), as the reference picks its N tiles. Degenerate
+    divisors are refused loudly, as there. The per-unit CUDA kernels tile N
+    by 32 columns themselves: ``l1_gather`` and ``l2_spmm`` call this only
+    to refuse what the reference refuses."""
+    b = min(block_n, N)
+    while N % b:
+        b -= 1
+    if b < 8 and b != N:
+        raise ValueError(f"no usable block_n ≤ {block_n} divides N={N} (best divisor {b}); "
+                         "pad N to a multiple of 128 before calling")
+    return b
+
+
+# The reference's two retrieval modes of the gather and the spmm (a one-hot
+# matmul, "mxu", or a vector gather, "take"). They select the same values;
+# one-hot products are a TPU idiom, so one kernel serves both here.
+_MODES = ("mxu", "take")
+
+
+def _check_mode(mode: str) -> None:
+    if mode not in _MODES:
+        raise ValueError(f"mode {mode!r} not in {_MODES}")
+
+
+# ---------------------------------------------------------------- matcher ---
+def matcher(a: torch.Tensor, patterns: torch.Tensor, *, block_m: int = 256,
+            packed: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pattern match: a (..., K) binary, patterns (T, q, k) -> (idx (..., T)
+    int32, residual (..., K) int8). ``block_m`` is the reference's row block:
+    the kernel masks ragged M, so nothing is padded. ``packed`` is the bank
+    as the kernel reads it."""
+    lead = a.shape[:-1]
+    K = a.shape[-1]
+    idx, res = matcher_cuda(a.reshape(-1, K).to(torch.float32).contiguous(), patterns,
+                            packed=packed)
+    return idx.reshape(*lead, patterns.shape[0]), res.reshape(*lead, K)
+
+
+# -------------------------------------------------------------- L1 gather ---
+def l1_gather(idx: torch.Tensor, pwp: torch.Tensor, *, block_m: int = 256,
+              block_n: int = 256, mode: str = "mxu") -> torch.Tensor:
+    """idx (..., T) in [0, q] -> (..., N): the sum of the indexed PWP rows.
+    ``block_m`` is the reference's row block: the kernel masks ragged M."""
+    _check_mode(mode)
+    lead = idx.shape[:-1]
+    T = idx.shape[-1]
+    N = pwp.shape[-1]
+    _pick_block_n(N, block_n)
+    out = l1_gather_cuda(idx.reshape(-1, T).to(torch.int32).contiguous(), pwp.contiguous())
+    return out.reshape(*lead, N)
+
+
+# ---------------------------------------------------------------- L2 spmm ---
+def bucket_coo(rows: torch.Tensor, cols: torch.Tensor, signs: torch.Tensor, m: int,
+               block_m: int, cap: int
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Bucket row-sorted padded COO into per-M-block packs.
+
+    rows must ascend (sentinel == m last), as ``pack_l2_coo_jit`` emits
+    them. Returns (G, cap) local rows (sentinel block_m), (G, cap) cols,
+    (G, cap) signs, and the number of entries dropped past each block's cap.
+
+    Sentinel padding never consumes capacity and is never counted dropped:
+    the packer emits sentinels (sign 0) after all real (sign ±1) entries, so
+    the span boundaries are clamped to the real-entry count. Without the
+    clamp, a caller whose ``m = G·block_m`` exceeds the packer's true M
+    would find the sentinel rows inside the last block's span and report a
+    capacity overflow that never happened.
+    """
+    dev = rows.device
+    G = cdiv(m, block_m)
+    n_valid = (signs != 0).sum()
+    bounds = (torch.arange(G + 1, device=dev) * block_m).to(rows.dtype)
+    starts = torch.minimum(torch.searchsorted(rows, bounds, side="left"), n_valid)
+    take = starts[:-1, None] + torch.arange(cap, device=dev)[None, :]      # (G, cap)
+    valid = take < starts[1:, None]
+    take_c = take.clamp(0, rows.shape[0] - 1)
+    local = rows[take_c] - (torch.arange(G, device=dev)[:, None] * block_m).to(rows.dtype)
+    r = torch.where(valid, local, block_m)
+    c = torch.where(valid, cols[take_c], 0)
+    s = torch.where(valid, signs[take_c], 0)
+    dropped = (starts[1:] - starts[:-1] - cap).clamp(min=0).sum()
+    return r.to(torch.int32), c.to(torch.int32), s, dropped
+
+
+def l2_per_block_cap(nnz_budget: float, block_m: int, K: int, cap: int) -> int:
+    """Per-M-block L2 bucket capacity: the global budget with 4× local-
+    imbalance headroom, clamped to the global cap. Shared by the ``pallas``
+    lowering and ``phi_l2_audit``, and derived from the *requested* block_m
+    in both, so the audit never checks a smaller capacity than the lowering
+    enforces."""
+    return max(8, min(cap, int(4 * nnz_budget * block_m * K)))
+
+
+def phi_l2_audit(a: torch.Tensor, patterns: torch.Tensor, *, nnz_budget: float = 0.08,
+                 block_m: int = 256, chunk_rows: int | None = None,
+                 entry_block: int = 8192) -> dict:
+    """Capacity-budget audit of a Phi decomposition (no matmul performed).
+
+    Returns the dropped-entry counters of every budgeted path for
+    activations ``a`` (..., K): ``pack_overflow`` (entries beyond the global
+    COO cap of the ``pallas`` lowering), ``bucket_dropped`` (entries beyond
+    ``bucket_coo``'s per-M-block cap) and ``chunk_overflow`` (entries beyond
+    the per-chunk cap of ``coo``, whose ``PHI_CHUNK_ROWS`` it mirrors). All
+    zero ⇔ the budgeted lowerings are exact for this input; a mismatch with
+    nonzero counters is a capacity problem, not a kernel bug. The fused
+    lowerings and ``ref`` are budget-free.
+    """
+    a2 = a.reshape(-1, a.shape[-1])
+    M, K = a2.shape
+    _, residual = assign_patterns(a2, patterns)
+    cap = max(128, int(nnz_budget * M * K))
+    rows, cols, signs, pack_over = pack_l2_coo_jit(residual, cap)
+    bm = effective_block_m(M, block_m)
+    per_block = l2_per_block_cap(nnz_budget, block_m, K, cap)
+    G = cdiv(M, bm)
+    _, _, _, bucket_drop = bucket_coo(rows, cols, signs, G * bm, bm, per_block)
+    if chunk_rows is None:
+        chunk_rows = int(os.environ.get("PHI_CHUNK_ROWS", "2048"))
+    nc = cdiv(M, chunk_rows)
+    chunk_cap = max(128, int(nnz_budget * chunk_rows * K))
+    chunk_cap = cdiv(chunk_cap, entry_block) * entry_block
+    res3 = pad_rows(residual, chunk_rows).reshape(nc, chunk_rows, K)
+    chunk_nnz = res3.abs().to(torch.int64).sum(dim=(1, 2))
+    chunk_over = (chunk_nnz - chunk_cap).clamp(min=0).sum()
+    return {
+        "l2_nnz": int(residual.abs().to(torch.int64).sum()),
+        "cap": cap,
+        "pack_overflow": int(pack_over),
+        "bucket_dropped": int(bucket_drop),
+        "chunk_cap": chunk_cap,
+        "chunk_overflow": int(chunk_over),
+    }
+
+
+def l2_spmm(rows: torch.Tensor, cols: torch.Tensor, signs: torch.Tensor, w: torch.Tensor,
+            m: int, *, block_m: int = 256, block_n: int = 256, cap: int | None = None,
+            mode: str = "take") -> torch.Tensor:
+    """Padded COO (sentinel row == m) × w (K, N) -> (m, N) f32, through
+    ``bucket_coo`` with ``cap`` entries per M-block (default: all)."""
+    _check_mode(mode)
+    N = w.shape[-1]
+    bm = effective_block_m(m, block_m)
+    _pick_block_n(N, block_n)
+    G = cdiv(m, bm)
+    if cap is None:
+        cap = int(rows.shape[0])
+    br, bc, bs, _ = bucket_coo(rows, cols, signs, G * bm, bm, cap)
+    return l2_spmm_cuda(br, bc, bs, w, block_m=bm)[:m]
+
 
 
 def _fused_prologue(a2: torch.Tensor, pwp: torch.Tensor, pwp_scale: torch.Tensor | None,
@@ -125,24 +282,29 @@ def phi_fused_stream(a: torch.Tensor, patterns: torch.Tensor, pwp: torch.Tensor,
 def phi_fused_prefetch(a: torch.Tensor, patterns: torch.Tensor, pwp: torch.Tensor,
                        w: torch.Tensor, *, usage=None, p_active: int | None = None,
                        pwp_scale: torch.Tensor | None = None, block_m: int | None = None,
-                       packed: torch.Tensor | None = None
-                       ) -> tuple[torch.Tensor, torch.Tensor]:
+                       packed: torch.Tensor | None = None, runtime_sets=None,
+                       return_hist: bool = False):
     """PWP-prefetching fused Phi matmul: each M-stripe of ``block_m`` rows is
     matched only against its P most referenced patterns per partition.
 
     P comes from ``p_active``, else from the calibration ``usage`` histogram
     ((T, q+1) counts) through ``active_pattern_sets``, which must show skew.
     The sets come from a pre-pass over the activations
-    (``stripe_active_sets``); the reference's alternative, sets from the
-    policy's runtime match telemetry, comes with the policy's matmul half.
-    Returns ``(out, l2_nnz)`` like :func:`phi_fused`: the output is exact for
-    any sets; ``l2_nnz`` counts the residual of the restricted match.
+    (``stripe_active_sets``), or, given ``runtime_sets`` ((T, P) indices, from
+    the execution policy's aggregated runtime match histogram), those serve
+    every stripe and the pre-pass is skipped. ``return_hist`` (pre-pass only)
+    also returns the pre-pass's (T, q+1) int32 match histogram, the runtime
+    telemetry the policy aggregates. Returns ``(out, l2_nnz[, hist])`` like
+    :func:`phi_fused`: the output is exact for any sets; ``l2_nnz`` counts
+    the residual of the restricted match.
     """
     lead = a.shape[:-1]
     K = a.shape[-1]
     T, q, k = patterns.shape
     N = w.shape[-1]
     a2 = a.reshape(-1, K)
+    if runtime_sets is not None and p_active is None:
+        p_active = int(runtime_sets.shape[-1])
     if p_active is None:
         if usage is None:
             raise ValueError("phi_fused_prefetch needs a pattern-usage histogram (usage=) or "
@@ -154,11 +316,26 @@ def phi_fused_prefetch(a: torch.Tensor, patterns: torch.Tensor, pwp: torch.Tenso
     p_active = min(int(p_active), q)
     bm, pwp_scale = _fused_prologue(a2, pwp, pwp_scale, T, q, block_m or FUSED_BLOCK_M)
     a2 = a2.to(torch.float32).contiguous()
-    active = stripe_active_sets(a2, patterns, p_active, bm)
+    hist = None
+    if runtime_sets is not None:
+        rs = torch.as_tensor(runtime_sets, dtype=torch.int32, device=a2.device)
+        if tuple(rs.shape) != (T, p_active):
+            raise ValueError(f"runtime_sets shape {tuple(rs.shape)} does not match the gather "
+                             f"buffer (T={T}, p_active={p_active}); derive them with "
+                             "core.patterns.top_p_sets(hist, p_active)")
+        if return_hist:
+            raise ValueError("return_hist requires the pre-pass path (runtime_sets=None): with "
+                             "runtime sets there is no match histogram to return")
+        active = rs[None].expand(cdiv(a2.shape[0], bm), T, p_active).contiguous()
+    elif return_hist:
+        active, hist = stripe_active_sets(a2, patterns, p_active, bm, return_hist=True)
+    else:
+        active = stripe_active_sets(a2, patterns, p_active, bm)
     out, nnz = phi_fused_prefetch_cuda(a2, patterns, pwp, pwp_scale,
                                        w.to(torch.float32).contiguous(), active, block_m=bm,
                                        packed=packed)
-    return out.reshape(*lead, N), nnz
+    out = out.reshape(*lead, N)
+    return (out, nnz, hist) if return_hist else (out, nnz)
 
 
 # Fewest K-partitions at which the gate sends a GEMM to the streaming kernel.
@@ -259,7 +436,8 @@ def _phi_matmul_coo_chunked(a2: torch.Tensor, w: torch.Tensor, patterns: torch.T
 # -------------------------------------------------------------- composite ---
 def phi_matmul(a: torch.Tensor, w: torch.Tensor, patterns: torch.Tensor, pwp: torch.Tensor,
                *, impl: str = "fused", nnz_budget: float = 0.08,
-               block_m: int | None = None, gather_dtype: torch.dtype | None = None,
+               block_m: int | None = None, block_n: int | None = None,
+               gather_dtype: torch.dtype | None = None,
                pwp_scale: torch.Tensor | None = None,
                packed: torch.Tensor | None = None, usage=None,
                p_active: int | None = None) -> torch.Tensor:
@@ -271,17 +449,22 @@ def phi_matmul(a: torch.Tensor, w: torch.Tensor, patterns: torch.Tensor, pwp: to
       "fused_prefetch" — its variant matching each M-stripe against its hot
                          patterns only (same result; needs ``usage`` or
                          ``p_active``);
+      "pallas"         — the per-unit kernels: matcher → L1 gather →
+                         ``pack_l2_coo_jit`` → ``bucket_coo`` → L2 spmm, with
+                         the global COO cap ``max(128, nnz_budget·M·K)`` and
+                         the per-block cap of ``l2_per_block_cap`` (entries
+                         past them are dropped, as in the reference:
+                         ``phi_l2_audit`` counts them); blocks default to 256;
       "coo"            — the row-chunked gather/scatter lowering in plain PyTorch;
       "ref"            — the dense L2 oracle.
-    The reference's "pallas" lowering raises ``NotImplementedError`` until
-    ported. ``nnz_budget`` (the static L2 capacity as a fraction of the
-    chunk's rows × K) applies to "coo" only; ``packed`` (the bank from
-    ``pack_patterns``) to the fused kernels only.
+    ``nnz_budget`` (the static L2 capacity as a fraction of M·K, or of the
+    chunk's rows × K) applies to "pallas" and "coo"; ``packed`` (the bank
+    from ``pack_patterns``) to the kernels that match. "pallas" refuses an
+    int8 bank: the reference's lowering passes no scales to its gather and
+    would sum unscaled int8 rows.
     """
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} not in {IMPLS}")
-    if impl in _NOT_PORTED:
-        raise NotImplementedError(f"impl {impl!r} is not ported yet: {_NOT_PORTED[impl]}")
     lead = a.shape[:-1]
     K = a.shape[-1]
     N = w.shape[-1]
@@ -297,10 +480,33 @@ def phi_matmul(a: torch.Tensor, w: torch.Tensor, patterns: torch.Tensor, pwp: to
     elif impl == "fused_prefetch":
         out, _ = phi_fused_prefetch(a2, patterns, pwp, w, usage=usage, p_active=p_active,
                                     pwp_scale=pwp_scale, block_m=block_m, packed=packed)
+    elif impl == "pallas":
+        out = _phi_matmul_pallas(a2, w, patterns, pwp, nnz_budget, block_m or 256,
+                                 block_n or 256, pwp_scale, packed)
     else:
         out = _phi_matmul_coo_chunked(a2, w, patterns, pwp, nnz_budget,
                                       gather_dtype=gather_dtype, pwp_scale=pwp_scale)
     return out.reshape(*lead, N)
+
+
+def _phi_matmul_pallas(a2: torch.Tensor, w: torch.Tensor, patterns: torch.Tensor,
+                       pwp: torch.Tensor, nnz_budget: float, block_m: int, block_n: int,
+                       pwp_scale: torch.Tensor | None, packed: torch.Tensor | None
+                       ) -> torch.Tensor:
+    """The per-unit lowering of :func:`phi_matmul` (``impl="pallas"``)."""
+    if pwp_scale is not None or pwp.dtype == torch.int8:
+        raise ValueError("impl='pallas' takes no int8 PWP bank: its L1 gather has no per-row "
+                         "scales (the reference's lowering drops them and sums unscaled int8 "
+                         "rows); use an f32/bf16 bank or a fused lowering")
+    M, K = a2.shape
+    idx, residual = matcher(a2, patterns, block_m=block_m, packed=packed)
+    cap = max(128, int(nnz_budget * M * K))
+    rows, cols, signs, _ = pack_l2_coo_jit(residual, cap)   # torch.nonzero: one sync
+    out1 = l1_gather(idx, pwp, block_m=block_m, block_n=block_n)   # reads idx's range
+    per_block = l2_per_block_cap(nnz_budget, block_m, K, cap)
+    out2 = l2_spmm(rows, cols, signs, w.to(torch.float32), M, block_m=block_m,
+                   block_n=block_n, cap=per_block)
+    return out1 + out2
 
 
 # -------------------------------------------------------------- attention ---

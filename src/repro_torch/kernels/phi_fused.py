@@ -115,7 +115,7 @@ def stream_smem_bytes(q: int, k: int, group_t: int) -> int:
 
 
 def stripe_active_sets(a2: torch.Tensor, patterns: torch.Tensor, p_active: int,
-                       block_m: int) -> torch.Tensor:
+                       block_m: int, return_hist: bool = False):
     """Per-M-stripe active pattern sets: (ceil(M / block_m), T, p_active) int32.
 
     For each stripe of ``block_m`` rows and each K-partition, the
@@ -123,6 +123,11 @@ def stripe_active_sets(a2: torch.Tensor, patterns: torch.Tensor, p_active: int,
     bank (first-index argmin, strict rule), most referenced first, ties to
     the lower index, as the reference's ``stripe_active_sets`` (``top_k``)
     orders them. Rows past M count as zero rows, which match nothing.
+
+    With ``return_hist`` also returns the (T, q+1) int32 match histogram of
+    the M rows (column q counts unmatched row-partitions; the padding rows
+    are not counted), the runtime match telemetry the execution policy
+    aggregates per site.
     """
     M, K = a2.shape
     T, q, k = patterns.shape
@@ -136,7 +141,12 @@ def stripe_active_sets(a2: torch.Tensor, patterns: torch.Tensor, p_active: int,
     counts.scatter_add_(2, torch.where(use, best, q).transpose(1, 2),
                         torch.ones_like(best, dtype=torch.int32).transpose(1, 2))
     order = torch.sort(counts[..., :q], dim=-1, descending=True, stable=True).indices
-    return order[..., :p_active].to(torch.int32).contiguous()
+    active = order[..., :p_active].to(torch.int32).contiguous()
+    if not return_hist:
+        return active
+    assigned = counts[..., :q].sum(0, dtype=torch.int32)             # (T, q)
+    unmatched = M - assigned.sum(-1, keepdim=True, dtype=torch.int32)
+    return active, torch.cat([assigned, unmatched], dim=-1)
 
 
 def phi_fused_prefetch_plain(a: torch.Tensor, patterns: torch.Tensor, pwp: torch.Tensor,

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.patterns import (
     PhiConfig, active_pattern_sets, calibrate, pattern_usage, pattern_weight_products)
-from repro_torch.kernels import dispatch, ops
+from repro_torch.kernels import dispatch
 from repro_torch.kernels.phi_fused import pack_patterns
 from repro_torch.snn.lif import LIFConfig, lif_sequence
 from repro_torch.utils import cdiv, resolve_device
@@ -346,25 +346,21 @@ def phi_apply(params: Params, cfg: SNNConfig, phi: PhiState, x: torch.Tensor,
               impl: str | None = None, attn_impl: str | None = None) -> torch.Tensor:
     """Inference with Phi sparse matmuls substituted for every spiking GEMM.
 
-    ``impl`` names a lowering of ``ops.phi_matmul`` for every layer; ``None``
-    takes ``cfg.phi.impl`` and, failing that, the answer of
-    ``ops.fused_shape_viable`` per layer, given the layer's calibration
-    usage: the prefetching kernel where that usage is skewed, the streaming
-    kernel where the K loop is long (T ≥ 96 partitions: fc2 of
-    Spikformer-4-384, conv3 and conv4 of the VGG at VGG-16 stage widths), the
-    first fused kernel elsewhere. The reference resolves ``impl=None`` per
-    call through the matmul half of its execution policy, whose TPU gate
-    gives the same answers at those shapes (but streams a skewed conv4,
-    whose compact bank busts its VMEM); that half itself (its registry,
-    telemetry and override rows) is not ported yet. When ``cfg.attn ==
-    "flash"`` the spikformer attention sites route through the attention
-    half of the policy with the site's calibrated bank; ``attn_impl`` forces
-    an ``ATTN_IMPLS`` arm (``"flash"`` is the dense A/B arm, bitwise equal to
-    the resolved ``phi_flash`` for binary Q/K). Runs without autograd: the
-    kernels have no backward.
+    Every GEMM routes through the execution policy (``kernels.dispatch``) as
+    site ``snn.<layer>``, as in the reference: ``impl=None`` lets it resolve
+    the lowering per call (the prefetching kernel where the layer's
+    calibration usage is skewed, the streaming kernel where the K loop is
+    long, the first fused kernel elsewhere); ``impl`` forces a name of
+    ``IMPLS`` as a per-call override and ``cfg.phi.impl`` as the config
+    override (``"pallas"``: the matcher, L1-gather and L2-spmm kernels),
+    each demoted where it cannot run. The layer's usage, gather size
+    (``PhiState.p_active``) and packed bank go along, so no call recomputes
+    them. When ``cfg.attn == "flash"`` the spikformer attention sites route
+    through the attention half of the policy with the site's calibrated
+    bank; ``attn_impl`` forces an ``ATTN_IMPLS`` arm (``"flash"`` is the
+    dense A/B arm, bitwise equal to the resolved ``phi_flash`` for binary
+    Q/K). Runs without autograd: the kernels have no backward.
     """
-    impl = impl or cfg.phi.impl
-
     def phi_mm(a, w, name):
         if name not in phi.patterns:
             return a @ w
@@ -380,13 +376,11 @@ def phi_apply(params: Params, cfg: SNNConfig, phi: PhiState, x: torch.Tensor,
                 f"K={usable_K} at phi.k={cfg.phi.k}); re-run calibrate_model with "
                 "the SNNConfig used for apply")
         a_k = a if K == a.shape[-1] else a[..., :K]
-        T, q = pats.shape[:2]
-        p_active = phi.p_active.get(name)
-        site_impl = impl or ops.fused_shape_viable(a_k.numel() // K, K, w.shape[-1], T, q,
-                                                   p_active=p_active)
-        out = ops.phi_matmul(a_k, w[:K], pats, phi.pwp[name], impl=site_impl,
-                             usage=phi.usage.get(name), p_active=p_active,
-                             nnz_budget=cfg.phi.nnz_budget, packed=phi.packed[name])
+        out = dispatch.phi_matmul(
+            a_k, w[:K], pats, phi.pwp[name], site=f"snn.{name}", override=impl,
+            config_override=cfg.phi.impl, nnz_budget=cfg.phi.nnz_budget,
+            usage=phi.usage.get(name), p_active=phi.p_active.get(name),
+            packed=phi.packed[name])
         if K < a.shape[-1]:  # dense ragged tail (K not a multiple of phi.k)
             out = out + a[..., K:] @ w[K:]
         return out.to(w.dtype)

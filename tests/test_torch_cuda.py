@@ -8,7 +8,11 @@ package, so it runs where only PyTorch is installed:
 
 Tolerance 0 for the three fused matmul kernels and the LIF kernels: with
 dyadic weights every partial sum is exact, and the kernels round each
-product and sum separately as the plain versions do. The attention kernel's scores and ``l2_nnz`` are
+product and sum separately as the plain versions do. Tolerance 0 also for
+the per-unit kernels of the ``pallas`` lowering: the matcher is integer
+work, and the gather and the spmm sum each output from zero in the plain
+versions' order (ascending partition; entry order, which the plain spmm keeps
+on the CPU), so they are bitwise on any f32 data. The attention kernel's scores and ``l2_nnz`` are
 exact too (binary Q and K), but its softmax sums ``p`` and ``p·V`` in
 another order than the plain version and uses CUDA's ``expf``: its output
 is held to ATTN_ATOL_ULPS ulps of max|V| (each output is a convex
@@ -26,12 +30,20 @@ from repro_torch.kernels import _build, dispatch, ops, ref
 from repro_torch.kernels.lif import lif_sequence_cuda, lif_sequence_plain, lif_step_cuda
 from repro_torch.kernels.phi_attention import (
     flash_attention_cuda, phi_flash_attention_cuda, phi_flash_attention_plain, smem_bytes)
+from repro_torch.core.assign import pack_l2_coo_jit
+from repro_torch.kernels.matcher import matcher_cuda, matcher_plain
 from repro_torch.kernels.phi_fused import (
     pack_patterns, phi_fused_cuda, phi_fused_plain, phi_fused_prefetch_cuda,
     phi_fused_prefetch_plain, phi_fused_stream_cuda, stream_smem_bytes, stripe_active_sets)
+from repro_torch.kernels.phi_gather import l1_gather_cuda, l1_gather_plain
+from repro_torch.kernels.phi_spmm import l2_spmm_cuda, l2_spmm_plain
+from repro_torch.models.flash import flash_attention
+from repro_torch.snn import models as M
+from repro_torch.snn.data import synthetic_images
 
 _FUSED = {"fused": phi_fused_cuda, "fused_stream": phi_fused_stream_cuda,
           "fused_prefetch": phi_fused_prefetch_cuda}
+_UNITS = (matcher_cuda, l1_gather_cuda, l2_spmm_cuda)
 
 
 def _gate_launches(params, state, acts):
@@ -45,9 +57,6 @@ def _gate_launches(params, state, acts):
                                         params[name]["w"].shape[-1], T, q,
                                         usage=state.usage[name])] += 1
     return want
-from repro_torch.models.flash import flash_attention
-from repro_torch.snn import models as M
-from repro_torch.snn.data import synthetic_images
 
 pytestmark = pytest.mark.cuda
 
@@ -201,6 +210,146 @@ def test_vgg16_widths_phi_apply_equals_apply(dev):
         assert torch.equal(got, M.apply(params, cfg, x))
     for act in acts.values():
         assert float(act.mean()) >= 0.01
+
+
+# --------------------------------------------------- the pallas lowering ---
+@pytest.mark.parametrize("M_,K,k,q", [(256, 96, 16, 16), (293, 64, 16, 128), (1, 96, 16, 16),
+                                      (77, 40, 5, 9), (130, 128, 64, 32)])
+def test_matcher_kernel_matches_plain(dev, M_, K, k, q):
+    g = torch.Generator().manual_seed(M_ + k)
+    a = (torch.rand((M_, K), generator=g) < 0.3).float().to(dev)
+    pats = (torch.rand((K // k, q, k), generator=g) < 0.3).to(torch.uint8).to(dev)
+    pats[:, 1] = pats[:, 0]                               # a duplicate: ties go to index 0
+    before = matcher_cuda.launches
+    idx, res = matcher_cuda(a, pats)
+    assert matcher_cuda.launches == before + 1
+    pidx, pres = matcher_plain(a, pats)
+    torch.cuda.synchronize()
+    assert torch.equal(idx, pidx) and torch.equal(res, pres)
+    assert idx.dtype == torch.int32 and res.dtype == torch.int8 and int((idx < q).sum()) > 0
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("M_,N", [(256, 72), (293, 10), (64, 384)])
+def test_l1_gather_kernel_matches_plain(dev, kind, M_, N):
+    g = torch.Generator().manual_seed(M_ + N)
+    T, q = 7, 33
+    idx = torch.randint(0, q + 1, (M_, T), generator=g, dtype=torch.int32).to(dev)
+    pwp = torch.randn((T, q + 1, N), generator=g)                # not dyadic
+    pwp[:, q] = 0
+    pwp = pwp.to(dev, torch.bfloat16 if kind == "bf16" else torch.float32)
+    before = l1_gather_cuda.launches
+    out = l1_gather_cuda(idx, pwp)
+    assert l1_gather_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(out, l1_gather_plain(idx, pwp))
+
+
+@pytest.mark.parametrize("M_,K,bm", [(256, 96, 256), (293, 64, 256), (1000, 48, 64), (40, 32, 8)])
+def test_l2_spmm_kernel_matches_plain(dev, M_, K, bm):
+    g = torch.Generator().manual_seed(M_ + K)
+    r = (torch.randint(0, 2, (M_, K), generator=g) * 2 - 1).to(torch.int8)
+    r[torch.rand((M_, K), generator=g) > 0.1] = 0
+    rows, cols, signs, _ = pack_l2_coo_jit(r.to(dev), M_ * K)
+    Gbm = -(-M_ // bm) * bm
+    br, bc, bs, dropped = ops.bucket_coo(rows, cols, signs, Gbm, bm, M_ * K)
+    assert int(dropped) == 0
+    w = torch.randn((K, 72), generator=g)                         # not dyadic
+    before = l2_spmm_cuda.launches
+    out = l2_spmm_cuda(br, bc, bs, w.to(dev), block_m=bm)
+    assert l2_spmm_cuda.launches == before + 1
+    want = l2_spmm_plain(br.cpu(), bc.cpu(), bs.cpu(), w, block_m=bm)   # entry order
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), want)
+    wd = torch.round(w * 1024) / 1024                             # dyadic: any order
+    assert torch.equal(l2_spmm_cuda(br, bc, bs, wd.to(dev), block_m=bm),
+                       l2_spmm_plain(br, bc, bs, wd.to(dev), block_m=bm))
+    assert torch.equal(l2_spmm_cuda(br, bc, bs, wd.to(dev), block_m=bm)[:M_].cpu(),
+                       r.float() @ wd)
+
+
+def test_unit_kernels_refuse_what_they_cannot_take(dev):
+    with pytest.raises(ValueError, match="k <= 64"):
+        matcher_cuda(torch.zeros((8, 128), device=dev),
+                     torch.zeros((1, 4, 128), dtype=torch.uint8, device=dev))
+    idx = torch.zeros((8, 2), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError, match="int8"):
+        l1_gather_cuda(idx, torch.zeros((2, 5, 8), dtype=torch.int8, device=dev))
+    with pytest.raises(ValueError, match="int32"):
+        l1_gather_cuda(idx.long(), torch.zeros((2, 5, 8), device=dev))
+    for bad in (-1, 5):             # outside the bank's rows [0, q]: refused as the plain does
+        before = l1_gather_cuda.launches
+        idx[3, 1] = bad
+        for fn in (l1_gather_cuda, l1_gather_plain):
+            with pytest.raises(ValueError, match="outside the bank's rows"):
+                fn(idx, torch.zeros((2, 5, 8), device=dev))
+        assert l1_gather_cuda.launches == before
+    rows = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        l2_spmm_cuda(rows.long(), rows, rows, torch.zeros((4, 8), device=dev), block_m=8)
+    a, w, pats, pwp = _setup(64, 32, 8, 4, dev)
+    q8, scale = quantize_pwp(pwp)
+    with pytest.raises(ValueError, match="int8"):
+        ops.phi_matmul(a, w, pats, q8, impl="pallas", pwp_scale=scale)
+
+
+def test_policy_telemetry_follows_a_site_across_devices(dev):
+    """One site run on the CPU, then on the card, then read: both runs'
+    counters are folded in (each device's sums are read on their own)."""
+    a, w, pats, pwp = _setup(300, 96, 72, 16, "cpu", seed=6)
+    pol = dispatch.PhiExecutionPolicy(telemetry=True)
+    cpu = pol.matmul(a, w, pats, pwp, site="s", override="fused")
+    card = pol.matmul(*(x.to(dev) for x in (a, w, pats, pwp)), site="s", override="fused")
+    assert torch.equal(card.cpu(), cpu)
+    (b,) = pol.report()["packer_budgets"]
+    _, residual = ref.matcher_ref(a, pats)
+    assert (b.executions, b.rows) == (2, 600)
+    assert b.l2_nnz_total == 2 * int(residual.abs().sum())
+
+
+@pytest.mark.parametrize("impl", [None, "fused", "fused_stream", "fused_prefetch"])
+def test_policy_refuses_on_the_card_a_bank_no_kernel_takes(dev, impl):
+    """k = 128 > 64: the policy raises on CUDA operands instead of running
+    the plain ``coo`` lowering on the card, and launches nothing."""
+    g = torch.Generator().manual_seed(4)
+    a = (torch.rand((64, 512), generator=g) < 0.3).float().to(dev)
+    pats = (torch.rand((4, 8, 128), generator=g) < 0.3).to(torch.uint8).to(dev)
+    w = torch.randn((512, 32), generator=g).to(dev)
+    pwp = pattern_weight_products(pats, w)
+    pol = dispatch.PhiExecutionPolicy(telemetry=True)
+    launches = [f.launches for f in (*_FUSED.values(), *_UNITS)]
+    with pytest.raises(ValueError, match="no Phi kernel takes site"):
+        pol.matmul(a, w, pats, pwp, site="wide_k", override=impl, p_active=4)
+    assert [f.launches for f in (*_FUSED.values(), *_UNITS)] == launches
+    assert pol.decisions() == {}
+
+
+def test_vgg16_widths_pallas_phi_apply_equals_apply(dev):
+    """One batch of the slice's configuration on the matcher, gather and
+    spmm kernels (``PhiConfig(impl="pallas")``), every budget exact."""
+    cfg = M.SNNConfig(kind="vgg", widths=(64, 128, 256, 512, 512), input_size=32,
+                      phi=PhiConfig(k=16, q=128, iters=20, impl="pallas"))
+    params = M.init(cfg, torch.Generator().manual_seed(0), device=dev)
+    for name, leaf in params.items():
+        gain = 1.0 if name == "conv0" else 3.0
+        leaf["w"] = torch.round(leaf["w"] * gain * 1024) / 1024
+    x, _ = synthetic_images(16, size=32, seed=1)
+    x = torch.from_numpy(np.round(x * 1024) / 1024).to(dev)
+    prev = dispatch.set_policy(dispatch.PhiExecutionPolicy())
+    try:
+        with torch.no_grad():
+            state, acts = M.calibrate_model(params, cfg, x)
+            before = [fn.launches for fn in _UNITS]
+            got = M.phi_apply(params, cfg, state, x)
+            assert [fn.launches - b for fn, b in zip(_UNITS, before)] == [5, 5, 5]
+            assert torch.equal(got, M.apply(params, cfg, x))
+        assert dispatch.get_policy().decisions() == {
+            (f"snn.{name}", "pallas", "config_override"): 1 for name in acts}
+    finally:
+        dispatch.set_policy(prev)
+    for name, act in acts.items():
+        aud = ops.phi_l2_audit(act, state.patterns[name], nnz_budget=cfg.phi.nnz_budget)
+        assert aud["pack_overflow"] == aud["bucket_dropped"] == aud["chunk_overflow"] == 0
 
 
 # ------------------------------------------------------------- attention ---

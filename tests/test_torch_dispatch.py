@@ -9,12 +9,18 @@ layout, not against the reference's VMEM budget.
 """
 from __future__ import annotations
 
+import dataclasses
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_parity_util import binary, t
+from torch_parity_util import binary, clustered, dyadic, t
 
+from repro.core import patterns as RP
+from repro.core.assign import assign_patterns as ref_assign_patterns
 from repro.kernels import dispatch as RD
+from repro.kernels import ops as RO
 from repro_torch.kernels import ATTN_IMPLS, IMPLS, dispatch, ops
 from repro_torch.kernels.phi_attention import SMEM_LIMIT, smem_bytes
 from repro_torch.models import flash as F
@@ -185,3 +191,325 @@ def test_attention_lowerings_refuse_autograd(grad_on):
     with torch.no_grad():                     # no graph wanted: runs
         F.flash_attention(x["q"], x["k"], x["v"], False)
         ops.phi_flash_attention(x["q"], x["k"], x["v"], pats)
+
+
+# ============================================================ matmul half ===
+# (m, k_dim, n, t, q) of the rows below. Each shape is one where the Hopper
+# gate (ops.fused_shape_viable) and the reference's VMEM gate agree.
+SMALL = dict(m=256, k_dim=96, n=72, t=6, q=16)
+LONG_K = dict(m=2048, k_dim=2304, n=512, t=144, q=128)            # VGG conv3: streamed
+NO_KERNEL = dict(m=256, k_dim=64, n=128, t=4, q=16384)            # no kernel takes the bank
+WIDE_SKEW = dict(m=512, k_dim=4608, n=512, t=288, q=2048)         # skewed, P = 544 > 512
+
+
+def _usage(t, q, hot):
+    """A (t, q+1) usage histogram whose top ``hot`` patterns take every match."""
+    u = np.zeros((t, q + 1), np.int64)
+    u[:, :hot] = 100
+    u[:, q] = 10
+    return u
+
+
+SKEWED = _usage(6, 16, 4)                       # P = 8
+FLAT = np.ones((6, 17), np.int64)               # no skew
+WIDE = _usage(288, 2048, 600)                   # P = 544
+# The gate's refusals: the CPU runs ``coo`` for them, the card raises.
+CARD_REFUSES = ("fused_vmem_gate", "vmem_gate_demotes_fused", "vmem_gate_demotes_fused_stream",
+                "vmem_gate_demotes_fused_prefetch")
+# (resolve keywords, expected impl, expected reason)
+MATMUL_ROWS = {
+    "call_override": (dict(SMALL, override="coo"), "coo", "call_override"),
+    "config_override": (dict(SMALL, config_override="pallas"), "pallas", "config_override"),
+    "call_beats_config": (dict(SMALL, override="ref", config_override="pallas"), "ref",
+                          "call_override"),
+    "forced_fused": (dict(SMALL, override="fused"), "fused", "call_override"),
+    "forced_stream_where_fused_fits": (dict(SMALL, config_override="fused_stream"),
+                                       "fused_stream", "config_override"),
+    "autodiff_demotes_pallas": (dict(SMALL, override="pallas", transform=True), "coo",
+                                "autodiff_demotes_pallas"),
+    "autodiff_demotes_fused": (dict(SMALL, config_override="fused", transform=True), "coo",
+                               "autodiff_demotes_fused"),
+    "autodiff_demotes_fused_prefetch": (dict(SMALL, override="fused_prefetch", transform=True,
+                                             usage=SKEWED), "coo",
+                                        "autodiff_demotes_fused_prefetch"),
+    "autodiff_keeps_forced_coo": (dict(SMALL, override="coo", transform=True), "coo",
+                                  "call_override"),
+    "autodiff_or_vmap": (dict(SMALL, transform=True), "coo", "autodiff_or_vmap"),
+    "prefetch_override": (dict(SMALL, override="fused_prefetch", usage=SKEWED),
+                          "fused_prefetch", "call_override"),
+    "prefetch_no_skew": (dict(SMALL, override="fused_prefetch", usage=FLAT), "fused",
+                         "no_skew_demotes_fused_prefetch"),
+    "prefetch_no_skew_long_k": (dict(LONG_K, config_override="fused_prefetch"),
+                                "fused_stream", "no_skew_demotes_fused_prefetch"),
+    "prefetch_no_kernel": (dict(NO_KERNEL, override="fused_prefetch"), "coo",
+                           "vmem_gate_demotes_fused_prefetch"),
+    "prefetch_set_too_wide": (dict(WIDE_SKEW, override="fused_prefetch", usage=WIDE),
+                              "fused_stream", "vmem_gate_streams_fused_prefetch"),
+    "vmem_gate_streams_fused": (dict(LONG_K, override="fused"), "fused_stream",
+                                "vmem_gate_streams_fused"),
+    "vmem_gate_demotes_fused": (dict(NO_KERNEL, override="fused"), "coo",
+                                "vmem_gate_demotes_fused"),
+    "vmem_gate_demotes_fused_stream": (dict(NO_KERNEL, override="fused_stream"), "coo",
+                                       "vmem_gate_demotes_fused_stream"),
+    "default_fused": (dict(SMALL), "fused", "single_device_default_interpret"),
+    "default_flat_usage": (dict(SMALL, usage=FLAT), "fused",
+                           "single_device_default_interpret"),
+    "default_stream": (dict(LONG_K), "fused_stream", "vmem_gate_k_stream_interpret"),
+    "default_prefetch": (dict(SMALL, usage=SKEWED), "fused_prefetch",
+                         "pattern_usage_prefetch_interpret"),
+    "default_wide_skew_streams": (dict(WIDE_SKEW, usage=WIDE), "fused_stream",
+                                  "vmem_gate_k_stream_interpret"),
+    "default_no_kernel": (dict(NO_KERNEL), "coo", "fused_vmem_gate"),
+}
+
+
+@pytest.mark.parametrize("row", list(MATMUL_ROWS))
+def test_resolve_row_for_row_vs_reference(row, monkeypatch):
+    monkeypatch.delenv("PHI_IMPL", raising=False)
+    kw, impl, reason = MATMUL_ROWS[row]
+    want = RD.PhiExecutionPolicy(telemetry=False).resolve(site="snn.conv1", **kw)
+    got = dispatch.PhiExecutionPolicy().resolve(site="snn.conv1", **kw)
+    assert (got.impl, got.reason) == (want.impl, want.reason) == (impl, reason)
+    assert got.shape == want.shape and got.backend == want.backend == "cpu"
+    assert (got.usage_ratio, got.p_active) == (want.usage_ratio, want.p_active)
+    # on the card the resolved kernel rows name the native kernels, and a
+    # row whose gate finds no kernel raises: the card has no plain fallback
+    if reason in CARD_REFUSES:
+        with pytest.raises(ValueError, match="no Phi kernel takes site"):
+            dispatch.PhiExecutionPolicy().resolve(site="snn.conv1", device="cuda", **kw)
+        return
+    card = dispatch.PhiExecutionPolicy().resolve(site="snn.conv1", device="cuda", **kw)
+    assert (card.impl, card.reason, card.backend) == (
+        impl, reason.replace("_interpret", "_native"), "cuda")
+
+
+@pytest.mark.parametrize("override", [None, "fused", "fused_stream", "fused_prefetch"])
+def test_card_refuses_a_bank_no_kernel_takes(override, monkeypatch):
+    """k = 128 > 64: every Hopper kernel refuses the bank (the reference's
+    TPU gate takes it). On the CPU the gate's row runs ``coo``; on the card
+    it raises before any decision is recorded. Autodiff and a forced plain
+    lowering still resolve."""
+    monkeypatch.delenv("PHI_IMPL", raising=False)
+    wide_k = dict(m=512, k_dim=512, n=64, t=4, q=16)
+    cpu = dispatch.PhiExecutionPolicy().resolve(site="s", override=override, **wide_k)
+    assert cpu.impl == "coo" and cpu.reason in CARD_REFUSES
+    pol = dispatch.PhiExecutionPolicy()
+    with pytest.raises(ValueError, match="k <= 64"):
+        pol.resolve(site="s", override=override, device="cuda", **wide_k)
+    assert pol.decisions() == {}
+    grad = pol.resolve(site="s", override=override, transform=True, device="cuda", **wide_k)
+    assert grad.impl == "coo" and grad.reason.startswith("autodiff")
+    forced = pol.resolve(site="s", override="coo", device="cuda", **wide_k)
+    assert (forced.impl, forced.reason) == ("coo", "call_override")
+
+
+@pytest.mark.parametrize("env,kw,want", [
+    ("pallas", {}, ("pallas", "policy_override")),
+    ("pallas", dict(config_override="coo"), ("coo", "config_override")),
+    ("pallas", dict(override="ref", config_override="coo"), ("ref", "call_override")),
+    ("fused", dict(transform=True), ("coo", "autodiff_demotes_fused")),
+    ("fused", dict(LONG_K), ("fused_stream", "vmem_gate_streams_fused")),
+])
+def test_phi_impl_env_override_and_its_precedence(env, kw, want, monkeypatch):
+    monkeypatch.setenv("PHI_IMPL", env)
+    kw = {**SMALL, **kw}
+    ref = RD.PhiExecutionPolicy(telemetry=False).resolve(**kw)
+    got = dispatch.PhiExecutionPolicy().resolve(**kw)
+    assert (got.impl, got.reason) == (ref.impl, ref.reason) == want
+
+
+@pytest.mark.parametrize("bad", [dict(override="pallas2"), dict(config_override="dense")])
+def test_unknown_matmul_override_raises_like_the_reference(bad, monkeypatch):
+    monkeypatch.delenv("PHI_IMPL", raising=False)
+    for pol in (RD.PhiExecutionPolicy(telemetry=False), dispatch.PhiExecutionPolicy()):
+        with pytest.raises(ValueError, match="unknown Phi impl override"):
+            pol.resolve(**SMALL, **bad)
+    monkeypatch.setenv("PHI_IMPL", "bogus")
+    for cls in (RD.PhiExecutionPolicy, dispatch.PhiExecutionPolicy):
+        with pytest.raises(ValueError, match="unknown Phi impl override"):
+            cls()
+
+
+def _operands(M, K, N, q, seed=0):
+    rng = np.random.default_rng(seed)
+    a = clustered(rng, M, K, protos=4)
+    w = dyadic(rng.standard_normal((K, N)).astype(np.float32) * 0.3)
+    pats = RP.calibrate(a, RP.PhiConfig(k=16, q=q, iters=3))
+    pwp = np.asarray(RP.pattern_weight_products(pats, w))
+    return a, w, pats, pwp
+
+
+@pytest.mark.parametrize("row", ["call_override", "config_override", "forced_fused",
+                                 "autodiff_or_vmap", "prefetch_override", "default_fused",
+                                 "default_prefetch"])
+def test_matmul_runs_the_decision_like_the_reference_lowering(row, monkeypatch):
+    """The reference's ``matmul`` dies on this jax (dispatch.py:209), so the
+    port's is held against reference ``resolve`` + ``ops.phi_matmul``."""
+    monkeypatch.delenv("PHI_IMPL", raising=False)
+    kw, impl, reason = MATMUL_ROWS[row]
+    kw = {k: v for k, v in kw.items() if k not in SMALL}
+    transform = kw.pop("transform", False)
+    a, w, pats, pwp = _operands(256, 96, 72, 16, seed=len(row))
+    d = RD.PhiExecutionPolicy(telemetry=False).resolve(site="s", **SMALL, transform=transform,
+                                                        **kw)
+    want = RO.phi_matmul(*(jnp.asarray(x) for x in (a, w, pats, pwp)), impl=d.impl,
+                         usage=kw.get("usage"))
+    pol = dispatch.PhiExecutionPolicy()
+    ta = t(a).requires_grad_() if transform else t(a)
+    with torch.set_grad_enabled(transform):
+        got = pol.matmul(ta, t(w), t(pats), t(pwp), site="s", **kw)
+    assert (pol.last_decision("s").impl, pol.last_decision("s").reason) == (impl, reason)
+    np.testing.assert_array_equal(got.detach().numpy(), np.asarray(want))
+
+
+def test_register_usage_accumulates_and_feeds_resolve(monkeypatch):
+    monkeypatch.delenv("PHI_IMPL", raising=False)
+    pols = (RD.PhiExecutionPolicy(telemetry=False), dispatch.PhiExecutionPolicy())
+    half = _usage(6, 16, 4) // 2
+    for pol in pols:
+        assert pol.usage_for("s") is None
+        pol.register_usage("s", half)
+        pol.register_usage("s", half)
+        pol.register_usage("s", np.ones((3, 5), np.int64))  # another shape replaces
+        pol.register_usage("s", np.ones((3, 5), np.int64))
+        np.testing.assert_array_equal(pol.usage_for("s"), 2 * np.ones((3, 5), np.int64))
+        pol.register_usage("t", half)
+        pol.register_usage("t", half)
+        np.testing.assert_array_equal(pol.usage_for("t"), 2 * half)
+    got, want = (pol.resolve(site="t", **SMALL) for pol in reversed(pols))
+    assert (got.impl, got.reason, got.p_active, got.usage_ratio) == (
+        want.impl, want.reason, want.p_active, want.usage_ratio) == (
+        "fused_prefetch", "pattern_usage_prefetch_interpret", 8, 9 / 17)
+
+
+def test_runtime_sets_from_the_second_prefetch_execution(monkeypatch):
+    """After one execution the site's match histogram supplies the gather
+    sets (reason suffix ``_runtime_sets``), in both packages, and the port's
+    matmul then skips the pre-pass with the same output."""
+    from repro_torch.kernels import ops
+
+    monkeypatch.delenv("PHI_IMPL", raising=False)
+    rng = np.random.default_rng(4)
+    hist = rng.integers(0, 50, (6, 17))
+    ref_pol = RD.PhiExecutionPolicy(telemetry=False)
+    pol = dispatch.PhiExecutionPolicy()
+    for p in (ref_pol, pol):
+        first = p.resolve(site="s", **SMALL, usage=SKEWED)
+        assert first.reason == "pattern_usage_prefetch_interpret" and first.runtime_sets is None
+        p._record_nnz("s", 256, 96, 256, np.array([5]), match_hist=hist)
+    want, got = (p.resolve(site="s", **SMALL, usage=SKEWED) for p in (ref_pol, pol))
+    assert got.reason == want.reason == "pattern_usage_prefetch_interpret_runtime_sets"
+    np.testing.assert_array_equal(got.runtime_sets, np.asarray(want.runtime_sets))
+
+    a, w, pats, pwp = _operands(256, 96, 72, 16, seed=9)
+    usage = SKEWED
+    pol = dispatch.PhiExecutionPolicy()
+    calls = []
+    real = ops.stripe_active_sets
+    monkeypatch.setattr(ops, "stripe_active_sets",
+                        lambda *x, **k: (calls.append(1), real(*x, **k))[1])
+    outs = [pol.matmul(t(a), t(w), t(pats), t(pwp), site="s", usage=usage) for _ in range(3)]
+    assert len(calls) == 1                                 # the pre-pass ran once
+    assert all(torch.equal(o, outs[0]) for o in outs)
+    np.testing.assert_array_equal(outs[0].numpy(), a @ w)
+    assert pol.decisions() == {("s", "fused_prefetch", "pattern_usage_prefetch_interpret"): 1,
+                               ("s", "fused_prefetch",
+                                "pattern_usage_prefetch_interpret_runtime_sets"): 2}
+    assert pol.runtime_usage_for("s").sum() == 256 * 6      # every row-partition counted
+
+
+def test_report_and_site_telemetry_equal_the_reference(monkeypatch):
+    monkeypatch.delenv("PHI_IMPL", raising=False)
+    rng = np.random.default_rng(2)
+    calib = _usage(6, 16, 4)
+    ref_pol = RD.PhiExecutionPolicy(telemetry=False)
+    pol = dispatch.PhiExecutionPolicy()
+    for p in (ref_pol, pol):
+        p.register_usage("snn.conv1", calib)
+        p.register_usage("snn.cold", FLAT)
+        p.resolve(site="snn.conv1", **SMALL)
+        p.resolve(site="snn.head", **SMALL, override="coo")
+    feeds = [("snn.conv1", 256, 96, 512, rng.integers(0, 300, 2), rng.integers(0, 90, (6, 17))),
+             ("snn.conv1", 256, 96, 300, rng.integers(0, 300, 2), rng.integers(0, 90, (6, 17))),
+             ("snn.conv2", 128, 144, 128, rng.integers(0, 900, 1), None)]
+    for site, bm, K, rows, nnz, hist in feeds:
+        for p in (ref_pol, pol):
+            p._record_nnz(site, bm, K, rows, nnz, group_t=0, usage_ratio=0.5, match_hist=hist)
+    assert pol.site_telemetry() == ref_pol.site_telemetry()
+    assert pol.site_telemetry("snn.conv") == ref_pol.site_telemetry("snn.conv")
+    want, got = ref_pol.report(), pol.report()
+    assert got["decisions"] == want["decisions"]
+    assert [dataclasses.asdict(b) for b in got["packer_budgets"]] == \
+        [dataclasses.asdict(b) for b in want["packer_budgets"]]
+    snap, ref_snap = pol.metrics_snapshot(), ref_pol.metrics_snapshot()
+    for name in ("phi_dispatch_decisions", "phi_site_executions", "phi_site_rows",
+                 "phi_site_l2_nnz", "phi_site_l2_nnz_max_block"):
+        assert snap[name]["series"] == ref_snap[name]["series"]
+    pol.reset(keep_usage=True)
+    assert pol.decisions() == {} and pol.report()["packer_budgets"] == []
+    assert pol.usage_for("snn.conv1") is not None
+    pol.reset()
+    assert pol.usage_for("snn.conv1") is None and pol.site_telemetry() == []
+
+
+def test_matmul_telemetry_is_folded_in_where_it_is_read(monkeypatch):
+    """A fused matmul adds its l2_nnz counter to the site's accumulators
+    without a copy to the host; report() folds them in."""
+    monkeypatch.delenv("PHI_IMPL", raising=False)
+    a, w, pats, pwp = _operands(300, 96, 72, 16, seed=3)
+    pol = dispatch.PhiExecutionPolicy()
+    for _ in range(2):
+        pol.matmul(t(a), t(w), t(pats), t(pwp), site="s")
+    acc = pol._acc["s"]
+    assert pol._sites == {} and (acc["executions"], acc["rows"]) == (2, 600)
+    assert all(isinstance(acc[key], torch.Tensor) for key in ("nnz_total", "nnz_max"))
+    (b,) = pol.report()["packer_budgets"]
+    _, residual = ref_assign_patterns(jnp.asarray(a), jnp.asarray(pats))
+    assert (b.site, b.executions, b.rows, b.block_m, b.k_dim) == ("s", 2, 600, 256, 96)
+    assert b.l2_nnz_total == 2 * int(np.abs(residual).sum())
+    assert pol._acc == {}
+
+
+def test_phi_telemetry_env_turns_telemetry_off(monkeypatch):
+    monkeypatch.delenv("PHI_IMPL", raising=False)
+    monkeypatch.setenv("PHI_TELEMETRY", "0")
+    assert not RD.PhiExecutionPolicy().telemetry
+    pol = dispatch.PhiExecutionPolicy()
+    assert not pol.telemetry
+    a, w, pats, pwp = _operands(256, 96, 72, 16, seed=5)
+    for _ in range(2):
+        pol.matmul(t(a), t(w), t(pats), t(pwp), site="s", usage=SKEWED)
+    # no histogram is kept, so the prefetch site never gets runtime sets
+    assert pol.report()["packer_budgets"] == [] and pol.runtime_usage_for("s") is None
+    assert pol.decisions() == {("s", "fused_prefetch", "pattern_usage_prefetch_interpret"): 2}
+    monkeypatch.setenv("PHI_TELEMETRY", "1")
+    assert dispatch.PhiExecutionPolicy().telemetry
+
+
+def test_checkpoint_helpers_equal_the_reference():
+    from types import SimpleNamespace
+
+    from repro_torch.core.patterns import PhiConfig
+    from repro_torch.snn.models import SNNConfig
+
+    for impl in ("pallas", None):
+        cfg = SimpleNamespace(phi=SimpleNamespace(impl=impl))
+        assert dispatch.checkpoint_extra(cfg) == RD.checkpoint_extra(cfg)
+    assert dispatch.checkpoint_extra(SimpleNamespace()) == RD.checkpoint_extra(
+        SimpleNamespace()) == {}
+    usage = {"conv1": _usage(6, 16, 4), "head": FLAT}
+    extra = dispatch.usage_checkpoint_extra(usage)
+    assert extra == RD.usage_checkpoint_extra(usage)
+    assert dispatch.usage_checkpoint_extra({}) == RD.usage_checkpoint_extra({}) == {}
+    back, ref_back = (dispatch.usage_from_checkpoint_extra(extra),
+                      RD.usage_from_checkpoint_extra(extra))
+    assert back.keys() == ref_back.keys() == usage.keys()
+    for name in usage:
+        np.testing.assert_array_equal(back[name], ref_back[name])
+        np.testing.assert_array_equal(back[name], usage[name])
+    # a persisted override is re-applied; a live one wins
+    cfg = SNNConfig()
+    assert dispatch.apply_checkpoint_extra(cfg, {"phi_impl": "pallas"}).phi.impl == "pallas"
+    live = SNNConfig(phi=PhiConfig(impl="coo"))
+    assert dispatch.apply_checkpoint_extra(live, {"phi_impl": "pallas"}) is live
+    assert dispatch.apply_checkpoint_extra(cfg, None) is cfg

@@ -284,15 +284,22 @@ def test_phi_matmul_bitwise_vs_reference(impl, int8):
 
 
 def test_phi_matmul_refuses_unported_and_unknown_impls():
+    """Named when "pallas" raised NotImplementedError; every lowering is
+    ported now, so "pallas" runs (bitwise equal to the reference's on dyadic
+    weights) and refuses only an int8 bank, whose scales it cannot apply."""
     a, w, pats, pwp = _setup(16, 32, 8, 4)
-    for impl in ("pallas",):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ops.phi_matmul(t(a), t(w), t(pats), t(pwp), impl=impl)
+    got = ops.phi_matmul(t(a), t(w), t(pats), t(pwp), impl="pallas")
+    want = RO.phi_matmul(jnp.asarray(a), jnp.asarray(w), jnp.asarray(pats), jnp.asarray(pwp),
+                         impl="pallas")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     with pytest.raises(ValueError):
         ops.phi_matmul(t(a), t(w), t(pats), t(pwp), impl="bogus")
-    q8, _ = P.quantize_pwp(t(pwp))
+    q8, scale = P.quantize_pwp(t(pwp))
     with pytest.raises(ValueError, match="pwp_scale"):
         ops.phi_fused(t(a), t(pats), q8, t(w))
+    for kw in (dict(), dict(pwp_scale=scale)):
+        with pytest.raises(ValueError, match="int8"):
+            ops.phi_matmul(t(a), t(w), t(pats), q8, impl="pallas", **kw)
 
 
 def test_oracles_bitwise():

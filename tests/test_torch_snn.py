@@ -195,3 +195,59 @@ def test_init_matches_reference_shapes_and_scale(kind):
         assert tuple(w.shape) == ref[name]["w"].shape and w.dtype == torch.float32
         fan_in = int(np.prod(w.shape[:-1]))
         assert 0.5 < float(w.std()) / (2.0 / fan_in) ** 0.5 < 1.5
+
+
+def test_phi_apply_pallas_config_bitwise_vs_reference_and_dense(monkeypatch):
+    """``PhiConfig(impl="pallas")``: every GEMM on the matcher, L1-gather and
+    L2-spmm lowering through the policy's config override, against reference
+    ``apply`` with its ``phi_matmul(impl="pallas")`` injected."""
+    import dataclasses
+
+    monkeypatch.delenv("PHI_IMPL", raising=False)
+    rcfg, cfg, w, x = _both("vgg")
+    jw = jax.tree.map(jnp.asarray, w)
+    rstate, _ = RM.calibrate_model(jw, rcfg, jnp.asarray(x))
+
+    def ref_mm(a, wt, name):
+        return RO.phi_matmul(a, wt, jnp.asarray(rstate.patterns[name]), rstate.pwp[name],
+                             impl="pallas", nnz_budget=rcfg.phi.nnz_budget)
+
+    want = np.asarray(RM.apply(jw, rcfg, jnp.asarray(x), matmul=ref_mm))
+    state = phi_state_from_numpy(rstate.patterns, np_tree(rstate.pwp), rstate.usage, "cpu")
+    params = params_from_numpy(w, "cpu")
+    cfg = dataclasses.replace(cfg, phi=dataclasses.replace(cfg.phi, impl="pallas"))
+    prev = dispatch.set_policy(dispatch.PhiExecutionPolicy())
+    try:
+        got = M.phi_apply(params, cfg, state, t(x))
+        decisions = dispatch.get_policy().decisions()
+    finally:
+        dispatch.set_policy(prev)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), M.apply(params, cfg, t(x)).numpy())
+    assert decisions == {(f"snn.{name}", "pallas", "config_override"): 1
+                         for name in state.patterns}
+
+
+@pytest.mark.parametrize("kind", ["vgg", "spikformer"])
+def test_phi_apply_records_one_decision_per_gemm_with_the_reference_reasons(kind, monkeypatch):
+    from repro.kernels import dispatch as RD
+
+    monkeypatch.delenv("PHI_IMPL", raising=False)
+    rcfg, cfg, w, x = _both(kind)
+    params = params_from_numpy(w, "cpu")
+    state, acts = M.calibrate_model(params, cfg, t(x))
+    prev = dispatch.set_policy(dispatch.PhiExecutionPolicy())
+    try:
+        got = M.phi_apply(params, cfg, state, t(x))
+        decisions = dispatch.get_policy().decisions()
+    finally:
+        dispatch.set_policy(prev)
+    assert torch.equal(got, M.apply(params, cfg, t(x)))
+    want = {}
+    ref_pol = RD.PhiExecutionPolicy(telemetry=False)
+    for name, act in acts.items():
+        T, q = state.patterns[name].shape[:2]
+        d = ref_pol.resolve(site=f"snn.{name}", m=act.shape[0], k_dim=act.shape[1],
+                            n=params[name]["w"].shape[-1], t=T, q=q, usage=state.usage[name])
+        want[(d.site, d.impl, d.reason)] = 1
+    assert decisions == want
