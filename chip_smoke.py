@@ -128,23 +128,21 @@ def lif_bound_ms(T, n) -> tuple[float, float]:
     return 8 * T * n / HBM_BYTES_PER_S * 1e3, 3 * T * n / F32_FLOP_PER_S * 1e3
 
 
-def attn_bound_ms(B, S, H, D, T, qp, kp, bq, bkv, pattern_bits, nnz_sum) -> tuple[float, float]:
+def attn_bound_ms(B, S, H, D, T, qp, kp, nq, l2_entries) -> tuple[float, float]:
     """Least time for one Phi flash-attention call: bytes (q, k, v and the
-    packed bank read once; out and l2_nnz written once) against HBM, and the
-    float32 operations of this run's data against the CUDA-core peak, over
-    the blocks the kernel tiles: pattern x Q products (an add per set pattern
-    bit and query row, once per q-block), L1 (T adds per score), L2 (an add
-    per residual entry and query row: ``nnz_sum`` already counts every
-    q-block), the final L1 + L2 add, the ragged tail (2 per tail feature and
-    score), the scale, the online softmax (max, subtract, exp, sum: 4 per
-    score), p.V (2 D per score) and the rescaling of den and acc (2 (D + 1)
-    per query row and kv-block)."""
-    nq, nkv = -(-S // bq), -(-S // bkv)
+    packed bank read once; out and the (B·H, nq) l2_nnz written once) against
+    HBM, and the float32 operations the function itself needs on this run's
+    data, whatever implements it, against the CUDA-core peak: per score the
+    L1 sum (T adds), L1 + L2, the ragged tail (2 per tail feature), the
+    scale, the softmax (max, subtract, exp, sum: 4) and p.V (2 D); per
+    residual entry of a K row an add for every query row (``l2_entries``
+    counts each K row's residual once); per output the division by the
+    denominator. The integer match is not counted: the table of peaks has no
+    integer rate."""
     BH = B * H
     nbytes = 16 * B * S * H * D + 8 * T * qp + 4 * BH * nq
-    scores = BH * nq * nkv * bq * bkv
-    flops = BH * nq * bq * pattern_bits + nnz_sum * bq \
-        + scores * (T + 1 + 2 * (D - T * kp) + 1 + 4 + 2 * D) + BH * nq * nkv * bq * 2 * (D + 1)
+    scores = BH * S * S
+    flops = scores * (T + 1 + 2 * (D - T * kp) + 1 + 4 + 2 * D) + l2_entries * S + BH * S * D
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
 
 
@@ -483,6 +481,18 @@ def spikformer_path(dev, images, smi) -> dict:
         blocks[site] = policy.last_decision(site).blocks
         check(site, q, k, v, pats, packed, block_q=blocks[site][0], block_kv=blocks[site][1])
     _, q, k, v, pats, packed = sites[0]
+    # A query row's softmax arithmetic depends on block_kv only: the Phi
+    # kernel at block_q 32 equals the dense one at 64.
+    bq0, bkv0 = blocks[sites[0][0]]
+    out32, _ = phi_flash_attention_cuda(q, k, v, pats, packed=packed, block_q=bq0 // 2,
+                                        block_kv=bkv0)
+    if not torch.equal(out32, flash_attention_cuda(q, k, v, causal=False, block_q=bq0,
+                                                   block_kv=bkv0)):
+        raise AssertionError("Phi at block_q/2 != dense at block_q, equal block_kv")
+    # Q off {0, 1} (dyadic, so every score is still exact): the float route.
+    qn = q * torch.tensor([0.5, 0.25, 2.0, -1.0], device=dev)[
+        torch.randint(0, 4, q.shape, generator=torch.Generator().manual_seed(3)).to(dev)]
+    check("non_binary_q", qn, k, v, pats, packed, block_q=bq0, block_kv=bkv0)
     for label, kw in (("causal", dict(causal=True, block_q=32, block_kv=16)),
                       ("window", dict(causal=True, window=9, block_q=16, block_kv=32)),
                       ("chunk", dict(chunk=16, block_q=32, block_kv=32)),
@@ -503,8 +513,8 @@ def spikformer_path(dev, images, smi) -> dict:
         _, nnz = phi_flash_attention_cuda(q, k, v, pats, packed=packed, **kw)
         B, S, H, D = q.shape
         T, qp, kp = pats.shape
-        b_ms, o_ms = attn_bound_ms(B, S, H, D, T, qp, kp, min(bq, S), min(bkv, S),
-                                   int((pats != 0).sum()), int(nnz.sum()))
+        nq = -(-S // min(bq, S))               # every q-block column holds the panel's count
+        b_ms, o_ms = attn_bound_ms(B, S, H, D, T, qp, kp, nq, int(nnz.sum()) // nq)
         qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
         rows.append({
             "site": site, "shape": [B, S, H, D], "blocks": [bq, bkv],
@@ -824,7 +834,7 @@ def main() -> int:
 
     from repro_torch.core.assign import phi_stats
     from repro_torch.core.patterns import PhiConfig, pattern_weight_products, quantize_pwp
-    from repro_torch.kernels import _build, dispatch
+    from repro_torch.kernels import _build, dispatch, ops
     from repro_torch.kernels.lif import lif_sequence_cuda, lif_step_cuda
     from repro_torch.kernels.phi_attention import flash_attention_cuda, phi_flash_attention_cuda
     from repro_torch.kernels.phi_fused import (
@@ -850,10 +860,20 @@ def main() -> int:
 
     # -------------------------------------------------------------- build ---
     t0 = time.perf_counter()
-    _build.library()
+    lib = _build.library()
+    gt = ops.stream_group_t(128, 16)
+    # Blocks one SM holds, at the main paths' shapes (q = 128, k = 16; the
+    # spikformer's attention sites; fc2's N = 384 and conv3/conv4's 512).
+    resident = {"phi_fused": lib.phi_fused_occupancy(0, 128, 16, 0, 384),
+                "phi_fused_prefetch": lib.phi_fused_occupancy(1, 128, 16, 0, 384),
+                "phi_fused_stream_n384": lib.phi_fused_occupancy(2, 128, 16, gt, 384),
+                "phi_fused_stream_n512": lib.phi_fused_occupancy(2, 128, 16, gt, 512),
+                "phi_flash_attention_64_64": lib.phi_attention_occupancy(64, 64, 32, 2, 128, 1),
+                "flash_attention_dense_64_64": lib.phi_attention_occupancy(64, 64, 32, 0, 0, 0)}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": _build.build_info.get("seconds"),
-          "ptxas": _build.build_info.get("ptxas", [])})
+          "ptxas": _build.build_info.get("ptxas", []), "stream_group_t": gt,
+          "resident_blocks_per_sm": resident})
 
     # ---------------------------------------------------------- main path ---
     cfg = M.SNNConfig(kind="vgg", widths=WIDTHS, input_size=32, input_channels=3,

@@ -43,17 +43,22 @@ _SIGNATURES = {
                             ctypes.c_float, ctypes.c_int, _P],
     "phi_attention_launch": [_P] * 6 + [ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_int, _P],
     "phi_attention_smem_bytes": [ctypes.c_int] * 6,
+    "phi_attention_occupancy": [ctypes.c_int] * 6,
+    "phi_fused_occupancy": [ctypes.c_int] * 5,
     "matcher_launch": [_P, _P, _P, _P, ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P],
     "l1_gather_launch": [_P, _P, ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_int,
                          ctypes.c_int, ctypes.c_int, _P],
     "l2_spmm_launch": [_P] * 5 + [ctypes.c_int] * 4 + [_P],
+    "repro_cuda_error_string": [ctypes.c_int],
 }
 # Return types other than the launch functions' CUDA error code.
 _RESTYPES = {"phi_attention_smem_bytes": ctypes.c_longlong,
-             "phi_fused_stream_smem_bytes": ctypes.c_longlong}
+             "phi_fused_stream_smem_bytes": ctypes.c_longlong,
+             "repro_cuda_error_string": ctypes.c_char_p}
 
 _lib: ctypes.CDLL | None = None
-# What the last build in this process did: seconds and ptxas resource lines.
+# What the last build did: seconds (0 when the library was reused) and ptxas's
+# resource lines, kept beside the library.
 build_info: dict = {}
 
 
@@ -96,10 +101,10 @@ def _build(target: Path) -> None:
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed (exit {link.returncode}):\n{link.stdout}")
         os.replace(lib_tmp, target)
-    build_info.update(
-        seconds=time.perf_counter() - t0,
-        ptxas=[line.strip() for log in logs for line in log.splitlines()
-               if "Used" in line or "Compiling entry" in line])
+    ptxas = [line.strip() for log in logs for line in log.splitlines()
+             if "Used" in line or "Compiling entry" in line or "spill" in line]
+    target.with_suffix(".ptxas").write_text("\n".join(ptxas))
+    build_info.update(seconds=time.perf_counter() - t0, ptxas=ptxas)
 
 
 def library() -> ctypes.CDLL:
@@ -109,15 +114,25 @@ def library() -> ctypes.CDLL:
         target = BUILD_DIR / f"librepro_torch_{_digest()}.so"
         if not target.exists():
             _build(target)
-        lib = ctypes.CDLL(str(target))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
+        else:                     # built earlier: its registers, spills, shared memory
+            log = target.with_suffix(".ptxas")
+            build_info.update(seconds=0.0, ptxas=log.read_text().splitlines()
+                              if log.exists() else [])
+        _lib = load(target)
+    return _lib
+
+
+def load(path: Path, *, partial: bool = False) -> ctypes.CDLL:
+    """Load a built library and declare its functions' C signatures.
+    ``partial``: a library built from only some of the sources; the
+    functions it lacks are skipped."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name, None) if partial else getattr(lib, name)
+        if fn is not None:
             fn.argtypes = argtypes
             fn.restype = _RESTYPES.get(name, ctypes.c_int)
-        lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    return lib
 
 
 def check(err: int, what: str) -> None:

@@ -54,23 +54,35 @@
 //
 // phi_fused_stream_kernel: the K-streaming variant. The TPU kernel keeps only
 // group_t K-partitions resident and copies group g+1's operands HBM->VMEM
-// with double-buffered DMAs while group g is matched and contracted. Here the
-// same tiles and per-partition math as above, but each group's packed
-// patterns and its (BM x group_t*k) activation tile are copied into one of two
-// shared-memory stages with cp.async, one group ahead, so the match reads
-// shared memory and the next group's loads overlap this group's work. The
-// PWP and residual weight rows are gathers by the matched index and stay
-// global reads, as in the kernel above. Each output still sums its partitions
-// in ascending t, L1 and L2 apart, so the two kernels are bitwise equal.
-// The two stages take 48 KB of dynamic shared memory at q = 128, k = 16,
-// group_t = 8, which with the 6 KB match tile still lets four blocks share an
-// SM, as the first kernel's registers (60 a thread) allow it; the
-// activation tile is not padded, since padding it cost a block per SM and
-// the bank conflicts it removed are a few reads per (row, partition) against
-// q popcounts. It takes any q whose two stages fit the 227 KB a block may
-// use. It is bound as the first kernel is, and measures 1-6% slower than it
-// at every GEMM of the VGG and Spikformer-4-384 slices: the loads it hides
-// were already hidden by the other blocks on the SM.
+// with double-buffered DMAs while group g is matched and contracted. Here
+// each group's packed patterns and activation rows are copied into one of
+// two shared-memory stages with cp.async, one group ahead. Each output still
+// sums its partitions in ascending t, L1 and L2 apart, so it is bitwise equal
+// to the first kernel. Taken apart on the card (PERF.md), the first
+// version of this kernel, which had the first kernel's tiles, spent its time
+// on loads issued one at a time (per row, the PWP load and then each residual
+// bit's weight row, each waited for before the next), on the match, redone by
+// every 64-column tile of a row tile, and on copying the row tile's
+// activations once per column tile. This design:
+//   * A cluster of up to 8 column tiles (distributed shared memory) shares a
+//     row tile's match: each block matches a 1/cluster share of the rows,
+//     each (row, partition)'s q patterns split over up to 32 lanes (a packed
+//     (distance, index) minimum keeps the first index on ties), writes the
+//     result into every block's match tile and copies only its share of the
+//     activations. The match runs one group ahead of the sums, while the
+//     group's first PWP loads are in flight; one cluster barrier a group.
+//   * 128-column tiles, a warp per row group and four columns a thread: one
+//     decode of a residual mask serves four columns, and PWP and weight rows
+//     are read as 16-byte vectors (8 bytes for bf16, 4 for int8); the next
+//     partition's PWP values and scales are loaded before this partition's
+//     ordered sums.
+//   * The residual's weight rows are read from w (L2-resident here), not
+//     staged: staging each group's K-slab of w in shared memory measured
+//     slower at every GEMM of the main paths (the copies cost L2 bandwidth
+//     and the slab's shared memory forced shallower groups, so more cluster
+//     barriers).
+// What bounds it on an H100 is latency: the stages are chains of L2 loads,
+// shared-memory loads and barriers (PERF.md has the cycle counts).
 //
 // phi_fused_kernel<P, true>: the PWP-prefetching variant. The TPU kernel
 // copies into VMEM only the pattern and PWP rows of a per-M-stripe active
@@ -87,8 +99,11 @@
 // match. A BM-row tile must lie in one stripe (the wrapper checks).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 #include <cuda_pipeline_primitives.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -267,103 +282,351 @@ __global__ void __launch_bounds__(THREADS) phi_fused_kernel(
 }
 
 // ------------------------------------------------------- K-streaming kernel ---
-// Shared memory of one stage: group_t packed pattern rows of stride q+1
-// (rounded up to 16 bytes), then the activation tile, BM rows of group_t
-// partitions of k floats, as they lie in a row of the activations.
-__host__ __device__ __forceinline__ size_t stream_pat_bytes(int q, int group_t) {
-  return (static_cast<size_t>(group_t) * (q + 1) * 8 + 15) / 16 * 16;
+// Its own tile: BM rows x SBN columns, a warp per row group (SROWS rows, the
+// warp's lanes on SCOLS consecutive columns each), so that a warp decodes
+// each residual mask once for 128 columns.
+constexpr int SBN = 128;                            // columns per output tile
+constexpr int SCOLS = 4;                            // columns per thread
+constexpr int SROW_GROUPS = THREADS / 32;           // 8: one warp each
+constexpr int SROWS = BM / SROW_GROUPS;             // 4 rows per thread
+static_assert(32 * SCOLS == SBN, "stream tile shape");
+
+// Shared memory of one stage: group_t packed pattern rows of stride q+1 and
+// the activation rows this block matches (rows ceil(BM / cluster) of
+// group_t*k floats), each rounded up to 16 bytes. After the two stages, two
+// match tiles (one per group parity) of BM x group_t pairs (the residual's
+// +/- masks, the matched index) and BM row counters.
+__host__ __device__ __forceinline__ size_t round16(size_t b) { return (b + 15) / 16 * 16; }
+__host__ __device__ __forceinline__ size_t stream_stage_bytes(int q, int k, int group_t, int rows) {
+  return round16(static_cast<size_t>(group_t) * (q + 1) * 8) +
+         round16(static_cast<size_t>(rows) * group_t * k * sizeof(float));
 }
-__host__ __device__ __forceinline__ size_t stream_stage_bytes(int q, int k, int group_t) {
-  return stream_pat_bytes(q, group_t) + static_cast<size_t>(BM) * group_t * k * sizeof(float);
+__host__ __device__ __forceinline__ size_t stream_smem(int q, int k, int group_t, int cluster) {
+  return 2 * stream_stage_bytes(q, k, group_t, (BM + cluster - 1) / cluster) +
+         static_cast<size_t>(2) * BM * group_t * (8 + 8 + 4) + BM * sizeof(int);
+}
+// Column tiles of a row tile that share its match: the largest divisor of
+// the column-tile count up to 8, the portable cluster size.
+__host__ __device__ __forceinline__ int stream_cluster(int N) {
+  const int ny = (N + SBN - 1) / SBN;
+  for (int c = 8; c > 1; --c)
+    if (ny % c == 0) return c;
+  return 1;
 }
 
+// SCOLS consecutive values from p as floats: one vector load where `vec`
+// (N a multiple of 4 and the base aligned), else the first `valid` ones.
+__device__ __forceinline__ float4 load4(const float* p, bool vec, int valid) {
+  if (vec) return *reinterpret_cast<const float4*>(p);
+  float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (valid > 0) r.x = p[0];
+  if (valid > 1) r.y = p[1];
+  if (valid > 2) r.z = p[2];
+  if (valid > 3) r.w = p[3];
+  return r;
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p, bool vec, int valid) {
+  if (vec) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+    const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+    return make_float4(__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi));
+  }
+  float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (valid > 0) r.x = __bfloat162float(p[0]);
+  if (valid > 1) r.y = __bfloat162float(p[1]);
+  if (valid > 2) r.z = __bfloat162float(p[2]);
+  if (valid > 3) r.w = __bfloat162float(p[3]);
+  return r;
+}
+__device__ __forceinline__ float4 load4(const int8_t* p, bool vec, int valid) {
+  if (vec) {
+    const char4 c = *reinterpret_cast<const char4*>(p);
+    return make_float4(static_cast<float>(c.x), static_cast<float>(c.y),
+                       static_cast<float>(c.z), static_cast<float>(c.w));
+  }
+  float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (valid > 0) r.x = static_cast<float>(p[0]);
+  if (valid > 1) r.y = static_cast<float>(p[1]);
+  if (valid > 2) r.z = static_cast<float>(p[2]);
+  if (valid > 3) r.w = static_cast<float>(p[3]);
+  return r;
+}
+
+__device__ __forceinline__ void add_scaled(float4& acc, float4 v, float s) {
+  acc.x = __fadd_rn(acc.x, __fmul_rn(v.x, s));
+  acc.y = __fadd_rn(acc.y, __fmul_rn(v.y, s));
+  acc.z = __fadd_rn(acc.z, __fmul_rn(v.z, s));
+  acc.w = __fadd_rn(acc.w, __fmul_rn(v.w, s));
+}
+
+// This thread's SROWS rows' PWP values (SCOLS columns) and scales of
+// partition t, whose matched indices are column tt of the match tile.
 template <typename P>
-__global__ void __launch_bounds__(THREADS) phi_fused_stream_kernel(
+__device__ __forceinline__ void load_partition(float4 (&v)[SROWS], float (&s)[SROWS],
+                                               const P* __restrict__ pwp,
+                                               const float* __restrict__ scale,
+                                               const int* __restrict__ tidx, int t, int tt,
+                                               int group_t, int q, int N, int n, int rg, bool vec,
+                                               int valid) {
+  const size_t qs = static_cast<size_t>(q) + 1;
+#pragma unroll
+  for (int i = 0; i < SROWS; ++i) {
+    const size_t row = t * qs + tidx[(rg + i * SROW_GROUPS) * group_t + tt];
+    v[i] = load4(pwp + row * N + n, vec, valid);
+    s[i] = scale[row];
+  }
+}
+
+// One stage of tg partitions (from g) into this thread's SROWS rows of its
+// SCOLS columns, L1 and L2 apart, ascending t, each column's sums those of
+// accumulate(). vn, sn hold partition g's PWP values and scales (loaded by
+// the caller ahead); the next partition's are loaded before this
+// partition's sums. The residual's weight rows are read from w (L2-resident
+// at the main paths' shapes) as SCOLS-wide vectors.
+template <typename P>
+__device__ __forceinline__ void accumulate_stream(
+    float4 (&acc1)[SROWS], float4 (&acc2)[SROWS], float4 (&vn)[SROWS], float (&sn)[SROWS],
+    const P* __restrict__ pwp, const float* __restrict__ scale, const float* __restrict__ w,
+    const unsigned long long* __restrict__ tpos, const unsigned long long* __restrict__ tneg,
+    const int* __restrict__ tidx, int g, int tg, int group_t, int q, int k, int N, int n,
+    int rg, bool vec, int valid) {
+  for (int tt = 0; tt < tg; ++tt) {
+    float4 v[SROWS];
+    float s[SROWS];
+#pragma unroll
+    for (int i = 0; i < SROWS; ++i) { v[i] = vn[i]; s[i] = sn[i]; }
+    if (tt + 1 < tg)
+      load_partition<P>(vn, sn, pwp, scale, tidx, g + tt + 1, tt + 1, group_t, q, N, n, rg, vec,
+                        valid);
+#pragma unroll
+    for (int i = 0; i < SROWS; ++i) {
+      const int e = (rg + i * SROW_GROUPS) * group_t + tt;
+      add_scaled(acc1[i], v[i], s[i]);
+      const unsigned long long pos = tpos[e];
+      unsigned long long rest = pos | tneg[e];
+      if (rest) {
+        float4 part = make_float4(0.f, 0.f, 0.f, 0.f);
+        while (rest) {                           // set bits in ascending j
+          const int j = __ffsll(static_cast<long long>(rest)) - 1;
+          rest &= rest - 1;
+          const float4 wv = load4(w + static_cast<size_t>((g + tt) * k + j) * N + n, vec, valid);
+          if ((pos >> j) & 1ull) {
+            part.x = __fadd_rn(part.x, wv.x); part.y = __fadd_rn(part.y, wv.y);
+            part.z = __fadd_rn(part.z, wv.z); part.w = __fadd_rn(part.w, wv.w);
+          } else {
+            part.x = __fsub_rn(part.x, wv.x); part.y = __fsub_rn(part.y, wv.y);
+            part.z = __fsub_rn(part.z, wv.z); part.w = __fsub_rn(part.w, wv.w);
+          }
+        }
+        acc2[i].x = __fadd_rn(acc2[i].x, part.x); acc2[i].y = __fadd_rn(acc2[i].y, part.y);
+        acc2[i].z = __fadd_rn(acc2[i].z, part.z); acc2[i].w = __fadd_rn(acc2[i].w, part.w);
+      }
+    }
+  }
+}
+
+// Launched in clusters of stream_cluster(N) blocks along the column tiles of
+// one row tile. Block `rank` matches the rows r = rank (mod cluster) of each
+// stage, each (row, partition) pair's q patterns split over up to 32 lanes,
+// and writes the result into every block's match tile (distributed shared
+// memory); one cluster barrier a stage publishes it.
+template <typename P>
+__global__ void __launch_bounds__(THREADS, 3) phi_fused_stream_kernel(
     const float* __restrict__ a, const unsigned long long* __restrict__ pat,
     const P* __restrict__ pwp, const float* __restrict__ scale,
     const float* __restrict__ w, float* __restrict__ out, int* __restrict__ nnz,
     long long M, int K, int N, int T, int q, int k, int bm, int group_t) {
-  extern __shared__ __align__(16) unsigned char s_stage[];   // two stages
-  __shared__ MatchTile s_m;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
 
   const int tid = threadIdx.x;
   const long long m0 = static_cast<long long>(blockIdx.x) * BM;
   const int qs = q + 1;
-  const int gk = group_t * k;                         // floats of one tile row
-  const size_t pat_bytes = stream_pat_bytes(q, group_t);
-  const size_t stage_bytes = stream_stage_bytes(q, k, group_t);
-  const bool vec = (k & 3) == 0 && (K & 3) == 0 && (reinterpret_cast<uintptr_t>(a) & 15) == 0;
+  const int gk = group_t * k;                         // floats of one activation row
+  const int rows_r = (BM - rank + C - 1) / C;         // rows r = rank (mod C) of the tile
+  const size_t pat_bytes = round16(static_cast<size_t>(group_t) * qs * 8);
+  const size_t act_bytes = round16(static_cast<size_t>((BM + C - 1) / C) * gk * sizeof(float));
+  const size_t pa_bytes = pat_bytes + act_bytes;         // one stage
+  const int pairs_max = BM * group_t;
+  unsigned char* tiles = smem + 2 * pa_bytes;               // match tiles, by group parity
+  const size_t tile_bytes = static_cast<size_t>(pairs_max) * 20;
+  int* s_rownnz = reinterpret_cast<int*>(tiles + 2 * tile_bytes);
+  const int n0 = blockIdx.y * SBN;
+  const bool vec_a = (k & 3) == 0 && (K & 3) == 0 && (reinterpret_cast<uintptr_t>(a) & 15) == 0;
+  // Vector loads of pwp and w rows: N a multiple of 4 and the bases aligned.
+  const bool vec = (N & 3) == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(pwp) & (4 * sizeof(P) - 1)) == 0;
   const int n_groups = (T + group_t - 1) / group_t;
 
-  const int mr = tid / TG, mt = tid % TG;
-  const long long mrow = m0 + mr;
-  const bool mrow_ok = mrow < M;
-  const int col = tid % BN, rg = tid / BN;
-  const int n = blockIdx.y * BN + col;
-  const bool n_ok = n < N;
+  const int lane = tid % 32, rg = tid / 32;
+  const int n = n0 + lane * SCOLS;
+  const int valid = min(SCOLS, N - n);                // columns of this thread inside N
+  if (tid < BM) s_rownnz[tid] = 0;
 
-  // Start the copies of group gi into stage st: the group's packed patterns,
-  // and its activation tile (rows past M are not copied; nothing reads them).
-  auto issue = [&](int gi, int st) {
-    unsigned long long* sp = reinterpret_cast<unsigned long long*>(s_stage + st * stage_bytes);
-    float* sa = reinterpret_cast<float*>(s_stage + st * stage_bytes + pat_bytes);
-    const int g = gi * group_t, tg = min(group_t, T - g);
-    for (int i = tid; i < tg * q; i += THREADS)
-      __pipeline_memcpy_async(sp + (i / q) * qs + (i % q), pat + static_cast<size_t>(g) * q + i,
-                              8);
-    const int rows = static_cast<int>(min(static_cast<long long>(BM), M - m0));
-    const float* src = a + m0 * K + static_cast<long long>(g) * k;
-    if (vec) {
-      const int per_row = tg * k / 4;
-      for (int i = tid; i < rows * per_row; i += THREADS) {
-        const int r = i / per_row, c = (i % per_row) * 4;
-        __pipeline_memcpy_async(sa + r * gk + c, src + r * K + c, 16);
-      }
-    } else {
-      const int per_row = tg * k;
-      for (int i = tid; i < rows * per_row; i += THREADS) {
-        const int r = i / per_row, c = i % per_row;
-        __pipeline_memcpy_async(sa + r * gk + c, src + r * K + c, 4);
+  // Start the copies of group gp's packed patterns and this block's
+  // activation rows (rows past M are not copied; nothing reads them).
+  auto issue = [&](int gp) {
+    if (gp < n_groups) {
+      unsigned char* base = smem + (gp & 1) * pa_bytes;
+      unsigned long long* sp = reinterpret_cast<unsigned long long*>(base);
+      float* sa = reinterpret_cast<float*>(base + pat_bytes);
+      const int g = gp * group_t, tg = min(group_t, T - g);
+      for (int i = tid; i < tg * q; i += THREADS)
+        __pipeline_memcpy_async(sp + (i / q) * qs + (i % q),
+                                pat + static_cast<size_t>(g) * q + i, 8);
+      const float* src = a + m0 * K + static_cast<long long>(g) * k;
+      const int per_row = vec_a ? tg * k / 4 : tg * k, width = vec_a ? 4 : 1;
+      for (int i = tid; i < rows_r * per_row; i += THREADS) {
+        const int j = i / per_row, c = (i % per_row) * width, r = rank + j * C;
+        if (m0 + r >= M) continue;
+        if (vec_a)
+          __pipeline_memcpy_async(sa + j * gk + c, src + r * K + c, 16);
+        else
+          __pipeline_memcpy_async(sa + j * gk + c, src + r * K + c, 4);
       }
     }
     __pipeline_commit();
   };
 
-  float acc1[ROWS_PER_THREAD], acc2[ROWS_PER_THREAD];
-#pragma unroll
-  for (int i = 0; i < ROWS_PER_THREAD; ++i) { acc1[i] = 0.f; acc2[i] = 0.f; }
-  int my_nnz = 0;
+  // Match group gm's pairs of this block's rows from its pattern/activation
+  // buffer into every block's match tile gm & 1 (pos, neg: 8 bytes; idx: 4;
+  // pair e = r*group_t + tt).
+  auto match = [&](int gm) {
+    const unsigned char* base = smem + (gm & 1) * pa_bytes;
+    unsigned char* tile = tiles + (gm & 1) * tile_bytes;
+    const int tg = min(group_t, T - gm * group_t);
+    const int pairs = rows_r * tg;
+    int tpp = 1;
+    while (tpp < 32 && pairs * tpp * 2 <= THREADS) tpp *= 2;
+    const bool on = tid < pairs * tpp;
+    const unsigned mask = __ballot_sync(0xffffffffu, on);
+    if (!on) return;
+    const unsigned long long* sp = reinterpret_cast<const unsigned long long*>(base);
+    const float* sa = reinterpret_cast<const float*>(base + pat_bytes);
+    const int pair = tid / tpp, sub = tid % tpp, j = pair / tg, tt = pair % tg;
+    const int r = rank + j * C;
+    const unsigned long long bits = m0 + r < M ? row_bits(sa + j * gk + tt * k, k) : 0ull;
+    const unsigned long long* pt = sp + tt * qs;
+    unsigned best = 0xffffffffu;                      // (distance << 16) | index
+    for (int i = sub; i < q; i += tpp)
+      best = min(best, (static_cast<unsigned>(__popcll(bits ^ pt[i])) << 16) | i);
+    for (int o = tpp / 2; o > 0; o >>= 1) best = min(best, __shfl_xor_sync(mask, best, o));
+    if (sub == 0) {
+      const bool use = static_cast<int>(best >> 16) < __popcll(bits);  // strictly better
+      const int idx = use ? static_cast<int>(best & 0xffffu) : q;
+      const unsigned long long chosen = use ? pt[idx] : 0ull;
+      const unsigned long long pos = bits & ~chosen, neg = chosen & ~bits;
+      const int e = r * group_t + tt;
+      for (int dst = 0; dst < C; ++dst) {
+        unsigned char* rt = cluster.map_shared_rank(tile, dst);
+        reinterpret_cast<unsigned long long*>(rt)[e] = pos;
+        reinterpret_cast<unsigned long long*>(rt)[pairs_max + e] = neg;
+        reinterpret_cast<int*>(rt + 16 * pairs_max)[e] = idx;
+      }
+      const int cnt = __popcll(pos) + __popcll(neg);
+      if (cnt) atomicAdd(&s_rownnz[r], cnt);
+    }
+  };
 
-  issue(0, 0);
+  float4 acc1[SROWS], acc2[SROWS];
+#pragma unroll
+  for (int i = 0; i < SROWS; ++i) {
+    acc1[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    acc2[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  // The match runs one group ahead of the sums: iteration gi matches group
+  // gi+1 while group gi's PWP loads are in flight, then sums group gi; one
+  // cluster barrier publishes the match. Copies run one iteration ahead.
+  issue(0);
+  issue(1);
+  __pipeline_wait_prior(1);
+  __syncthreads();
+  match(0);
+  cluster.sync();
   for (int gi = 0; gi < n_groups; ++gi) {
-    const int st = gi & 1;
     const int g = gi * group_t, tg = min(group_t, T - g);
-    // The other stage was last read by group gi-1's match, which every
-    // thread finished before the barrier that preceded its accumulate.
+    __syncthreads();  // iteration gi-1 is done with the buffers the next copies fill
     if (gi + 1 < n_groups) {
-      issue(gi + 1, st ^ 1);
-      __pipeline_wait_prior(1);                 // this thread's copies of group gi landed
+      issue(gi + 2);
+      __pipeline_wait_prior(1);                 // this thread's copies for iteration gi landed
     } else {
       __pipeline_wait_prior(0);
     }
-    __syncthreads();  // everyone's copies landed; the previous accumulate is done with s_m
-
-    if (mt < tg) {
-      const unsigned long long* sp =
-          reinterpret_cast<const unsigned long long*>(s_stage + st * stage_bytes);
-      const float* sa = reinterpret_cast<const float*>(s_stage + st * stage_bytes + pat_bytes);
-      const int t = g + mt;
-      const unsigned long long bits = mrow_ok ? row_bits(sa + mr * gk + mt * k, k) : 0ull;
-      my_nnz += match_one(bits, sp + mt * qs, q, nullptr, q, scale + static_cast<size_t>(t) * qs,
-                          s_m, mr, mt);
-    }
-    __syncthreads();
-
-    if (n_ok) accumulate<P>(acc1, acc2, pwp, w, s_m, g, tg, q, k, N, n, rg);
+    __syncthreads();  // everyone's copies landed
+    const unsigned char* tile = tiles + (gi & 1) * tile_bytes;
+    const int* tidx = reinterpret_cast<const int*>(tile + 16 * pairs_max);
+    float4 vn[SROWS];
+    float sn[SROWS];
+    if (valid > 0)                              // in flight while group gi+1 is matched
+      load_partition<P>(vn, sn, pwp, scale, tidx, g, 0, group_t, q, N, n, rg, vec, valid);
+    if (gi + 1 < n_groups) match(gi + 1);
+    if (valid > 0)
+      accumulate_stream<P>(
+          acc1, acc2, vn, sn, pwp, scale, w, reinterpret_cast<const unsigned long long*>(tile),
+          reinterpret_cast<const unsigned long long*>(tile) + pairs_max, tidx, g, tg, group_t, q,
+          k, N, n, rg, vec, valid);
+    cluster.sync();  // group gi+1's match tiles are complete; gi's are no longer read
   }
 
-  if (n_ok) store_tile(acc1, acc2, out, m0, M, N, n, rg);
-  if (blockIdx.y == 0 && mrow_ok && my_nnz) atomicAdd(&nnz[mrow / bm], my_nnz);
+  if (valid > 0) {
+#pragma unroll
+    for (int i = 0; i < SROWS; ++i) {
+      const long long row = m0 + rg + i * SROW_GROUPS;
+      if (row >= M) continue;
+      const float4 o =
+          make_float4(__fadd_rn(acc1[i].x, acc2[i].x), __fadd_rn(acc1[i].y, acc2[i].y),
+                      __fadd_rn(acc1[i].z, acc2[i].z), __fadd_rn(acc1[i].w, acc2[i].w));
+      float* dst = out + row * N + n;
+      if (vec && (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+        *reinterpret_cast<float4*>(dst) = o;
+      } else {
+        dst[0] = o.x;
+        if (valid > 1) dst[1] = o.y;
+        if (valid > 2) dst[2] = o.z;
+        if (valid > 3) dst[3] = o.w;
+      }
+    }
+  }
+  // Each row's residual is counted by the block that matched it, in the
+  // first cluster of the row tile only.
+  __syncthreads();
+  if (blockIdx.y < C && tid < BM && s_rownnz[tid]) atomicAdd(&nnz[(m0 + tid) / bm], s_rownnz[tid]);
+}
+
+template <typename P>
+cudaError_t launch_stream(const float* a, const unsigned long long* packed, const void* pwp,
+                          const float* scale, const float* w, float* out, int* nnz, long long M,
+                          int K, int N, int T, int q, int k, int bm, int group_t,
+                          cudaStream_t stream) {
+  const int C = stream_cluster(N);
+  const size_t smem = stream_smem(q, k, group_t, C);
+  if (smem > static_cast<size_t>(SMEM_OPTIN)) return cudaErrorInvalidValue;
+  // A cluster launch is refused unless the kernel's dynamic shared-memory
+  // limit is set, whatever the size.
+  const cudaError_t err = cudaFuncSetAttribute(
+      phi_fused_stream_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((M + BM - 1) / BM),
+                     static_cast<unsigned>((N + SBN - 1) / SBN));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = C;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, phi_fused_stream_kernel<P>, a, packed,
+                            static_cast<const P*>(pwp), scale, w, out, nnz, M, K, N, T, q, k, bm,
+                            group_t);
 }
 
 // group_t 0: the first kernel, or with ``active`` its prefetching variant
@@ -387,17 +650,9 @@ cudaError_t launch(const float* a, const unsigned long long* packed, const void*
           nullptr, q);
     return cudaGetLastError();
   }
-  const size_t smem = 2 * stream_stage_bytes(q, k, group_t);
-  if (smem + sizeof(MatchTile) > SMEM_OPTIN) return cudaErrorInvalidValue;
-  if (smem + sizeof(MatchTile) > 48 * 1024) {   // static + dynamic past the default limit
-    const cudaError_t err = cudaFuncSetAttribute(
-        phi_fused_stream_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  phi_fused_stream_kernel<P><<<grid, THREADS, smem, stream>>>(
-      a, packed, static_cast<const P*>(pwp), scale, w, out, nnz, M, K, N, T, q, k, bm, group_t);
-  return cudaGetLastError();
+  const cudaError_t err =
+      launch_stream<P>(a, packed, pwp, scale, w, out, nnz, M, K, N, T, q, k, bm, group_t, stream);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 cudaError_t dispatch_dtype(const float* a, const unsigned long long* packed, const void* pwp,
@@ -453,22 +708,48 @@ int phi_fused_prefetch_launch(const float* a, const unsigned long long* packed,
 }
 
 // The K-streaming kernel: the same contract, group_t (1..8) partitions per
-// stage, any q whose two stages fit a block's shared memory.
+// stage, any q < 65536 whose two stages fit a block's shared memory.
 int phi_fused_stream_launch(const float* a, const unsigned long long* packed, const void* pwp,
                             int pwp_dtype, const float* scale, const float* w, float* out,
                             int* nnz, long long M, int K, int N, int T, int q, int k, int bm,
                             int group_t, void* stream) {
-  if (k < 1 || k > 64 || q < 1 || K != T * k || bm < 1 || group_t < 1 || group_t > TG)
+  if (k < 1 || k > 64 || q < 1 || q > 0xffff || K != T * k || bm < 1 || group_t < 1 ||
+      group_t > TG || N > 65535 * SBN)
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(dispatch_dtype(a, packed, pwp, pwp_dtype, scale, w, out, nnz, M, K,
                                          N, T, q, k, bm, group_t, nullptr, q,
                                          static_cast<cudaStream_t>(stream)));
 }
 
-// Shared memory of one block of the K-streaming kernel, in bytes: its two
-// stages (dynamic) and the match tile (static).
+// Shared memory of one block of the K-streaming kernel, in bytes, at a
+// cluster of one block (the most any N gives): its two stages, the two match
+// tiles and the row counters; all dynamic.
 long long phi_fused_stream_smem_bytes(int q, int k, int group_t) {
-  return static_cast<long long>(2 * stream_stage_bytes(q, k, group_t) + sizeof(MatchTile));
+  return static_cast<long long>(stream_smem(q, k, group_t, 1));
+}
+
+// Blocks of a fused kernel one SM holds (cudaOccupancy...), float32 bank:
+// kernel 0 the first one, 1 the prefetching one (n_pat = q), 2 the streaming
+// one at (q, k, group_t) and N's cluster; a negative CUDA error code on failure.
+int phi_fused_occupancy(int kernel, int q, int k, int group_t, int N) {
+  int n = 0;
+  cudaError_t err;
+  if (kernel == 0 || kernel == 1) {
+    const size_t smem = static_cast<size_t>(TG) * (q + 1) * sizeof(unsigned long long);
+    err = kernel == 0
+        ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, phi_fused_kernel<float, false>,
+                                                        THREADS, smem)
+        : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, phi_fused_kernel<float, true>,
+                                                        THREADS, smem);
+  } else {
+    const size_t smem = stream_smem(q, k, group_t, stream_cluster(N));
+    err = cudaFuncSetAttribute(phi_fused_stream_kernel<float>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, phi_fused_stream_kernel<float>,
+                                                          THREADS, smem);
+  }
+  return err == cudaSuccess ? n : -static_cast<int>(err);
 }
 
 }  // extern "C"

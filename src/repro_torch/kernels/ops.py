@@ -30,7 +30,8 @@ from repro_torch.core.patterns import active_pattern_sets
 from repro_torch.kernels import IMPLS, ref
 from repro_torch.kernels.lif import lif_step_cuda
 from repro_torch.kernels.matcher import matcher_cuda
-from repro_torch.kernels.phi_attention import SMEM_LIMIT, phi_flash_attention_cuda, smem_bytes
+from repro_torch.kernels.phi_attention import (
+    SMEM_LIMIT, block_q_ok, launch_bound_blocks, phi_flash_attention_cuda, smem_bytes)
 from repro_torch.kernels.phi_fused import (
     MAX_GROUP_T, MAX_K, MAX_Q, phi_fused_cuda, phi_fused_prefetch_cuda, phi_fused_stream_cuda,
     stream_smem_bytes, stripe_active_sets)
@@ -521,11 +522,25 @@ def _attn_smem_bytes(bq: int, bkv: int, S: int, D: int, T: int, qp: int) -> int:
     return smem_bytes(min(bq, S), min(bkv, S), D, T, qp)
 
 
-def _attn_candidates(S: int) -> list[tuple[int, int]]:
-    """(block_q, block_kv) pairs the block choice considers for sequence length S."""
+def _attn_candidates(S: int, D: int) -> list[tuple[int, int]]:
+    """(block_q, block_kv) pairs the block choice considers for sequence
+    length S and head size D: the kernel's block_q limit applied."""
     cap = max(8, 1 << (max(S, 1) - 1).bit_length())
     sizes = sorted({min(b, cap) for b in (32, 64, 128)})
-    return [(bq, bkv) for bq in sizes for bkv in sizes]
+    return [(bq, bkv) for bq in sizes for bkv in sizes if block_q_ok(min(bq, max(S, 1)), D)]
+
+
+# Shared memory of one H100 SM, and what the hardware reserves per block.
+_SM_SMEM = 228 * 1024
+_SM_SMEM_PER_BLOCK = 1024
+
+
+def _attn_blocks_per_sm(bq: int, bkv: int, S: int, D: int, T: int, qp: int) -> int:
+    """Blocks one SM can hold: as many as shared memory allows, capped by
+    the kernel's launch bound (``launch_bound_blocks``), which its registers
+    set."""
+    by_smem = _SM_SMEM // (_attn_smem_bytes(bq, bkv, S, D, T, qp) + _SM_SMEM_PER_BLOCK)
+    return min(by_smem, launch_bound_blocks(min(bq, S), D))
 
 
 def attn_shape_viable(S: int, D: int, T: int, qp: int, kp: int) -> bool:
@@ -534,8 +549,8 @@ def attn_shape_viable(S: int, D: int, T: int, qp: int, kp: int) -> bool:
     pair fits the 227 KB a block may use."""
     if T and (kp > MAX_K or T * kp > D):
         return False
-    return min(_attn_smem_bytes(bq, bkv, S, D, T, qp)
-               for bq, bkv in _attn_candidates(S)) <= SMEM_LIMIT
+    return any(_attn_smem_bytes(bq, bkv, S, D, T, qp) <= SMEM_LIMIT
+               for bq, bkv in _attn_candidates(S, D))
 
 
 _ATTN_TUNE_CACHE: dict[tuple, tuple[int, int]] = {}
@@ -544,19 +559,20 @@ _ATTN_TUNE_CACHE: dict[tuple, tuple[int, int]] = {}
 def autotune_attn_blocks(S: int, D: int, T: int, qp: int, kp: int) -> tuple[int, int]:
     """Pick (block_q, block_kv) for the attention kernel.
 
-    Heuristic, as in the reference: the largest blocks whose shared memory
-    fits, preferring wide kv blocks (fewer online-softmax rescales). There is
-    no timed pass: the dense A/B arm must run the *same* blocks for the
-    bitwise contract. Where nothing fits, the smallest footprint.
+    Heuristic, no timed pass (the dense A/B arm must run the *same*
+    block_kv for the bitwise contract): the widest kv block that fits
+    (fewer online-softmax rescales), then the block_q that lets the most
+    blocks share an SM (shared memory, capped by the kernel's launch bound),
+    then the largest block_q.
+    Where nothing fits, the smallest footprint.
     """
     key = (S, D, T, qp, kp)
     if key in _ATTN_TUNE_CACHE:
         return _ATTN_TUNE_CACHE[key]
-    cands = [c for c in _attn_candidates(S)
-             if _attn_smem_bytes(c[0], c[1], S, D, T, qp) <= SMEM_LIMIT]
-    cands = cands or [min(_attn_candidates(S),
-                          key=lambda c: _attn_smem_bytes(c[0], c[1], S, D, T, qp))]
-    best = max(cands, key=lambda c: (c[0] * c[1], c[1]))
+    allc = _attn_candidates(S, D) or [(8, 8)]
+    cands = [c for c in allc if _attn_smem_bytes(c[0], c[1], S, D, T, qp) <= SMEM_LIMIT]
+    cands = cands or [min(allc, key=lambda c: _attn_smem_bytes(c[0], c[1], S, D, T, qp))]
+    best = max(cands, key=lambda c: (c[1], _attn_blocks_per_sm(*c, S, D, T, qp), c[0]))
     _ATTN_TUNE_CACHE[key] = best
     return best
 

@@ -1,0 +1,264 @@
+"""Time the phases of the Phi flash-attention and K-streaming fused kernels.
+
+    PYTHONPATH=src python3 -m repro_torch.kernels.phases
+
+Takes the two kernels apart on one NVIDIA card. It builds copies of
+``csrc/phi_attention.cu`` and ``csrc/phi_fused.cu`` with phases switched
+off by text patches applied at run time, with ``_build``'s nvcc and flags,
+into ``build/kernel_phases/``. Each copy computes a wrong result by design:
+only its time is read. A patch whose anchor the source no longer holds
+once stops the run: a redesign of either kernel edits the tables below.
+
+It times every copy at the main paths' shapes, on data from seed 0: the
+streaming kernel at Spikformer-4-384's fc2 and the VGG's conv3/conv4 (their
+calibrated banks and activations, the group depth ``ops.stream_group_t``
+gives), and the attention kernel at the first Spikformer attention site,
+blocks (64, 64), both instantiations, with ``scaled_dot_product_attention``
+and ``torch.matmul`` beside them. A time is the median over 5 runs of 20
+back-to-back launches between two CUDA events, over 20. Each copy runs in
+a process of its own; one JSON line each, after the card's ``nvidia-smi``
+name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import statistics
+import subprocess
+import sys
+
+from repro_torch.kernels import _build
+
+WORK = _build.BUILD_DIR.parent / "kernel_phases"
+
+# {variant: [(old, new), ...]} per kernel: each variant switches one phase off.
+_ATTN = {
+    "no_match": [("for (int i = sub; i < qp; i += tpp)",
+                  "for (int i = sub; i < min(qp, tpp); i += tpp)")],
+    "no_scores": [("for (int r0 = 0; r0 < bq; r0 += 64) {",
+                   "for (int r0 = 0; r0 < 0; r0 += 64) {")],
+    "no_softmax_stats": [("      if (r < bq) {\n        float* sr = s_s",
+                          "      if (r < 0) {\n        float* sr = s_s")],
+    "no_pv": [("        if (r < bq) {\n          const float* pr = s_s + r * lds;",
+               "        if (false) {\n          const float* pr = s_s + r * lds;")],
+}
+_STREAM = {
+    "no_l2": [("      if (rest) {\n        float4 part",
+               "      if (rest && false) {\n        float4 part")],
+    "no_l1": [("    v[i] = load4(pwp + row * N + n, vec, valid);\n    s[i] = scale[row];",
+               "    v[i] = make_float4(0.f, 0.f, 0.f, 0.f);\n    s[i] = 0.f;")],
+    "no_match": [("for (int i = sub; i < q; i += tpp)",
+                  "for (int i = sub; i < min(q, tpp); i += tpp)")],
+}
+# The current streaming kernel with cycle counters (clock64) around the four
+# parts of a group's iteration, read by warp 0 (which matches) and warp 7
+# (which does not): copies and barriers, the match, the sums, the cluster
+# barrier.
+_STREAM_CYCLES = [
+    ("namespace cg = cooperative_groups;\n",
+     "namespace cg = cooperative_groups;\n__device__ unsigned long long g_cycles[8];\n"),
+    ("    __syncthreads();  // iteration gi-1 is done",
+     "    const long long c0 = clock64();\n    __syncthreads();  // iteration gi-1 is done"),
+    ("    const unsigned char* tile = tiles + (gi & 1) * tile_bytes;",
+     "    const long long c1 = clock64();\n"
+     "    const unsigned char* tile = tiles + (gi & 1) * tile_bytes;"),
+    ("    if (gi + 1 < n_groups) match(gi + 1);\n",
+     "    if (gi + 1 < n_groups) match(gi + 1);\n    const long long c2 = clock64();\n"),
+    ("    cluster.sync();  // group gi+1",
+     "    const long long c3 = clock64();\n    cluster.sync();  // group gi+1"),
+    ("gi's are no longer read\n",
+     "gi's are no longer read\n    const long long c4 = clock64();\n"
+     "    if (tid == 0 || tid == 224) {\n      unsigned long long* c = g_cycles + (tid ? 4 : 0);\n"
+     "      atomicAdd(c, c1 - c0); atomicAdd(c + 1, c2 - c1);\n"
+     "      atomicAdd(c + 2, c3 - c2); atomicAdd(c + 3, c4 - c3);\n    }\n"),
+]
+_CYCLES_READ = """
+extern "C" int cycles_read(unsigned long long* out, int reset) {
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_cycles, sizeof(g_cycles));
+  unsigned long long z[8] = {0};
+  if (e == cudaSuccess && reset) e = cudaMemcpyToSymbol(g_cycles, z, sizeof(z));
+  return static_cast<int>(e);
+}
+"""
+PATCHES = {"phi_attention.cu": ("attn", _ATTN), "phi_fused.cu": ("stream", _STREAM)}
+
+
+def _patch(fname: str, src: str, patches) -> str:
+    for old, new in patches:
+        if src.count(old) != 1:
+            raise RuntimeError(f"{fname}: patch anchor not found once: {old!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def _variants() -> dict[str, str]:
+    """{name: patched source}: the full copy, one phase off each, and all of
+    them off (attention: what is left is the loads, barriers and stores;
+    streaming: L1, L2 and the match off), plus the streaming kernel with its
+    cycle counters."""
+    out = {}
+    for fname, (kind, table) in PATCHES.items():
+        src = (_build.CSRC / fname).read_text()
+        out[f"{kind}_full"] = src
+        for name, patches in {**table, "all_off": [p for ps in table.values() for p in ps]}.items():
+            out[f"{kind}_{name}"] = _patch(fname, src, patches)
+    out["stream_cycles"] = _patch("phi_fused.cu", (_build.CSRC / "phi_fused.cu").read_text(),
+                                  _STREAM_CYCLES) + _CYCLES_READ
+    return out
+
+
+def _time(fn, reps: int = 20) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    runs = []
+    for _ in range(5):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        runs.append(start.elapsed_time(end) / reps)
+    return statistics.median(runs)
+
+
+def _data(cache):
+    """The main paths' operands from seed 0, made once and cached."""
+    import torch
+
+    if cache.exists():
+        return torch.load(cache)
+    from repro_torch.core.patterns import PhiConfig
+    from repro_torch.kernels import dispatch
+    from repro_torch.snn import models as M
+    from repro_torch.snn.data import synthetic_images
+
+    dev = torch.device("cuda", 0)
+    dyadic = lambda x: (x * 1024).round() / 1024                       # noqa: E731
+    images, _ = synthetic_images(64, size=32, seed=0)
+    images = dyadic(torch.from_numpy(images)).to(dev)
+    gemms = {}
+    for cfg, names, first in (
+            (M.SNNConfig(kind="vgg", widths=(64, 128, 256, 512, 512), input_size=32,
+                         phi=PhiConfig(k=16, q=128, iters=20)), ("conv3", "conv4"), "conv0"),
+            (M.SNNConfig(kind="spikformer", input_size=32, dim=384, heads=12, blocks=4,
+                         attn="flash", phi=PhiConfig(k=16, q=128, iters=20)), ("b0_fc2",),
+             "embed")):
+        params = M.init(cfg, torch.Generator().manual_seed(0), device=dev)
+        for name, leaf in params.items():
+            leaf["w"] = dyadic(leaf["w"] * (1.0 if name == first else 3.0))
+        policy = dispatch.PhiExecutionPolicy()
+        dispatch.set_policy(policy)
+        with torch.no_grad():
+            state, acts = M.calibrate_model(params, cfg, images[:32])
+        for name in names:
+            w = params[name]["w"]
+            gemms[name] = (acts[name].contiguous(), state.patterns[name], state.pwp[name],
+                           torch.ones(state.pwp[name].shape[:2], device=dev),
+                           w.reshape(-1, w.shape[-1]), state.packed[name])
+    sites, real = [], policy.attention
+
+    def recording(q, k, v, patterns=None, **kw):
+        sites.append((q, k, v, patterns, kw.get("packed")))
+        return real(q, k, v, patterns, **kw)
+
+    policy.attention = recording
+    with torch.no_grad():
+        M.phi_apply(params, cfg, state, images[32:])
+    data = (gemms, sites[0])
+    torch.save(data, cache)
+    return data
+
+
+def _child(name: str) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.phi_attention import flash_attention_cuda, phi_flash_attention_cuda
+    from repro_torch.kernels.phi_fused import phi_fused_stream_cuda
+
+    gemms, (q, k, v, pats, packed) = _data(WORK / "data.pt")
+    lib = _build.load(WORK / f"{name}.so", partial=True)
+    _build._lib = lib
+    res = {"variant": name}
+    if name.startswith("attn"):
+        kw = dict(block_q=64, block_kv=64)
+        res["phi_ms"] = _time(lambda: phi_flash_attention_cuda(q, k, v, pats, packed=packed, **kw))
+        res["dense_ms"] = _time(lambda: flash_attention_cuda(q, k, v, causal=False, **kw))
+        if name == "attn_full":
+            qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+            res["sdpa_ms"] = _time(lambda: F.scaled_dot_product_attention(qh, kh, vh))
+    elif name == "stream_cycles":
+        # Mean cycles a group's iteration spends in each part, per block.
+        lib.cycles_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        buf = (ctypes.c_ulonglong * 8)()
+        for layer, (a, p, pwp, sc, w, pk) in gemms.items():
+            gt = ops.stream_group_t(p.shape[1], p.shape[2])
+            fn = lambda: phi_fused_stream_cuda(a, p, pwp, sc, w, block_m=256, group_t=gt,  # noqa
+                                               packed=pk)
+            fn()
+            torch.cuda.synchronize()
+            lib.cycles_read(buf, 1)
+            fn()
+            torch.cuda.synchronize()
+            lib.cycles_read(buf, 1)
+            iters = -(-a.shape[0] // 32) * -(-w.shape[1] // 128) * -(-p.shape[0] // gt)
+            for warp, part in ((0, list(buf)[:4]), (7, list(buf)[4:])):
+                res[f"{layer}_warp{warp}_cycles"] = dict(zip(
+                    ("copies_barriers", "match", "sums", "cluster_barrier"),
+                    (c / iters for c in part)))
+    else:
+        for layer, (a, p, pwp, sc, w, pk) in gemms.items():
+            gt = ops.stream_group_t(p.shape[1], p.shape[2])
+            res[f"{layer}_ms"] = _time(lambda: phi_fused_stream_cuda(a, p, pwp, sc, w, block_m=256,
+                                                                     group_t=gt, packed=pk))
+            if name == "stream_full":
+                res[f"{layer}_matmul_ms"] = _time(lambda: torch.matmul(a, w))
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("phases: needs an NVIDIA card", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if args.child:
+        print(json.dumps(_child(args.child)), flush=True)
+        return 0
+    WORK.mkdir(parents=True, exist_ok=True)
+    nvcc = _build._nvcc()
+    procs = {}
+    for name, text in _variants().items():
+        (WORK / f"{name}.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [nvcc, *_build.NVCC_FLAGS, "-shared", str(WORK / f"{name}.cu"), "-o",
+             str(WORK / f"{name}.so")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for name, proc in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            print(f"phases: nvcc failed on {name}:\n{log}", file=sys.stderr)
+            return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    failed = 0
+    for name in procs:
+        run = subprocess.run([sys.executable, "-m", "repro_torch.kernels.phases", "--child", name],
+                             capture_output=True, text=True)
+        print(run.stdout.strip() or json.dumps({"variant": name, "error": run.stderr[-2000:]}),
+              flush=True)
+        failed += run.returncode != 0
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -38,15 +38,30 @@ def smem_bytes(bq: int, bkv: int, D: int, T: int = 0, qp: int = 0) -> int:
     """Dynamic shared memory of one kernel block, in bytes (``T = 0``: dense).
 
     The layout of ``csrc/phi_attention.cu::make_layout``: for the Phi
-    instantiation the packed bank (T·qp words), the residual ± masks and the
-    matched index of each K row and partition (bkv·T), and the pattern×Q
-    products (T·(qp+1)·bq floats); for both, the Q and K blocks with one
-    padding column, the V block, the score block with one padding column,
-    the output accumulator, the running max and denominator, one counter.
+    instantiation the packed bank (T·qp words), the matched pattern word and
+    the residual ± masks of each K row and partition (3·bkv·T words) and the
+    Q rows as bits (bq·T words), rounded up to 16 bytes; for both, the Q and
+    K blocks with rows of an odd number of 16-byte words, the V block with
+    rows rounded up to 8 floats, the score block with one padding column,
+    the per-row rescale and one counter.
     """
-    phi = 8 * T * qp + 16 * bkv * T + 4 * T * (qp + 1) * bq + 4 * bkv * T
-    return phi + 4 * (bq * (D + 1) + bkv * (D + 1) + bkv * D + bq * (bkv + 1) + bq * D
-                      + 2 * bq + 1)
+    ld = 4 * (cdiv(D, 4) | 1)
+    phi = -(-8 * T * (qp + 3 * bkv + bq) // 16) * 16
+    return phi + 4 * (bq * ld + bkv * ld + bkv * cdiv(D, 8) * 8 + bq * (bkv + 1) + bq + 1)
+
+
+def block_q_ok(bq: int, D: int) -> bool:
+    """Whether the kernel takes ``bq`` query rows a block at head size D: at
+    most 128 (two softmax rows per thread), covered by four passes of its
+    p.V phase (256 threads, 8 columns each: 256 // ceil(D / 8) rows a pass)."""
+    return bq <= 128 and bq <= 4 * (256 // cdiv(D, 8))
+
+
+def launch_bound_blocks(bq: int, D: int) -> int:
+    """Blocks an SM the kernel is built for at ``bq`` rows and head size D
+    (its ``__launch_bounds__``): three where one p.V pass covers the block,
+    else two. Registers hold it there whatever shared memory allows."""
+    return 3 if bq <= 256 // cdiv(D, 8) else 2
 
 
 # ------------------------------------------------------------ score block ---
@@ -142,8 +157,9 @@ def _check_operands(q, k, v, packed, patterns_shape) -> None:
 
 
 def _launch(q, k, v, packed, patterns_shape, *, causal, window, chunk, block_q, block_kv
-            ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch one instantiation: Phi scores when ``packed`` is given, else dense."""
+            ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """Launch one instantiation: Phi scores and ``l2_nnz`` when ``packed`` is
+    given, else dense scores and no count."""
     if q.device.type != "cuda":
         raise ValueError(f"attention kernel: unsupported device {q.device}")
     _check_operands(q, k, v, packed, patterns_shape)
@@ -156,11 +172,16 @@ def _launch(q, k, v, packed, patterns_shape, *, causal, window, chunk, block_q, 
     if need > SMEM_LIMIT:
         raise ValueError(f"attention kernel: blocks ({bq}, {bkv}) at D={D}, T={T}, qp={qp} "
                          f"need {need} B of shared memory, more than {SMEM_LIMIT}")
+    if not block_q_ok(bq, D):
+        raise ValueError(f"attention kernel: block_q={bq} at D={D} is more rows than a block "
+                         "takes (at most 128, and 4 * (256 // ceil(D / 8)))")
     nq = cdiv(S, bq) if S else 0
     out = torch.empty_like(q)
-    nnz = torch.zeros((B * H, nq), dtype=torch.int32, device=q.device)
     if out.numel() == 0:
-        return out, nnz
+        return out, torch.zeros((B * H, nq), dtype=torch.int32, device=q.device)
+    # Every block of the Phi instantiation writes its (batch·head, q-block) count.
+    nnz = None if packed is None else torch.empty((B * H, nq), dtype=torch.int32,
+                                                  device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _build.library().phi_attention_launch(

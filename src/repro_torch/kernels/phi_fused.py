@@ -9,11 +9,13 @@ times its scale into the L1 accumulator, the ±1 residual against the weight
 rows into the L2 accumulator; ``out = acc1 + acc2`` once at the end, and the
 residual entries counted per ``block_m`` rows. The CUDA kernels live in
 ``csrc/phi_fused.cu``, whose note says how they are laid out on the card.
-The streaming one copies each group of ``group_t`` partitions into shared
-memory one group ahead; it does the first kernel's sums in the same order,
-so :func:`phi_fused_plain` serves both. The prefetching one matches each
-row only against its M-stripe's active pattern set (:func:`stripe_active_sets`)
-and has its own plain version, :func:`phi_fused_prefetch_plain`.
+The streaming one copies each group of ``group_t`` partitions (patterns and
+activations) into shared memory one group ahead and shares each row tile's
+match across a cluster of column tiles; it does the first kernel's sums in
+the same order, so :func:`phi_fused_plain` serves both. The prefetching one
+matches each row only against its M-stripe's active pattern set
+(:func:`stripe_active_sets`) and has its own plain version,
+:func:`phi_fused_prefetch_plain`.
 
 The ``*_cuda`` wrappers choose by the device of their tensors: CPU tensors go
 through the plain versions; CUDA tensors launch the kernel or raise.
@@ -27,8 +29,8 @@ from repro_torch.utils import cdiv, pad_rows
 
 # Shapes the CUDA kernels take (csrc/phi_fused.cu): one 64-bit word per row
 # partition; for the first kernel a stage of 8 partitions' patterns in 48 KB
-# of shared memory; for the streaming one up to 8 partitions per stage and
-# two stages in the 227 KB a block may use.
+# of shared memory; for the streaming one up to 8 partitions per stage, two
+# stages in the 227 KB a block may use, q < 65536.
 MAX_K = 64
 MAX_Q = 512
 MAX_GROUP_T = 8
@@ -105,13 +107,15 @@ def phi_fused_plain(a: torch.Tensor, patterns: torch.Tensor, pwp: torch.Tensor,
 
 
 def stream_smem_bytes(q: int, k: int, group_t: int) -> int:
-    """Shared memory of one block of the streaming kernel, in bytes: two
-    stages of ``group_t`` packed pattern rows (stride q+1, rounded to 16
-    bytes) and a (32 rows × group_t·k floats) activation tile, plus the match
-    tile (index, scale and ± masks of 32 × 8 pairs). The C layout is
-    ``csrc/phi_fused.cu::phi_fused_stream_smem_bytes``."""
-    pat = -(-group_t * (q + 1) * 8 // 16) * 16
-    return 2 * (pat + 4 * _BM * group_t * k) + _BM * MAX_GROUP_T * (4 + 4 + 8 + 8)
+    """Shared memory of one block of the streaming kernel, in bytes, at a
+    cluster of one block (the most any N gives): two stages of ``group_t``
+    packed pattern rows (stride q+1) and a (32 rows × group_t·k floats)
+    activation tile, each rounded up to 16 bytes; two match tiles of 32 ×
+    group_t pairs (±masks, index: 20 bytes a pair); 32 row counters. The C
+    layout is ``csrc/phi_fused.cu::phi_fused_stream_smem_bytes``."""
+    r16 = lambda b: -(-b // 16) * 16                               # noqa: E731
+    return 2 * (r16(group_t * (q + 1) * 8) + r16(_BM * group_t * k * 4)) \
+        + 2 * _BM * group_t * 20 + 4 * _BM
 
 
 def stripe_active_sets(a2: torch.Tensor, patterns: torch.Tensor, p_active: int,
@@ -182,9 +186,10 @@ def _check_cuda_operands(a, patterns, packed, pwp, pwp_scale, w, group_t=None) -
         raise ValueError(f"phi_fused CUDA kernel takes k <= {MAX_K} and q <= {MAX_Q}; "
                          f"got k={k}, q={q}")
     if group_t is not None:
-        if k > MAX_K or not 1 <= group_t <= MAX_GROUP_T:
-            raise ValueError(f"phi_fused_stream CUDA kernel takes k <= {MAX_K} and 1 <= "
-                             f"group_t <= {MAX_GROUP_T}; got k={k}, group_t={group_t}")
+        if k > MAX_K or q >= 1 << 16 or not 1 <= group_t <= MAX_GROUP_T:
+            raise ValueError(f"phi_fused_stream CUDA kernel takes k <= {MAX_K}, q < 65536 and "
+                             f"1 <= group_t <= {MAX_GROUP_T}; got k={k}, q={q}, "
+                             f"group_t={group_t}")
         if stream_smem_bytes(q, k, group_t) > SMEM_LIMIT:
             raise ValueError(f"phi_fused_stream: q={q}, k={k}, group_t={group_t} needs "
                              f"{stream_smem_bytes(q, k, group_t)} B of shared memory, more "
@@ -269,9 +274,9 @@ def phi_fused_stream_cuda(a: torch.Tensor, patterns: torch.Tensor, pwp: torch.Te
 
     ``group_t`` K-partitions per shared-memory stage (1..8; the last group
     may be shorter, so it need not divide T), copied one group ahead of the
-    match. Takes any q whose two stages fit (:func:`stream_smem_bytes`). CPU
-    tensors run the plain version; CUDA tensors launch the kernel, counted
-    in ``.launches``, or raise.
+    match. Takes any q < 65536 whose two stages fit
+    (:func:`stream_smem_bytes`). CPU tensors run the plain version; CUDA
+    tensors launch the kernel, counted in ``.launches``, or raise.
     """
     if a.device.type == "cpu":
         return phi_fused_plain(a, patterns, pwp, pwp_scale, w, block_m=block_m)

@@ -118,6 +118,64 @@ def test_stream_kernel_matches_plain_and_the_first_kernel(dev, kind, M_, group_t
     assert torch.equal(out, fout) and torch.equal(nnz, fnnz)
 
 
+def _banks(pwp, kind, dev):
+    scale = torch.ones(pwp.shape[:2], device=dev)
+    if kind == "bf16":
+        return pwp.to(torch.bfloat16), scale
+    if kind == "int8":
+        return quantize_pwp(pwp)
+    return pwp, scale
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("M_,N,density", [(293, 364, None), (64, 1000, None), (160, 130, None),
+                                          (96, 1403, None), (128, 200, 0.5)])
+def test_stream_kernel_clusters_match_the_first_kernel(dev, kind, M_, N, density):
+    # 128-column tiles: N = 364, three tiles share each row tile's match, the
+    # last one ragged; N = 1000, eight; N = 130, two, and N not a multiple of
+    # 4 (scalar loads); N = 1403, eleven tiles, no divisor up to 8: a cluster
+    # of one; density 0.5: a residual-heavy input
+    a, w, pats, pwp = _setup(M_, 208, N, 16, dev, seed=M_ + N)
+    if density is not None:
+        g = torch.Generator().manual_seed(N)
+        a = (torch.rand(a.shape, generator=g) < density).float().to(dev)
+        pats = calibrate(a, PhiConfig(k=16, q=16, iters=3), device=dev)
+        pwp = pattern_weight_products(pats, w)
+    pwp, scale = _banks(pwp, kind, dev)
+    gt = ops.stream_group_t(16, 16)
+    out, nnz = phi_fused_stream_cuda(a, pats, pwp, scale, w, block_m=64, group_t=gt)
+    pout, pnnz = phi_fused_plain(a, pats, pwp, scale, w, block_m=64)
+    fout, fnnz = phi_fused_cuda(a, pats, pwp, scale, w, block_m=64)
+    torch.cuda.synchronize()
+    assert torch.equal(out, pout) and torch.equal(nnz, pnnz) and int(nnz.sum()) > 0
+    assert torch.equal(out, fout) and torch.equal(nnz, fnnz)
+    if density is not None:
+        assert int(nnz.sum()) > 0.1 * a.numel()
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("N", [136, 133])
+def test_stream_kernel_takes_a_large_bank(dev, kind, N):
+    # q = 4096 at k = 64: two partitions a stage (N = 133: scalar loads)
+    T, q, k, M_ = 3, 4096, 64, 77
+    gt = ops.stream_group_t(q, k)
+    assert gt == 2
+    g = torch.Generator().manual_seed(7)
+    a = (torch.rand((M_, T * k), generator=g) < 0.2).float()
+    pats = (torch.rand((T, q, k), generator=g) < 0.2).to(torch.uint8)
+    # plant each row's partitions, a few bits flipped, so rows match and
+    # leave a residual
+    flips = (torch.rand((T, M_, k), generator=g) < 0.05).to(torch.uint8)
+    pats[:, 100:100 + M_] = a.reshape(M_, T, k).transpose(0, 1).to(torch.uint8) ^ flips
+    w = torch.round(torch.randn((T * k, N), generator=g) * 0.3 * 1024) / 1024
+    a, pats, w = a.to(dev), pats.to(dev), w.to(dev)
+    pwp, scale = _banks(pattern_weight_products(pats, w), kind, dev)
+    out, nnz = phi_fused_stream_cuda(a, pats, pwp, scale, w, block_m=32, group_t=gt)
+    pout, pnnz = phi_fused_plain(a, pats, pwp, scale, w, block_m=32)
+    torch.cuda.synchronize()
+    assert torch.equal(out, pout) and torch.equal(nnz, pnnz) and int(nnz.sum()) > 0
+
+
 @pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
 @pytest.mark.parametrize("M_,P", [(256, 4), (293, 8), (20, 16)])
 def test_prefetch_kernel_matches_plain(dev, kind, M_, P):
@@ -362,6 +420,17 @@ ATTN_CASES = {
     "chunk": (2, 96, 3, 32, 2, 16, 64, False, None, 16, 32, 32),
     "ragged_s": (3, 37, 2, 32, 2, 16, 32, False, None, None, 16, 16),
     "ragged_d": (2, 50, 2, 40, 2, 16, 32, True, None, None, 32, 32),
+    # small S: a block of 16 rows, 15 (batch, head) pairs
+    "small_s": (3, 16, 5, 32, 2, 16, 32, False, None, None, 16, 16),
+    # p.V in two passes (128 rows, 64 a pass at D = 32) and in four (D = 128:
+    # 16 rows a pass), the latter with a dense tail of 64 features
+    "rpt2": (2, 128, 2, 32, 2, 16, 64, True, None, None, 128, 128),
+    "d128": (2, 64, 2, 128, 4, 16, 64, False, None, None, 64, 64),
+    # more (K row, partition) pairs than the block's 256 threads: 512 pairs
+    # (two match passes) and 384 (a partial second pass, a ragged last
+    # kv-block, a dense tail of 8 features)
+    "pairs512": (2, 256, 2, 64, 4, 16, 64, False, None, None, 32, 128),
+    "pairs384": (2, 200, 2, 56, 3, 16, 64, True, None, None, 64, 128),
 }
 
 
@@ -395,6 +464,49 @@ def test_attention_kernel_matches_plain(dev, case):
     assert torch.equal(out, dense)           # Phi and dense instantiations, bitwise
 
 
+@pytest.mark.parametrize("B,S,H,D,causal,bq_phi,bq_dense,bkv", [
+    (8, 64, 12, 32, False, 32, 64, 64), (2, 96, 3, 32, True, 64, 32, 32),
+    (3, 37, 2, 40, False, 16, 32, 16)])
+def test_attention_phi_equals_dense_at_another_block_q(dev, B, S, H, D, causal, bq_phi,
+                                                       bq_dense, bkv):
+    # a query row's softmax arithmetic depends on block_kv only
+    q, k, v, pats = _attn_inputs(B, S, H, D, 2, 16, 64, dev, seed=S)
+    out, _ = phi_flash_attention_cuda(q, k, v, pats, causal=causal, block_q=bq_phi,
+                                      block_kv=bkv)
+    dense = flash_attention_cuda(q, k, v, causal=causal, block_q=bq_dense, block_kv=bkv)
+    torch.cuda.synchronize()
+    assert torch.equal(out, dense)
+
+
+@pytest.mark.parametrize("bq,bkv", [(64, 64), (32, 16)])
+def test_attention_float_route_for_non_binary_q(dev, bq, bkv):
+    # Q on a dyadic grid but not binary: the block takes the float route.
+    # Every partial sum is exact, so the scores (and l2_nnz) are exact and
+    # the output equals the dense instantiation's bitwise.
+    q, k, v, pats = _attn_inputs(4, 64, 3, 32, 2, 16, 64, dev, seed=3)
+    g = torch.Generator().manual_seed(4)
+    q = q * torch.tensor([0.5, 0.25, 2.0, -1.0])[torch.randint(0, 4, q.shape, generator=g)].to(dev)
+    kw = dict(block_q=bq, block_kv=bkv)
+    out, nnz = phi_flash_attention_cuda(q, k, v, pats, **kw)
+    pout, pnnz = phi_flash_attention_plain(q, k, v, pats, **kw)
+    dense = flash_attention_cuda(q, k, v, causal=False, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(nnz, pnnz) and int(nnz.sum()) > 0
+    assert float((out - pout).abs().max()) <= ATTN_ATOL_ULPS * 2.0 ** -24 * float(v.abs().max())
+    assert torch.equal(out, dense)
+
+
+def test_kernels_report_their_occupancy(dev):
+    lib = _build.library()
+    assert lib.phi_attention_occupancy(64, 64, 32, 2, 128, 1) >= 1
+    assert lib.phi_attention_occupancy(64, 64, 32, 0, 0, 0) >= 1
+    assert lib.phi_attention_occupancy(128, 64, 128, 0, 0, 0) == 0      # refused block_q
+    for kernel in (0, 1):
+        assert lib.phi_fused_occupancy(kernel, 128, 16, 0, 384) >= 1
+    assert lib.phi_fused_occupancy(2, 128, 16, ops.stream_group_t(128, 16), 384) >= 1
+    assert lib.phi_fused_occupancy(2, 4096, 64, ops.stream_group_t(4096, 64), 72) >= 1
+
+
 def test_attention_smem_model_is_the_kernels(dev):
     lib = _build.library()
     for bq, bkv, D, T, qp in [(64, 64, 32, 2, 128), (32, 128, 40, 2, 8), (128, 128, 64, 0, 0),
@@ -417,6 +529,9 @@ def test_attention_kernel_refuses_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="shared memory"):
         phi_flash_attention_cuda(*_attn_inputs(1, 256, 1, 64, 4, 16, 512, dev), block_q=256,
                                  block_kv=256)
+    with pytest.raises(ValueError, match="more rows"):
+        flash_attention_cuda(*_attn_inputs(1, 128, 1, 128, 4, 16, 8, dev)[:3], block_q=128,
+                             block_kv=32)
 
 
 def test_spikformer_phi_apply_equals_apply(dev):

@@ -22,7 +22,7 @@ from repro.core.assign import assign_patterns as ref_assign_patterns
 from repro.kernels import dispatch as RD
 from repro.kernels import ops as RO
 from repro_torch.kernels import ATTN_IMPLS, IMPLS, dispatch, ops
-from repro_torch.kernels.phi_attention import SMEM_LIMIT, smem_bytes
+from repro_torch.kernels.phi_attention import SMEM_LIMIT, block_q_ok, smem_bytes
 from repro_torch.models import flash as F
 from repro_torch.obs import ListSink, Tracer, set_tracer
 
@@ -84,31 +84,55 @@ def test_impl_names_match_the_reference():
 
 # ----------------------------------------------------- the shape gate ---
 def test_smem_model_is_the_kernels_layout():
-    # dense: Q and K blocks (+1 column), V, scores (+1 column), acc, m, den, counter
-    assert smem_bytes(64, 64, 32) == 4 * (64 * 33 * 2 + 64 * 32 + 64 * 65 + 64 * 32 + 128 + 1)
-    # Phi adds the packed bank, ± masks and indices per K row and partition,
-    # and the pattern×Q products
-    phi = 8 * 2 * 128 + 16 * 64 * 2 + 4 * 2 * 129 * 64 + 4 * 64 * 2
+    # dense: Q and K blocks (rows of an odd number of 16-byte words: 36
+    # floats at D = 32), V (rows of 8-float multiples), scores (+1 column),
+    # the per-row rescale, the counter
+    assert smem_bytes(64, 64, 32) == 4 * (64 * 36 * 2 + 64 * 32 + 64 * 65 + 64 + 1)
+    assert smem_bytes(16, 16, 40) == 4 * (16 * 44 * 2 + 16 * 40 + 16 * 17 + 16 + 1)
+    assert smem_bytes(16, 16, 36) == 4 * (16 * 36 * 2 + 16 * 40 + 16 * 17 + 16 + 1)
+    # Phi adds the packed bank, the matched word and ± masks per K row and
+    # partition and the Q rows as bits, rounded up to 16 bytes; no
+    # pattern×Q table, so the block is about the dense one's
+    phi = 8 * 2 * (128 + 3 * 64 + 64)
     assert smem_bytes(64, 64, 32, 2, 128) == smem_bytes(64, 64, 32) + phi
+    assert smem_bytes(8, 8, 32, 1, 3) == smem_bytes(8, 8, 32) + 16 * -(-8 * (3 + 24 + 8) // 16)
+    assert smem_bytes(64, 64, 32, 2, 128) < 50 * 1024
     # blocks are clamped to S, and nothing grows with S past the blocks
     assert ops._attn_smem_bytes(128, 128, 37, 32, 2, 8) == smem_bytes(37, 37, 32, 2, 8)
     assert ops._attn_smem_bytes(64, 64, 4096, 32, 2, 128) == smem_bytes(64, 64, 32, 2, 128)
 
 
 def test_shape_gate_and_block_choice_follow_the_smem_model():
-    # the slice's sites: every candidate is clamped to S = 64
+    # the slice's sites: every candidate is clamped to S = 64, and (64, 64)
+    # keeps the three blocks an SM the kernel is built for; the dense arm
+    # takes the same blocks
     assert ops.autotune_attn_blocks(64, 32, 2, 128, 16) == (64, 64)
+    assert ops.autotune_attn_blocks(64, 32, 0, 0, 0) == (64, 64)
     assert ops.attn_shape_viable(64, 32, 2, 128, 16)
-    # long S: the largest pair that fits, wide kv first
-    bq, bkv = ops.autotune_attn_blocks(4096, 64, 4, 128, 16)
-    assert ops._attn_smem_bytes(bq, bkv, 4096, 64, 4, 128) <= SMEM_LIMIT
-    bigger = [c for c in ops._attn_candidates(4096) if c[0] * c[1] > bq * bkv]
-    assert all(ops._attn_smem_bytes(*c, 4096, 64, 4, 128) > SMEM_LIMIT for c in bigger)
-    assert ops.autotune_attn_blocks(4096, 64, 0, 0, 0) == (128, 128)      # dense
-    # banks the kernel cannot take: too many patterns, kp > 64, T·kp > D. On
+    assert ops._attn_blocks_per_sm(64, 64, 64, 32, 2, 128) == 3
+    # long S: the widest kv block that fits, then the block_q that keeps the
+    # most blocks an SM (by shared memory, capped by the launch bound: three
+    # where one p.V pass covers the block, else two), then the largest block_q
+    for T, qp in [(4, 128), (0, 0), (4, 1024)]:
+        bq, bkv = ops.autotune_attn_blocks(4096, 64, T, qp, 16)
+        fits = [c for c in ops._attn_candidates(4096, 64)
+                if ops._attn_smem_bytes(*c, 4096, 64, T, qp) <= SMEM_LIMIT]
+        assert (bq, bkv) in fits and bkv == max(c[1] for c in fits)
+        occ = lambda c: ops._attn_blocks_per_sm(*c, 4096, 64, T, qp)  # noqa: E731
+        assert all(occ(c) <= (3 if c[0] <= 32 else 2) for c in fits)
+        same_kv = [c for c in fits if c[1] == bkv]
+        assert occ((bq, bkv)) == max(occ(c) for c in same_kv)
+        assert bq == max(c[0] for c in same_kv if occ(c) == occ((bq, bkv)))
+    assert ops.autotune_attn_blocks(4096, 64, 4, 128, 16) == (32, 128)
+    # the kernel's block_q limit: at most 128 rows, four p.V passes of
+    # 256 // ceil(D / 8) rows
+    assert block_q_ok(128, 64) and not block_q_ok(128, 128) and block_q_ok(64, 128)
+    assert all(block_q_ok(c[0], 256) for c in ops._attn_candidates(4096, 256))
+    # banks the kernel cannot take: a bank past shared memory, kp > 64, T·kp > D. On
     # the CPU the reference's row runs the plain lowering; the card has no
     # such fallback, so the row raises there, forced or resolved.
-    for S, D, T, qp, kp in [(4096, 64, 4, 2048, 16), (64, 128, 1, 8, 128),
+    assert ops.attn_shape_viable(4096, 64, 4, 2048, 16)        # no pattern×Q table now
+    for S, D, T, qp, kp in [(4096, 64, 4, 8192, 16), (64, 128, 1, 8, 128),
                             (64, 32, 3, 8, 16)]:
         assert not ops.attn_shape_viable(S, D, T, qp, kp)
         site = dict(s=S, d=D, t=T, q=qp, kp=kp, has_patterns=True)

@@ -121,14 +121,18 @@ def test_ops_phi_fused_stream_ragged_m_and_short_last_group(M):
 
 
 def test_stream_smem_model_and_group_choice():
-    # two stages of (group_t pattern rows of stride q+1, 16-byte rounded) and a
-    # 32-row activation tile of group_t·k floats, plus the match tile
-    assert stream_smem_bytes(128, 16, 8) == 2 * (8 * 129 * 8 + 4 * 32 * 8 * 16) + 32 * 8 * 24
+    # two stages of (group_t pattern rows of stride q+1, a 32-row activation
+    # tile of group_t·k floats), each rounded up to 16 bytes; two 32 × group_t
+    # match tiles (±masks and index: 20 bytes a pair); 32 row counters
+    assert stream_smem_bytes(128, 16, 8) == 2 * (8 * 129 * 8 + 4 * 32 * 8 * 16) \
+        + 2 * 32 * 8 * 20 + 4 * 32
     assert stream_smem_bytes(7, 5, 3) == 2 * (-(-3 * 8 * 8 // 16) * 16 + 4 * 32 * 3 * 5) \
-        + 32 * 8 * 24
+        + 2 * 32 * 3 * 20 + 4 * 32
     assert ops.stream_group_t(128, 16) == 8
     gt = ops.stream_group_t(4096, 64)
     assert stream_smem_bytes(4096, 64, gt) <= SMEM_LIMIT < stream_smem_bytes(4096, 64, gt + 1)
+    # the largest banks the gate streams: still q ≈ 13 000 at k = 64
+    assert ops.stream_group_t(13000, 64) == 1 and ops.stream_group_t(13500, 64) is None
     assert ops.stream_group_t(1 << 16, 16) is None
 
 
@@ -155,6 +159,19 @@ def test_fused_shape_viable_is_the_hopper_gate():
     assert ops.fused_shape_viable(256, 64, 64, 4, 1024) == "fused_stream"   # q past 512
     assert ops.fused_shape_viable(256, 64, 64, 4, 1 << 16) == "coo"        # no stage fits
     assert ops.fused_shape_viable(256, 256, 64, 2, 8) == "coo"             # k = 128
+
+
+def test_gate_routes_of_both_slices_are_unchanged():
+    # The kernel the gate gives each GEMM of the two slices (Spikformer-4-384's
+    # qkv, proj, fc1, fc2, head; the VGG's conv1-conv4, head), pinned: the
+    # streaming kernel's redesign moves no GEMM.
+    want = ["fused", "fused", "fused", "fused_stream", "fused",
+            "fused", "fused", "fused_stream", "fused_stream", "fused"]
+    assert [ops.fused_shape_viable(M, K, N, K // 16, 128) for M, K, N in SLICE_GEMMS] == want
+    for p_active in (24, 64):
+        assert {ops.fused_shape_viable(M, K, N, K // 16, 128, p_active=p_active)
+                for M, K, N in SLICE_GEMMS} == {"fused_prefetch"}
+    assert ops.stream_group_t(128, 16) is not None
 
 
 def _skewed_usage(T, q, hot, seed=0):
