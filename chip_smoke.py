@@ -863,11 +863,13 @@ def main() -> int:
     lib = _build.library()
     gt = ops.stream_group_t(128, 16)
     # Blocks one SM holds, at the main paths' shapes (q = 128, k = 16; the
+    # first kernel at the spikformer's T = 24 and conv2's T = 72; the
     # spikformer's attention sites; fc2's N = 384 and conv3/conv4's 512).
-    resident = {"phi_fused": lib.phi_fused_occupancy(0, 128, 16, 0, 384),
-                "phi_fused_prefetch": lib.phi_fused_occupancy(1, 128, 16, 0, 384),
-                "phi_fused_stream_n384": lib.phi_fused_occupancy(2, 128, 16, gt, 384),
-                "phi_fused_stream_n512": lib.phi_fused_occupancy(2, 128, 16, gt, 512),
+    resident = {"phi_fused_t24": lib.phi_fused_occupancy(0, 128, 16, 0, 384, 24),
+                "phi_fused_t72": lib.phi_fused_occupancy(0, 128, 16, 0, 256, 72),
+                "phi_fused_prefetch_t24": lib.phi_fused_occupancy(1, 128, 16, 0, 384, 24),
+                "phi_fused_stream_n384": lib.phi_fused_occupancy(2, 128, 16, gt, 384, 0),
+                "phi_fused_stream_n512": lib.phi_fused_occupancy(2, 128, 16, gt, 512, 0),
                 "phi_flash_attention_64_64": lib.phi_attention_occupancy(64, 64, 32, 2, 128, 1),
                 "flash_attention_dense_64_64": lib.phi_attention_occupancy(64, 64, 32, 0, 0, 0)}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,

@@ -44,7 +44,8 @@ _SIGNATURES = {
     "phi_attention_launch": [_P] * 6 + [ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_int, _P],
     "phi_attention_smem_bytes": [ctypes.c_int] * 6,
     "phi_attention_occupancy": [ctypes.c_int] * 6,
-    "phi_fused_occupancy": [ctypes.c_int] * 5,
+    "phi_fused_occupancy": [ctypes.c_int] * 6,
+    "phi_fused_smem_bytes": [ctypes.c_int],
     "matcher_launch": [_P, _P, _P, _P, ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P],
     "l1_gather_launch": [_P, _P, ctypes.c_int, _P, ctypes.c_longlong, ctypes.c_int,
                          ctypes.c_int, ctypes.c_int, _P],
@@ -53,6 +54,7 @@ _SIGNATURES = {
 }
 # Return types other than the launch functions' CUDA error code.
 _RESTYPES = {"phi_attention_smem_bytes": ctypes.c_longlong,
+             "phi_fused_smem_bytes": ctypes.c_longlong,
              "phi_fused_stream_smem_bytes": ctypes.c_longlong,
              "repro_cuda_error_string": ctypes.c_char_p}
 

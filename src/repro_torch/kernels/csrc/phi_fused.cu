@@ -1,14 +1,15 @@
-// Fused single-pass Phi matmul for Hopper (sm_90a), CUDA C++: three kernels.
+// Fused single-pass Phi matmul for Hopper (sm_90a), CUDA C++: three kernels
+// from two templates.
 //
 // phi_fused_kernel<P, false> replaces repro/kernels/phi_fused.py::
-// phi_fused_pallas (body _fused_kernel over _partition_body);
-// phi_fused_kernel<P, true> replaces phi_fused_prefetch_pallas and
-// phi_fused_stream_kernel replaces phi_fused_stream_pallas, both described at
-// the end of this note. For binary activations a (M, K), per-partition
-// patterns (T, q, k) with K = T*k, given bit-packed as one word per pattern
-// (T, q) (bit j = pattern element j; the bank is constant after calibration,
-// so the caller packs it once), pattern-weight products pwp (T, q+1, N) in
-// f32 / bf16 / int8 with per-row scales (T, q+1), and weights w (K, N) f32:
+// phi_fused_pallas (body _fused_kernel over _partition_body) and
+// phi_fused_kernel<P, true> replaces phi_fused_prefetch_pallas;
+// phi_fused_stream_kernel replaces phi_fused_stream_pallas. For binary
+// activations a (M, K), per-partition patterns (T, q, k) with K = T*k, given
+// bit-packed as one word per pattern (T, q) (bit j = pattern element j; the
+// bank is constant after calibration, so the caller packs it once),
+// pattern-weight products pwp (T, q+1, N) in f32 / bf16 / int8 with per-row
+// scales (T, q+1), and weights w (K, N) f32:
 //
 //   per row m and K-partition t:
 //     bits   = the k activation bits of a[m, t*k : (t+1)*k], packed in a word
@@ -24,33 +25,60 @@
 // to the unfused lowerings whatever the summation order. Every float add and
 // multiply is written with __fadd_rn / __fmul_rn (and the file is built with
 // --fmad=false) so that nvcc cannot contract acc1 + v*scale into an FMA that
-// would round differently from the reference.
+// would round differently from the reference. Both kernels take each output's
+// partitions in ascending t and, within a partition, the residual's bits in
+// ascending j into a partial sum that is then added to acc2, so they are
+// bitwise equal to each other on any weights.
 //
-// What bounds it on an H100: not bytes. Each output element costs T gathered
-// PWP values, the residual's weight rows and a handful of CUDA-core adds (no
-// tensor-core work), and the bytes it must move (activations, PWP rows,
-// residual weight rows, output) take far less time at the card's memory rate
-// than the kernel does. Its time goes to the match, q popcounts per (row,
-// partition), redone by every one of the ceil(N / BN) column tiles of a row
-// block, and to the per-element gathers of PWP and weight rows through L2;
-// restricting the match to a few patterns (the prefetching variant below)
-// saves only 13-20%, so the gathers are most of it. PERF.md (Where the time
-// goes, Open questions) has the measurements and the next steps.
-// The design as it stands:
-//   * One block per (BM x BN) output tile. A loop over groups of TG
-//     K-partitions inside the block replaces the TPU's all-resident (bm, K)
-//     activation block, which does not fit shared memory at K = 4608.
-//   * Per group, the group's packed patterns (TG x q words) are copied to
-//     shared memory; each thread matches one (row, partition) pair and
-//     leaves idx, scale and the residual's +/- bit masks in shared memory.
-//     Neither the (M, T) index nor the (M, K) residual reaches device memory.
-//   * In the accumulate phase a warp owns 32 consecutive output columns of one
-//     row, so each selected PWP row and each residual weight row is read as
-//     one coalesced segment, and the residual loop walks only the set bits.
-//   * Ragged M and N edges are masked in the kernel; nothing is padded.
+// What bounds them on an H100: not HBM bytes and not arithmetic. Each output
+// element costs T gathered PWP values and the residual's weight rows, read
+// through L2 (the bank and w stay L2-resident at the main paths' shapes), and
+// a handful of CUDA-core adds. The time goes to those gathers and to the
+// match, q popcounts per (row, partition).
+//
+// phi_fused_kernel<P, PREFETCH>, the first kernel, for T < 96 partitions on
+// the main paths (any T on a direct call). Taken apart on the card (PERF.md),
+// its first design (32x64 tiles, a stage of 8 partitions matched and summed
+// in lockstep) spent a third of each stage on the match, redone by every
+// 64-column tile of a row tile, one thread per (row, partition) pair looping
+// over the q patterns, and the rest on sums whose loads were issued one at a
+// time. This design:
+//   * 128-column tiles, a warp per row group and four columns a thread (the
+//     streaming kernel's tile): PWP and weight rows are read as 16-byte
+//     vectors (8 bytes for bf16, 4 for int8), scalar where N is not a
+//     multiple of 4 or a base is unaligned; ragged M and N edges are masked.
+//   * Match once, then sum. A cluster of up to 8 column tiles (distributed
+//     shared memory) shares a row tile's match. Each block packs the bits of
+//     a 1/cluster share of the rows and matches them against the bank, read
+//     from device memory (L1- and L2-resident; no staging, so no barrier per
+//     stage): a unit of (partition, up to MR rows) takes TPP lanes, each
+//     lane a slice of the patterns against all MR rows, and a transposing
+//     min-reduction leaves lane j with row j's packed (distance, index)
+//     minimum (first index on ties); the words are 32 bits wide where
+//     k <= 32 (measured faster than 64). Each result goes into every block's
+//     match tile; the matched rows' scales follow in one batch of loads.
+//     The tile holds all T partitions of the row tile (32 x T pairs, 24
+//     bytes each; T is taken in chunks of at most MAX_TC), so one cluster
+//     barrier publishes the whole match and the sums run with no barrier.
+//   * L1 and L2 in two loops (their accumulators are apart, so each keeps its
+//     own ascending order), each accumulator parked in shared memory while
+//     the other phases run, so that neither loop spills: the L1 loop keeps
+//     L1_DEPTH partitions' PWP rows in flight; for L2 a warp lists each row's
+//     residual entries in order (a prefix sum over its lanes, one partition
+//     a lane) and walks the list, L2_BATCH weight rows loaded before their
+//     ordered adds.
+// PREFETCH: the TPU kernel copies into VMEM only the pattern and PWP rows of
+// a per-M-stripe active set (the P patterns the stripe's rows reference most,
+// P sized from the calibration usage) and matches against those alone; a row
+// whose best pattern lies outside the set matches none, and its bits go to
+// the exact L2 residual. Here the match reads the stripe's active patterns
+// through its set (active[stripe][t][0..P), in that order, so ties go to the
+// earlier set member as in the reference) and maps the matched position back
+// to the bank's row for the PWP and scale gathers. The output is exact as before;
+// l2_nnz counts the larger residual of the restricted match. A 32-row tile
+// must lie in one stripe (the wrapper checks).
 // Limits (the wrapper refuses the rest): k <= 64 (one 64-bit word per row
-// partition), q <= MAX_Q (the pattern group must fit 48 KB of static-limit
-// shared memory), f32 activations and weights.
+// partition), q and P <= MAX_Q, f32 activations and weights.
 //
 // phi_fused_stream_kernel: the K-streaming variant. The TPU kernel keeps only
 // group_t K-partitions resident and copies group g+1's operands HBM->VMEM
@@ -83,20 +111,6 @@
 //     barriers).
 // What bounds it on an H100 is latency: the stages are chains of L2 loads,
 // shared-memory loads and barriers (PERF.md has the cycle counts).
-//
-// phi_fused_kernel<P, true>: the PWP-prefetching variant. The TPU kernel
-// copies into VMEM only the pattern and PWP rows of a per-M-stripe active
-// set (the P patterns the stripe's rows reference most, P sized from the
-// calibration usage) and matches against those alone; a row whose best
-// pattern lies outside the set matches none, and its bits go to the exact
-// L2 residual. Here the first kernel's tiles, with the stage's pattern rows
-// gathered through the stripe's active set (active[stripe][t][0..P), in that
-// order, so ties go to the earlier set member as in the reference) and the
-// matched compact index mapped back to the bank's row for the PWP and scale
-// gathers. The PWP rows were gathers by index already, so what the Hopper
-// gains is the match: P patterns a partition instead of q. The output is
-// exact as before; l2_nnz counts the larger residual of the restricted
-// match. A BM-row tile must lie in one stripe (the wrapper checks).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <cooperative_groups.h>
@@ -108,19 +122,10 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int BM = 32;                              // rows per output tile
-constexpr int BN = 64;                              // columns per output tile
 constexpr int TG = 8;                               // K-partitions per stage
-constexpr int THREADS = BM * TG;                    // one (row, partition) pair each
-constexpr int ROW_GROUPS = THREADS / BN;            // 4
-constexpr int ROWS_PER_THREAD = BM / ROW_GROUPS;    // 8
+constexpr int THREADS = 256;
 constexpr int MAX_Q = 512;
 constexpr int SMEM_OPTIN = 232448;                  // 227 KB: a block's shared-memory limit
-
-static_assert(THREADS == 256, "tile shape");
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f32(int8_t v) { return static_cast<float>(v); }
 
 // The k activation bits of one row partition, bit j = element j non-zero.
 __device__ __forceinline__ unsigned long long row_bits(const float* src, int k) {
@@ -138,147 +143,6 @@ __device__ __forceinline__ unsigned long long row_bits(const float* src, int k) 
       if (src[j] != 0.f) bits |= 1ull << j;
   }
   return bits;
-}
-
-// The match state of one output tile's BM rows in one stage of partitions.
-struct MatchTile {
-  int idx[BM][TG];
-  float scale[BM][TG];
-  unsigned long long pos[BM][TG];
-  unsigned long long neg[BM][TG];
-};
-
-// Match one (row, partition) against n_pat packed patterns: first argmin of
-// the Hamming distance, kept only when strictly below the row's own popcount.
-// ``map`` (null: identity) takes the matched position to the bank row; no
-// match is row q. Leaves idx, scale and the residual's +/- masks in the
-// tile; returns the residual entries.
-__device__ __forceinline__ int match_one(unsigned long long bits, const unsigned long long* pt,
-                                         int n_pat, const int* map, int q,
-                                         const float* scale_t, MatchTile& m, int mr, int mt) {
-  const int pop_a = __popcll(bits);
-  int best = 0, best_h = 0x7fffffff;
-  for (int i = 0; i < n_pat; ++i) {
-    const int h = __popcll(bits ^ pt[i]);
-    if (h < best_h) { best_h = h; best = i; }  // strict: first index on ties
-  }
-  const bool use = best_h < pop_a;              // strictly better than raw bits
-  const int idx = use ? (map ? map[best] : best) : q;
-  const unsigned long long chosen = use ? pt[best] : 0ull;
-  const unsigned long long pos = bits & ~chosen, neg = chosen & ~bits;
-  m.idx[mr][mt] = idx;
-  m.scale[mr][mt] = scale_t[idx];
-  m.pos[mr][mt] = pos;
-  m.neg[mr][mt] = neg;
-  return __popcll(pos) + __popcll(neg);
-}
-
-// Accumulate one stage of tg partitions (from partition g) into this
-// thread's ROWS_PER_THREAD rows of column n: L1 and L2 apart, ascending t.
-template <typename P>
-__device__ __forceinline__ void accumulate(float (&acc1)[ROWS_PER_THREAD],
-                                           float (&acc2)[ROWS_PER_THREAD],
-                                           const P* __restrict__ pwp,
-                                           const float* __restrict__ w, const MatchTile& m,
-                                           int g, int tg, int q, int k, int N, int n, int rg) {
-  const int qs = q + 1;
-  for (int tt = 0; tt < tg; ++tt) {
-    const int t = g + tt;
-    const P* pwp_t = pwp + static_cast<size_t>(t) * qs * N + n;
-    const float* w_t = w + static_cast<size_t>(t) * k * N + n;
-#pragma unroll
-    for (int i = 0; i < ROWS_PER_THREAD; ++i) {
-      const int r = rg + i * ROW_GROUPS;
-      const float v = to_f32(pwp_t[static_cast<size_t>(m.idx[r][tt]) * N]);
-      acc1[i] = __fadd_rn(acc1[i], __fmul_rn(v, m.scale[r][tt]));
-      const unsigned long long pos = m.pos[r][tt];
-      unsigned long long rest = pos | m.neg[r][tt];
-      if (rest) {
-        float part = 0.f;
-        while (rest) {                           // set bits in ascending j
-          const int j = __ffsll(static_cast<long long>(rest)) - 1;
-          rest &= rest - 1;
-          const float wv = w_t[static_cast<size_t>(j) * N];
-          part = ((pos >> j) & 1ull) ? __fadd_rn(part, wv) : __fsub_rn(part, wv);
-        }
-        acc2[i] = __fadd_rn(acc2[i], part);
-      }
-    }
-  }
-}
-
-__device__ __forceinline__ void store_tile(const float (&acc1)[ROWS_PER_THREAD],
-                                           const float (&acc2)[ROWS_PER_THREAD],
-                                           float* __restrict__ out, long long m0, long long M,
-                                           int N, int n, int rg) {
-#pragma unroll
-  for (int i = 0; i < ROWS_PER_THREAD; ++i) {
-    const long long row = m0 + rg + i * ROW_GROUPS;
-    if (row < M) out[row * N + n] = __fadd_rn(acc1[i], acc2[i]);
-  }
-}
-
-template <typename P, bool PREFETCH>
-__global__ void __launch_bounds__(THREADS) phi_fused_kernel(
-    const float* __restrict__ a,                      // (M, K)
-    const unsigned long long* __restrict__ pat,       // (T, q) packed patterns
-    const P* __restrict__ pwp,                        // (T, q+1, N)
-    const float* __restrict__ scale,                  // (T, q+1)
-    const float* __restrict__ w,                      // (K, N)
-    float* __restrict__ out,                          // (M, N)
-    int* __restrict__ nnz,                            // (ceil(M / bm),), zeroed
-    long long M, int K, int N, int T, int q, int k, int bm,
-    const int* __restrict__ active,                   // PREFETCH: (ceil(M / bm), T, n_pat)
-    int n_pat) {                                      // patterns matched: q, or P
-  extern __shared__ unsigned long long s_pat[];       // TG rows of stride n_pat+1
-  __shared__ MatchTile s_m;
-
-  const int tid = threadIdx.x;
-  const long long m0 = static_cast<long long>(blockIdx.x) * BM;
-  const int qs = q + 1;
-  const int ps = n_pat + 1;  // padded stride: the TG pattern rows fall in different banks
-  // PREFETCH: the tile's stripe's active sets, (T, n_pat)
-  const int* act = PREFETCH ? active + (m0 / bm) * T * n_pat : nullptr;
-
-  // Match-phase role: one (row, partition-in-group) pair.
-  const int mr = tid / TG, mt = tid % TG;
-  const long long mrow = m0 + mr;
-  const bool mrow_ok = mrow < M;
-  // Accumulate-phase role: one column, ROWS_PER_THREAD rows.
-  const int col = tid % BN, rg = tid / BN;
-  const int n = blockIdx.y * BN + col;
-  const bool n_ok = n < N;
-
-  float acc1[ROWS_PER_THREAD], acc2[ROWS_PER_THREAD];
-#pragma unroll
-  for (int i = 0; i < ROWS_PER_THREAD; ++i) { acc1[i] = 0.f; acc2[i] = 0.f; }
-  int my_nnz = 0;
-
-  for (int g = 0; g < T; g += TG) {
-    const int tg = min(TG, T - g);
-    __syncthreads();  // the previous stage is done with the shared state
-    for (int i = tid; i < tg * n_pat; i += THREADS) {
-      const int tt = i / n_pat, p = i % n_pat;
-      const int row = PREFETCH ? act[(g + tt) * n_pat + p] : p;
-      s_pat[tt * ps + p] = pat[static_cast<size_t>(g + tt) * q + row];
-    }
-    __syncthreads();
-
-    if (mt < tg) {
-      const int t = g + mt;
-      const unsigned long long bits =
-          mrow_ok ? row_bits(a + mrow * K + static_cast<long long>(t) * k, k) : 0ull;
-      my_nnz += match_one(bits, s_pat + mt * ps, n_pat, PREFETCH ? act + t * n_pat : nullptr,
-                          q, scale + static_cast<size_t>(t) * qs, s_m, mr, mt);
-    }
-    __syncthreads();
-
-    if (n_ok) accumulate<P>(acc1, acc2, pwp, w, s_m, g, tg, q, k, N, n, rg);
-  }
-
-  if (n_ok) store_tile(acc1, acc2, out, m0, M, N, n, rg);
-  // The residual count is the same in every column tile; one tile writes it.
-  if (blockIdx.y == 0 && mrow_ok && my_nnz) atomicAdd(&nnz[mrow / bm], my_nnz);
 }
 
 // ------------------------------------------------------- K-streaming kernel ---
@@ -629,6 +493,458 @@ cudaError_t launch_stream(const float* a, const unsigned long long* packed, cons
                             group_t);
 }
 
+// ------------------------------------------------------------ first kernel ---
+// The streaming kernel's tile (BM x SBN, a warp per row group of SROWS rows,
+// SCOLS columns a thread) over a match tile of every partition of a chunk.
+constexpr int MAX_TC = 95;    // partitions a match tile holds: every T the policy sends here
+constexpr int MR = 8;         // rows a warp matches against each pattern it loads
+constexpr int TPP = 8;        // lanes that share a unit's patterns (four units a warp)
+constexpr int PB = 8;         // patterns a lane loads at a time (a block of TPP * PB)
+constexpr int L1_DEPTH = 2;   // partitions of PWP rows in flight ahead of the L1 adds
+constexpr int L2_BATCH = 8;   // residual weight rows loaded before their ordered adds
+constexpr int LIST_CAP = 256; // residual entries of one row a warp lists at a time
+constexpr int STASH = 2 * SROWS * SCOLS;  // accumulator floats a thread parks between phases
+static_assert(TPP == MR, "a unit's lanes end with one row each");
+
+// Partitions per chunk: T in the fewest chunks of at most MAX_TC, as even as
+// they go.
+__host__ __device__ __forceinline__ int first_tc(int T) {
+  if (T <= MAX_TC) return T > 0 ? T : 1;
+  const int chunks = (T + MAX_TC - 1) / MAX_TC;
+  return (T + chunks - 1) / chunks;
+}
+// Shared memory of one block: the match tile of BM x first_tc(T) pairs (the
+// residual's +/- masks, 8 bytes each, the matched bank row and its scale, 4
+// each), BM row counters, each warp's list of residual entries and the parked
+// accumulators.
+__host__ __device__ __forceinline__ size_t first_smem(int T) {
+  return static_cast<size_t>(BM) * first_tc(T) * 24 + BM * sizeof(int) +
+         static_cast<size_t>(SROW_GROUPS) * LIST_CAP * sizeof(unsigned) +
+         static_cast<size_t>(STASH) * THREADS * sizeof(float);
+}
+
+// Park (or fetch) this thread's SROWS accumulators in slots [s0, s0 + 16) of
+// the block's stash (slot-major, so a warp's lanes hit consecutive words):
+// they are not held in registers through the phases that do not add to them.
+__device__ __forceinline__ void park(float* stash, int s0, int tid, const float4 (&acc)[SROWS]) {
+#pragma unroll
+  for (int i = 0; i < SROWS; ++i) {
+    stash[(s0 + 4 * i) * THREADS + tid] = acc[i].x;
+    stash[(s0 + 4 * i + 1) * THREADS + tid] = acc[i].y;
+    stash[(s0 + 4 * i + 2) * THREADS + tid] = acc[i].z;
+    stash[(s0 + 4 * i + 3) * THREADS + tid] = acc[i].w;
+  }
+}
+__device__ __forceinline__ void fetch(float4 (&acc)[SROWS], const float* stash, int s0, int tid) {
+#pragma unroll
+  for (int i = 0; i < SROWS; ++i)
+    acc[i] = make_float4(
+        stash[(s0 + 4 * i) * THREADS + tid], stash[(s0 + 4 * i + 1) * THREADS + tid],
+        stash[(s0 + 4 * i + 2) * THREADS + tid], stash[(s0 + 4 * i + 3) * THREADS + tid]);
+}
+
+// acc2 of one row over the chunk's partitions from c0, by a whole warp (its
+// lanes on their columns; a lane with none loads nothing). Lane l takes
+// partition w0 + l of a window of 32 and lists its residual entries (weight
+// row << 2 | last of its partition << 1 | sign) at its place in the row's
+// order (a prefix sum over the lanes; a window ends before the first
+// partition that would overflow the list). The warp then walks the list in
+// order, L2_BATCH weight rows loaded before their ordered adds into `part`; a
+// partition's `part` goes into acc2 after its last entry, as
+// accumulate_stream adds it. Each entry is added as +w or as -w
+// (x - w == x + (-w) exactly).
+__device__ __forceinline__ void l2_row(float4& acc2, const float* __restrict__ w,
+                                       const unsigned long long* __restrict__ rpos,
+                                       const unsigned long long* __restrict__ rneg,
+                                       unsigned* __restrict__ list, int c0, int tcn, int k,
+                                       int N, int n, bool vec, int valid, int lane) {
+  float4 part = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int w0 = 0; w0 < tcn;) {                       // warp-uniform
+    const int tt = w0 + lane;
+    const bool in = tt < tcn;
+    const unsigned long long lp = in ? rpos[tt] : 0ull, rest0 = in ? lp | rneg[tt] : 0ull;
+    const int cnt = __popcll(rest0);
+    int incl = cnt;                                   // entries up to this lane's partition
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    const unsigned over = __ballot_sync(0xffffffffu, incl > LIST_CAP);
+    const int take = over ? __ffs(over) - 1 : 32;     // partitions listed now (k <= LIST_CAP)
+    const int total = __shfl_sync(0xffffffffu, incl, take - 1);
+    if (lane < take) {
+      unsigned long long rest = rest0;
+      for (int e = incl - cnt; rest; ++e) {           // ascending bit
+        const int j = __ffsll(static_cast<long long>(rest)) - 1;
+        rest &= rest - 1;
+        list[e] = (static_cast<unsigned>((c0 + tt) * k + j) << 2) | (rest ? 0u : 2u) |
+                  static_cast<unsigned>((lp >> j) & 1ull);
+      }
+    }
+    __syncwarp();
+    for (int e0 = 0; e0 < total; e0 += L2_BATCH) {
+      float4 wv[L2_BATCH];
+      unsigned last = 0u;
+#pragma unroll
+      for (int s = 0; s < L2_BATCH; ++s) {
+        const bool hv = e0 + s < total;
+        const unsigned code = hv ? list[e0 + s] : 0u;
+        const float4 v = load4(w + static_cast<size_t>(code >> 2) * N + n, vec && hv,
+                               hv ? valid : 0);
+        wv[s] = (code & 1u) ? v : make_float4(-v.x, -v.y, -v.z, -v.w);
+        last |= ((code >> 1) & 1u) << s;
+      }
+#pragma unroll
+      for (int s = 0; s < L2_BATCH; ++s) {
+        if (e0 + s >= total) break;
+        part.x = __fadd_rn(part.x, wv[s].x); part.y = __fadd_rn(part.y, wv[s].y);
+        part.z = __fadd_rn(part.z, wv[s].z); part.w = __fadd_rn(part.w, wv[s].w);
+        if ((last >> s) & 1u) {
+          acc2.x = __fadd_rn(acc2.x, part.x); acc2.y = __fadd_rn(acc2.y, part.y);
+          acc2.z = __fadd_rn(acc2.z, part.z); acc2.w = __fadd_rn(acc2.w, part.w);
+          part = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      }
+    }
+    __syncwarp();                                     // the list is read before it is refilled
+    w0 += take;
+  }
+}
+
+// This thread's SROWS rows' PWP values (SCOLS columns) at partition c0 + tt,
+// the bank rows the match tile names; VEC: 16/8/4-byte vector loads.
+template <typename P, bool VEC>
+__device__ __forceinline__ void load_rows(float4 (&v)[SROWS], const P* __restrict__ pwp,
+                                          const int* __restrict__ tidx, int c0, int tt, int tcs,
+                                          int q, int N, int n, int rg, int valid) {
+  const size_t qs = static_cast<size_t>(q) + 1;
+#pragma unroll
+  for (int i = 0; i < SROWS; ++i) {
+    const size_t row = (c0 + tt) * qs + tidx[(rg + i * SROW_GROUPS) * tcs + tt];
+    v[i] = load4(pwp + row * N + n, VEC, valid);
+  }
+}
+
+// acc1 over the chunk's partitions in ascending t, L1_DEPTH partitions' PWP
+// values in flight ahead of the adds; the scales are read from the match tile
+// as they are used.
+template <typename P, bool VEC>
+__device__ __forceinline__ void l1_sums(float4 (&acc1)[SROWS], const P* __restrict__ pwp,
+                                        const int* __restrict__ tidx,
+                                        const float* __restrict__ tscale, int c0, int tcn,
+                                        int tcs, int q, int N, int n, int rg, int valid) {
+  float4 v[L1_DEPTH][SROWS];
+#pragma unroll
+  for (int d = 0; d < L1_DEPTH; ++d)
+    if (d < tcn) load_rows<P, VEC>(v[d], pwp, tidx, c0, d, tcs, q, N, n, rg, valid);
+  for (int t0 = 0; t0 < tcn; t0 += L1_DEPTH) {
+#pragma unroll
+    for (int d = 0; d < L1_DEPTH; ++d) {
+      const int tt = t0 + d;
+      if (tt < tcn) {
+#pragma unroll
+        for (int i = 0; i < SROWS; ++i)
+          add_scaled(acc1[i], v[d][i], tscale[(rg + i * SROW_GROUPS) * tcs + tt]);
+        if (tt + L1_DEPTH < tcn)
+          load_rows<P, VEC>(v[d], pwp, tidx, c0, tt + L1_DEPTH, tcs, q, N, n, rg, valid);
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ int popc(unsigned x) { return __popc(x); }
+__device__ __forceinline__ int popc(unsigned long long x) { return __popcll(x); }
+
+// Halve a lane's values with its partner lane ^ o: it keeps the half named
+// by its bit o (the low half where clear), the minimum of both lanes' copies.
+template <int H>
+__device__ __forceinline__ void halve(unsigned (&dst)[H], const unsigned (&src)[2 * H], int lane,
+                                      int o) {
+  const bool hi = lane & o;
+#pragma unroll
+  for (int m = 0; m < H; ++m) {
+    const unsigned mine = hi ? src[H + m] : src[m], other = hi ? src[m] : src[H + m];
+    dst[m] = min(mine, __shfl_xor_sync(0xffffffffu, other, o));
+  }
+}
+
+// Patterns i0 + sub, i0 + sub + TPP, ... (PB of them, zero past n_pat) of
+// one partition's packed row pt in device memory (coalesced; PREFETCH:
+// through `map`, the stripe's active set), as Words: 32 bits where k <= 32
+// (the patterns' high words are zero), else 64.
+template <typename Word, bool PREFETCH>
+__device__ __forceinline__ void load_patterns(Word (&p)[PB],
+                                              const unsigned long long* __restrict__ pt,
+                                              const int* __restrict__ map, int n_pat, int i0,
+                                              int sub) {
+#pragma unroll
+  for (int m = 0; m < PB; ++m) {
+    const int i = i0 + TPP * m + sub;
+    p[m] = i < n_pat ? static_cast<Word>(__ldg(pt + (PREFETCH ? __ldg(map + i) : i))) : Word(0);
+  }
+}
+
+// Each of MR rows' packed (distance << 16 | index) minimum, folded over one
+// block of a lane's patterns.
+template <typename Word>
+__device__ __forceinline__ void match_block(unsigned (&best)[MR], const Word (&bits)[MR],
+                                            const Word (&p)[PB], int n_pat, int i0, int sub) {
+#pragma unroll
+  for (int m = 0; m < PB; ++m) {
+    const int i = i0 + TPP * m + sub;
+    if (i >= n_pat) break;
+#pragma unroll
+    for (int j = 0; j < MR; ++j)
+      best[j] = min(best[j], (static_cast<unsigned>(popc(static_cast<Word>(bits[j] ^ p[m])))
+                              << 16) | static_cast<unsigned>(i));
+  }
+}
+
+// A unit's TPP lanes' minima reduced in 7 shuffles: lane sub of the unit
+// ends with row sub's minimum over all the unit's patterns (first index on
+// ties).
+__device__ __forceinline__ unsigned reduce_rows(const unsigned (&best)[MR], int lane) {
+  unsigned h4[4], h2[2], h1[1];
+  halve<4>(h4, best, lane, 4);
+  halve<2>(h2, h4, lane, 2);
+  halve<1>(h1, h2, lane, 1);
+  return h1[0];
+}
+
+// The match of a chunk: units of (partition, block of up to MR of this
+// block's rows), four a warp, TPP lanes each over the patterns; lane sub of
+// a unit writes row sub's result (residual masks, matched bank row) into
+// every block's tile and counts its residual entries.
+template <typename Word, bool PREFETCH>
+__device__ __forceinline__ void match_units(cg::cluster_group cluster,
+                                            unsigned long long* tpos, int* s_rownnz,
+                                            const unsigned long long* __restrict__ pat,
+                                            const int* __restrict__ act, int rank, int C,
+                                            int rows_r, int rsize, int rblocks, int c0, int tcn,
+                                            int tcs, int q, int n_pat, int lane, int rg) {
+  const int units = tcn * rblocks, sub = lane % TPP;
+  for (int u0 = 0; u0 < units; u0 += SROW_GROUPS * (32 / TPP)) {   // warp-uniform
+    const int unit = u0 + rg * (32 / TPP) + lane / TPP;
+    const bool on = unit < units;
+    const int tt = on ? unit % tcn : 0, j0 = on ? (unit / tcn) * rsize : 0;
+    const int nr = on ? min(rsize, rows_r - j0) : 0;
+    const unsigned long long* pt = pat + static_cast<size_t>(c0 + tt) * q;
+    const int* map = PREFETCH ? act + (c0 + tt) * n_pat : nullptr;
+    Word bits[MR];
+    unsigned best8[MR];
+#pragma unroll
+    for (int j = 0; j < MR; ++j) {
+      bits[j] = j < nr ? static_cast<Word>(tpos[(rank + (j0 + j) * C) * tcs + tt]) : Word(0);
+      best8[j] = 0xffffffffu;
+    }
+    for (int i0 = 0; i0 < n_pat; i0 += TPP * PB) {
+      Word p[PB];
+      load_patterns<Word, PREFETCH>(p, pt, map, on ? n_pat : 0, i0, sub);
+      match_block<Word>(best8, bits, p, on ? n_pat : 0, i0, sub);
+    }
+    const unsigned best = reduce_rows(best8, lane);
+    if (sub < nr) {                                   // row sub's result
+      const int r = rank + (j0 + sub) * C, e = r * tcs + tt;
+      const unsigned long long bj = tpos[e];
+      const bool use = static_cast<int>(best >> 16) < __popcll(bj);  // strictly better
+      const int b = static_cast<int>(best & 0xffffu);
+      const int row = PREFETCH ? map[b] : b;
+      const int idx = use ? row : q;
+      const unsigned long long chosen = use ? pt[row] : 0ull;
+      const unsigned long long pos = bj & ~chosen, neg = chosen & ~bj;
+      for (int dst = 0; dst < C; ++dst) {
+        unsigned long long* rp = cluster.map_shared_rank(tpos, dst);
+        rp[e] = pos;
+        rp[BM * tcs + e] = neg;
+        reinterpret_cast<int*>(rp + 2 * BM * tcs)[e] = idx;
+      }
+      const int cnt = __popcll(pos) + __popcll(neg);
+      if (cnt) atomicAdd(&s_rownnz[r], cnt);
+    }
+  }
+}
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Launched in clusters of stream_cluster(N) blocks along the column tiles of
+// one row tile. Per chunk of partitions: block `rank` packs the bits of the
+// rows r = rank (mod cluster) into its own tile, matches them and writes each
+// result into every block's tile (distributed shared memory); one cluster
+// barrier publishes the chunk's match, then every block sums it.
+template <typename P, bool PREFETCH>
+__global__ void __launch_bounds__(THREADS, 2) phi_fused_kernel(
+    const float* __restrict__ a,                      // (M, K)
+    const unsigned long long* __restrict__ pat,       // (T, q) packed patterns
+    const P* __restrict__ pwp,                        // (T, q+1, N)
+    const float* __restrict__ scale,                  // (T, q+1)
+    const float* __restrict__ w,                      // (K, N)
+    float* __restrict__ out,                          // (M, N)
+    int* __restrict__ nnz,                            // (ceil(M / bm),), zeroed
+    long long M, int K, int N, int T, int q, int k, int bm,
+    const int* __restrict__ active,                   // PREFETCH: (ceil(M / bm), T, n_pat)
+    int n_pat) {                                      // patterns matched: q, or P
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  cluster_arrive_relaxed();                           // waited for before the first remote write
+
+  const int tid = threadIdx.x;
+  const long long m0 = static_cast<long long>(blockIdx.x) * BM;
+  const int tcs = first_tc(T);                        // the tile's partitions (its stride)
+  const int pairs_max = BM * tcs;
+  float* stash = reinterpret_cast<float*>(smem);
+  unsigned* lists = reinterpret_cast<unsigned*>(stash + STASH * THREADS);
+  unsigned long long* tpos =
+      reinterpret_cast<unsigned long long*>(lists + SROW_GROUPS * LIST_CAP);
+  unsigned long long* tneg = tpos + pairs_max;
+  int* tidx = reinterpret_cast<int*>(tneg + pairs_max);
+  float* tscale = reinterpret_cast<float*>(tidx + pairs_max);
+  int* s_rownnz = reinterpret_cast<int*>(tscale + pairs_max);
+  // PREFETCH: the tile's stripe's active sets, (T, n_pat)
+  const int* act = PREFETCH ? active + (m0 / bm) * T * n_pat : nullptr;
+  const int rows_r = (BM - rank + C - 1) / C;         // rows r = rank (mod C) of the tile
+  // Vector loads of pwp and w rows: N a multiple of 4 and the bases aligned.
+  const bool vec = (N & 3) == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(pwp) & (4 * sizeof(P) - 1)) == 0;
+  const int lane = tid % 32, rg = tid / 32;
+  const int n = blockIdx.y * SBN + lane * SCOLS;
+  const int valid = min(SCOLS, N - n);                // columns of this thread inside N
+  const bool vl = vec && valid > 0;                   // a lane past N loads nothing
+  if (tid < BM) s_rownnz[tid] = 0;
+
+  float4 acc1[SROWS], acc2[SROWS];
+  for (int c0 = 0; c0 < T; c0 += tcs) {
+    const int tcn = min(tcs, T - c0);
+    if (c0 > 0) cluster.sync();                       // every block is done with the last chunk
+    // The bits of this block's rows (zero past M) into their pos slots, a
+    // (row, partition) word a thread.
+    for (int e = tid; e < rows_r * tcn; e += THREADS) {
+      const int r = rank + (e / tcn) * C, tt = e % tcn;
+      tpos[r * tcs + tt] =
+          m0 + r < M ? row_bits(a + (m0 + r) * K + static_cast<long long>(c0 + tt) * k, k) : 0ull;
+    }
+    __syncthreads();
+    if (c0 == 0) cluster_wait();                      // every block of the cluster has started
+
+    // The match: units of (partition, block of up to MR of this block's
+    // rows), TPP lanes each over the patterns.
+    const int rblocks = (rows_r + MR - 1) / MR, rsize = (rows_r + rblocks - 1) / rblocks;
+    if (k <= 32)
+      match_units<unsigned, PREFETCH>(cluster, tpos, s_rownnz, pat, act, rank, C, rows_r, rsize,
+                                      rblocks, c0, tcn, tcs, q, n_pat, lane, rg);
+    else
+      match_units<unsigned long long, PREFETCH>(cluster, tpos, s_rownnz, pat, act, rank, C,
+                                                rows_r, rsize, rblocks, c0, tcn, tcs, q, n_pat,
+                                                lane, rg);
+    __syncthreads();
+    // The matched rows' scales, one load each (all in flight), into every
+    // block's tile.
+    for (int e = tid; e < rows_r * tcn; e += THREADS) {
+      const int tt = e % tcn, p = (rank + (e / tcn) * C) * tcs + tt;
+      const float sv = scale[(c0 + tt) * (static_cast<size_t>(q) + 1) + tidx[p]];
+      for (int dst = 0; dst < C; ++dst) cluster.map_shared_rank(tscale, dst)[p] = sv;
+    }
+    cluster.sync();                                   // the chunk's match tile is complete
+
+    // L1: partitions in ascending t, L1_DEPTH partitions' loads in flight.
+    if (c0 == 0) {
+#pragma unroll
+      for (int i = 0; i < SROWS; ++i) acc1[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      fetch(acc1, stash, 0, tid);
+    }
+    if (vl)
+      l1_sums<P, true>(acc1, pwp, tidx, tscale, c0, tcn, tcs, q, N, n, rg, valid);
+    else
+      l1_sums<P, false>(acc1, pwp, tidx, tscale, c0, tcn, tcs, q, N, n, rg, valid);
+    park(stash, 0, tid, acc1);
+    // L2: each row's residual entries in order, through the warp's list.
+    if (c0 == 0) {
+#pragma unroll
+      for (int i = 0; i < SROWS; ++i) acc2[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    } else {
+      fetch(acc2, stash, 16, tid);
+    }
+#pragma unroll
+    for (int i = 0; i < SROWS; ++i) {
+      const int r = rg + i * SROW_GROUPS;
+      l2_row(acc2[i], w, tpos + r * tcs, tneg + r * tcs, lists + rg * LIST_CAP, c0, tcn, k, N, n,
+             vl, valid, lane);
+    }
+    if (c0 + tcs < T) park(stash, 16, tid, acc2);
+  }
+  if (T <= 0) {                                       // no chunk: zero sums, and the arrive's wait
+#pragma unroll
+    for (int i = 0; i < SROWS; ++i) acc2[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    park(stash, 0, tid, acc2);
+    cluster_wait();
+  }
+  fetch(acc1, stash, 0, tid);
+
+  if (valid > 0) {
+#pragma unroll
+    for (int i = 0; i < SROWS; ++i) {
+      const long long row = m0 + rg + i * SROW_GROUPS;
+      if (row >= M) continue;
+      const float4 o =
+          make_float4(__fadd_rn(acc1[i].x, acc2[i].x), __fadd_rn(acc1[i].y, acc2[i].y),
+                      __fadd_rn(acc1[i].z, acc2[i].z), __fadd_rn(acc1[i].w, acc2[i].w));
+      float* dst = out + row * N + n;
+      if (vec && (reinterpret_cast<uintptr_t>(out) & 15) == 0) {
+        *reinterpret_cast<float4*>(dst) = o;
+      } else {
+        dst[0] = o.x;
+        if (valid > 1) dst[1] = o.y;
+        if (valid > 2) dst[2] = o.z;
+        if (valid > 3) dst[3] = o.w;
+      }
+    }
+  }
+  // Each row's residual is counted by the block that matched it, in the
+  // first cluster of the row tile only.
+  __syncthreads();
+  if (blockIdx.y < C && tid < BM && s_rownnz[tid]) atomicAdd(&nnz[(m0 + tid) / bm], s_rownnz[tid]);
+}
+
+template <typename P, bool PREFETCH>
+cudaError_t launch_first(const float* a, const unsigned long long* packed, const void* pwp,
+                         const float* scale, const float* w, float* out, int* nnz, long long M,
+                         int K, int N, int T, int q, int k, int bm, const int* active, int n_pat,
+                         cudaStream_t stream) {
+  const int C = stream_cluster(N);
+  const size_t smem = first_smem(T);
+  if (smem > static_cast<size_t>(SMEM_OPTIN)) return cudaErrorInvalidValue;
+  // A cluster launch is refused unless the kernel's dynamic shared-memory
+  // limit is set, whatever the size.
+  const cudaError_t err = cudaFuncSetAttribute(
+      phi_fused_kernel<P, PREFETCH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((M + BM - 1) / BM),
+                     static_cast<unsigned>((N + SBN - 1) / SBN));
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = C;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, phi_fused_kernel<P, PREFETCH>, a, packed,
+                            static_cast<const P*>(pwp), scale, w, out, nnz, M, K, N, T, q, k, bm,
+                            active, n_pat);
+}
+
 // group_t 0: the first kernel, or with ``active`` its prefetching variant
 // over n_pat patterns; group_t > 0: the streaming kernel.
 template <typename P>
@@ -636,22 +952,16 @@ cudaError_t launch(const float* a, const unsigned long long* packed, const void*
                    const float* scale, const float* w, float* out, int* nnz,
                    long long M, int K, int N, int T, int q, int k, int bm, int group_t,
                    const int* active, int n_pat, cudaStream_t stream) {
-  const dim3 grid(static_cast<unsigned>((M + BM - 1) / BM),
-                  static_cast<unsigned>((N + BN - 1) / BN));
-  if (group_t == 0) {
-    const size_t smem = static_cast<size_t>(TG) * (n_pat + 1) * sizeof(unsigned long long);
-    if (active)
-      phi_fused_kernel<P, true><<<grid, THREADS, smem, stream>>>(
-          a, packed, static_cast<const P*>(pwp), scale, w, out, nnz, M, K, N, T, q, k, bm,
-          active, n_pat);
-    else
-      phi_fused_kernel<P, false><<<grid, THREADS, smem, stream>>>(
-          a, packed, static_cast<const P*>(pwp), scale, w, out, nnz, M, K, N, T, q, k, bm,
-          nullptr, q);
-    return cudaGetLastError();
-  }
-  const cudaError_t err =
-      launch_stream<P>(a, packed, pwp, scale, w, out, nnz, M, K, N, T, q, k, bm, group_t, stream);
+  cudaError_t err;
+  if (group_t == 0 && active)
+    err = launch_first<P, true>(a, packed, pwp, scale, w, out, nnz, M, K, N, T, q, k, bm, active,
+                                n_pat, stream);
+  else if (group_t == 0)
+    err = launch_first<P, false>(a, packed, pwp, scale, w, out, nnz, M, K, N, T, q, k, bm,
+                                 nullptr, q, stream);
+  else
+    err = launch_stream<P>(a, packed, pwp, scale, w, out, nnz, M, K, N, T, q, k, bm, group_t,
+                           stream);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -728,19 +1038,28 @@ long long phi_fused_stream_smem_bytes(int q, int k, int group_t) {
   return static_cast<long long>(stream_smem(q, k, group_t, 1));
 }
 
+// Shared memory of one block of the first kernel (and of its prefetching
+// variant), in bytes, at T partitions: the match tile, the row counters and
+// the warps' residual lists; all dynamic.
+long long phi_fused_smem_bytes(int T) {
+  return static_cast<long long>(first_smem(T));
+}
+
 // Blocks of a fused kernel one SM holds (cudaOccupancy...), float32 bank:
-// kernel 0 the first one, 1 the prefetching one (n_pat = q), 2 the streaming
-// one at (q, k, group_t) and N's cluster; a negative CUDA error code on failure.
-int phi_fused_occupancy(int kernel, int q, int k, int group_t, int N) {
+// kernel 0 the first one and 1 the prefetching one, both at T partitions; 2
+// the streaming one at (q, k, group_t) and N's cluster; a negative CUDA error
+// code on failure.
+int phi_fused_occupancy(int kernel, int q, int k, int group_t, int N, int T) {
   int n = 0;
   cudaError_t err;
   if (kernel == 0 || kernel == 1) {
-    const size_t smem = static_cast<size_t>(TG) * (q + 1) * sizeof(unsigned long long);
-    err = kernel == 0
-        ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, phi_fused_kernel<float, false>,
-                                                        THREADS, smem)
-        : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, phi_fused_kernel<float, true>,
-                                                        THREADS, smem);
+    const size_t smem = first_smem(T);
+    const void* fn = kernel == 0 ? reinterpret_cast<const void*>(phi_fused_kernel<float, false>)
+                                 : reinterpret_cast<const void*>(phi_fused_kernel<float, true>);
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, fn, THREADS, smem);
   } else {
     const size_t smem = stream_smem(q, k, group_t, stream_cluster(N));
     err = cudaFuncSetAttribute(phi_fused_stream_kernel<float>,

@@ -1,23 +1,29 @@
-"""Time the phases of the Phi flash-attention and K-streaming fused kernels.
+"""Time the phases of the Phi flash-attention and fused Phi matmul kernels.
 
-    PYTHONPATH=src python3 -m repro_torch.kernels.phases
+    PYTHONPATH=src python3 -m repro_torch.kernels.phases [--only attn|stream|first]
 
-Takes the two kernels apart on one NVIDIA card. It builds copies of
-``csrc/phi_attention.cu`` and ``csrc/phi_fused.cu`` with phases switched
-off by text patches applied at run time, with ``_build``'s nvcc and flags,
-into ``build/kernel_phases/``. Each copy computes a wrong result by design:
-only its time is read. A patch whose anchor the source no longer holds
-once stops the run: a redesign of either kernel edits the tables below.
+Takes three kernels apart on one NVIDIA card: the attention kernel, the
+K-streaming fused kernel and the first fused kernel (with its prefetching
+instantiation). It builds copies of ``csrc/phi_attention.cu`` and
+``csrc/phi_fused.cu`` with phases switched off by text patches applied at
+run time, with ``_build``'s nvcc and flags, into ``build/kernel_phases/``.
+Each copy computes a wrong result by design: only its time is read. A patch
+whose anchor the source no longer holds once stops the run: a redesign of a
+kernel edits the tables below.
 
 It times every copy at the main paths' shapes, on data from seed 0: the
-streaming kernel at Spikformer-4-384's fc2 and the VGG's conv3/conv4 (their
-calibrated banks and activations, the group depth ``ops.stream_group_t``
-gives), and the attention kernel at the first Spikformer attention site,
-blocks (64, 64), both instantiations, with ``scaled_dot_product_attention``
-and ``torch.matmul`` beside them. A time is the median over 5 runs of 20
-back-to-back launches between two CUDA events, over 20. Each copy runs in
-a process of its own; one JSON line each, after the card's ``nvidia-smi``
-name and power limit.
+streaming kernel at Spikformer-4-384's fc2 and the VGG's conv3/conv4, the
+first kernel at the Spikformer's qkv and fc1 and the VGG's conv1/conv2, the
+prefetching one at the Spikformer's b0_proj with its calibrated active sets
+(their calibrated banks and activations; the streaming kernel at the group
+depth ``ops.stream_group_t`` gives), and the attention kernel at the first
+Spikformer attention site, blocks (64, 64), both instantiations, with
+``scaled_dot_product_attention`` and ``torch.matmul`` beside them. Copies
+with clock64 counters give the cycles a block's warps 0 and 7 spend in each
+part of an iteration. A time is the median over 5 runs of 20 back-to-back
+launches between two CUDA events, over 20. Each copy runs in a process of
+its own; one JSON line each, after the card's ``nvidia-smi`` name and power
+limit.
 """
 from __future__ import annotations
 
@@ -57,7 +63,7 @@ _STREAM = {
 # barrier.
 _STREAM_CYCLES = [
     ("namespace cg = cooperative_groups;\n",
-     "namespace cg = cooperative_groups;\n__device__ unsigned long long g_cycles[8];\n"),
+     "namespace cg = cooperative_groups;\n__device__ unsigned long long g_cycles[16];\n"),
     ("    __syncthreads();  // iteration gi-1 is done",
      "    const long long c0 = clock64();\n    __syncthreads();  // iteration gi-1 is done"),
     ("    const unsigned char* tile = tiles + (gi & 1) * tile_bytes;",
@@ -69,19 +75,55 @@ _STREAM_CYCLES = [
      "    const long long c3 = clock64();\n    cluster.sync();  // group gi+1"),
     ("gi's are no longer read\n",
      "gi's are no longer read\n    const long long c4 = clock64();\n"
-     "    if (tid == 0 || tid == 224) {\n      unsigned long long* c = g_cycles + (tid ? 4 : 0);\n"
+     "    if (tid == 0 || tid == 224) {\n      unsigned long long* c = g_cycles + (tid ? 8 : 0);\n"
      "      atomicAdd(c, c1 - c0); atomicAdd(c + 1, c2 - c1);\n"
      "      atomicAdd(c + 2, c3 - c2); atomicAdd(c + 3, c4 - c3);\n    }\n"),
 ]
 _CYCLES_READ = """
 extern "C" int cycles_read(unsigned long long* out, int reset) {
   cudaError_t e = cudaMemcpyFromSymbol(out, g_cycles, sizeof(g_cycles));
-  unsigned long long z[8] = {0};
+  unsigned long long z[16] = {0};
   if (e == cudaSuccess && reset) e = cudaMemcpyToSymbol(g_cycles, z, sizeof(z));
   return static_cast<int>(e);
 }
 """
-PATCHES = {"phi_attention.cu": ("attn", _ATTN), "phi_fused.cu": ("stream", _STREAM)}
+# The first kernel (phi_fused_kernel<P, PREFETCH>; both instantiations).
+_FIRST = {
+    "no_l2": [("  for (int w0 = 0; w0 < tcn;) {", "  for (int w0 = tcn; w0 < tcn;) {")],
+    "no_l1": [("    // L1: partitions in ascending t, L1_DEPTH partitions' loads in flight.\n",
+               "    if (false) {\n"),
+              ("    // L2: each row's residual entries in order, through the warp's list.\n",
+               "    }\n")],
+    "match_one": [("    if (i >= n_pat) break;", "    if (i >= min(n_pat, 1)) break;")],
+}
+# The first kernel with cycle counters around the parts of a chunk, read by
+# warp 0 and warp 7: the bits of the block's rows, the match (ending where
+# the block's own share is written), the cluster barrier that publishes it,
+# the L1 sums, the L2 sums.
+_FIRST_CYCLES = [
+    ("namespace cg = cooperative_groups;\n",
+     "namespace cg = cooperative_groups;\n__device__ unsigned long long g_cycles[16];\n"),
+    ("    if (c0 > 0) cluster.sync();",
+     "    const long long cy0 = clock64();\n    if (c0 > 0) cluster.sync();"),
+    ("    // The match: units of",
+     "    const long long cy1 = clock64();\n    // The match: units of"),
+    ("    cluster.sync();" + " " * 35 + "// the chunk's match tile is complete\n",
+     "    const long long cy2 = clock64();\n    cluster.sync();\n"
+     "    const long long cy3 = clock64();\n"),
+    ("    // L2: each row's residual entries in order, through the warp's list.\n",
+     "    const long long cy4 = clock64();\n"),
+    ("             vl, valid, lane);\n    }\n",
+     "             vl, valid, lane);\n    }\n    const long long cy5 = clock64();\n"
+     "    if (tid == 0 || tid == 224) {\n      unsigned long long* c = g_cycles + (tid ? 8 : 0);\n"
+     "      atomicAdd(c, cy1 - cy0); atomicAdd(c + 1, cy2 - cy1); atomicAdd(c + 2, cy3 - cy2);\n"
+     "      atomicAdd(c + 3, cy4 - cy3); atomicAdd(c + 4, cy5 - cy4);\n    }\n"),
+]
+FIRST_PARTS = ("bits_copies", "match", "cluster_barrier", "l1_sums", "l2_sums")
+STREAM_PARTS = ("copies_barriers", "match", "sums", "cluster_barrier")
+# (source, kind, phase table, cycle-counter patches or None)
+PATCHES = [("phi_attention.cu", "attn", _ATTN, None),
+           ("phi_fused.cu", "stream", _STREAM, _STREAM_CYCLES),
+           ("phi_fused.cu", "first", _FIRST, _FIRST_CYCLES)]
 
 
 def _patch(fname: str, src: str, patches) -> str:
@@ -95,16 +137,16 @@ def _patch(fname: str, src: str, patches) -> str:
 def _variants() -> dict[str, str]:
     """{name: patched source}: the full copy, one phase off each, and all of
     them off (attention: what is left is the loads, barriers and stores;
-    streaming: L1, L2 and the match off), plus the streaming kernel with its
-    cycle counters."""
+    streaming and first fused kernels: L1, L2 and the match off), plus the
+    two fused kernels with their cycle counters."""
     out = {}
-    for fname, (kind, table) in PATCHES.items():
+    for fname, kind, table, cycles in PATCHES:
         src = (_build.CSRC / fname).read_text()
         out[f"{kind}_full"] = src
         for name, patches in {**table, "all_off": [p for ps in table.values() for p in ps]}.items():
             out[f"{kind}_{name}"] = _patch(fname, src, patches)
-    out["stream_cycles"] = _patch("phi_fused.cu", (_build.CSRC / "phi_fused.cu").read_text(),
-                                  _STREAM_CYCLES) + _CYCLES_READ
+        if cycles:
+            out[f"{kind}_cycles"] = _patch(fname, src, cycles) + _CYCLES_READ
     return out
 
 
@@ -133,6 +175,7 @@ def _data(cache):
         return torch.load(cache)
     from repro_torch.core.patterns import PhiConfig
     from repro_torch.kernels import dispatch
+    from repro_torch.kernels.phi_fused import stripe_active_sets
     from repro_torch.snn import models as M
     from repro_torch.snn.data import synthetic_images
 
@@ -140,13 +183,14 @@ def _data(cache):
     dyadic = lambda x: (x * 1024).round() / 1024                       # noqa: E731
     images, _ = synthetic_images(64, size=32, seed=0)
     images = dyadic(torch.from_numpy(images)).to(dev)
-    gemms = {}
+    gemms, active = {}, {}
     for cfg, names, first in (
             (M.SNNConfig(kind="vgg", widths=(64, 128, 256, 512, 512), input_size=32,
-                         phi=PhiConfig(k=16, q=128, iters=20)), ("conv3", "conv4"), "conv0"),
+                         phi=PhiConfig(k=16, q=128, iters=20)),
+             ("conv1", "conv2", "conv3", "conv4"), "conv0"),
             (M.SNNConfig(kind="spikformer", input_size=32, dim=384, heads=12, blocks=4,
-                         attn="flash", phi=PhiConfig(k=16, q=128, iters=20)), ("b0_fc2",),
-             "embed")):
+                         attn="flash", phi=PhiConfig(k=16, q=128, iters=20)),
+             ("b0_qkv", "b0_fc1", "b0_proj", "b0_fc2"), "embed")):
         params = M.init(cfg, torch.Generator().manual_seed(0), device=dev)
         for name, leaf in params.items():
             leaf["w"] = dyadic(leaf["w"] * (1.0 if name == first else 3.0))
@@ -159,6 +203,9 @@ def _data(cache):
             gemms[name] = (acts[name].contiguous(), state.patterns[name], state.pwp[name],
                            torch.ones(state.pwp[name].shape[:2], device=dev),
                            w.reshape(-1, w.shape[-1]), state.packed[name])
+            if state.p_active[name] is not None:
+                active[name] = stripe_active_sets(acts[name].contiguous(), state.patterns[name],
+                                                  state.p_active[name], 256)
     sites, real = [], policy.attention
 
     def recording(q, k, v, patterns=None, **kw):
@@ -168,9 +215,33 @@ def _data(cache):
     policy.attention = recording
     with torch.no_grad():
         M.phi_apply(params, cfg, state, images[32:])
-    data = (gemms, sites[0])
+    data = (gemms, active, sites[0])
     torch.save(data, cache)
     return data
+
+
+# The GEMMs each fused kernel is timed at: the streaming kernel's and the
+# first kernel's main-path shapes (the prefetching kernel at b0_proj, with
+# its calibrated active sets).
+STREAM_GEMMS = ("b0_fc2", "conv3", "conv4")
+FIRST_GEMMS = ("b0_qkv", "b0_fc1", "conv1", "conv2")
+
+
+def _read_cycles(lib, fn, iters: int, parts) -> dict:
+    """Mean cycles that warps 0 and 7 spend in each part of an iteration
+    (the streaming kernel's group, the first kernel's chunk) per block,
+    over one launch of ``fn`` (after one unread launch)."""
+    import torch
+
+    buf = (ctypes.c_ulonglong * 16)()
+    fn()
+    torch.cuda.synchronize()
+    lib.cycles_read(buf, 1)
+    fn()
+    torch.cuda.synchronize()
+    lib.cycles_read(buf, 1)
+    return {f"warp{warp}": dict(zip(parts, (c / iters for c in list(buf)[off:off + len(parts)])))
+            for warp, off in ((0, 0), (7, 8))}
 
 
 def _child(name: str) -> dict:
@@ -179,12 +250,33 @@ def _child(name: str) -> dict:
 
     from repro_torch.kernels import ops
     from repro_torch.kernels.phi_attention import flash_attention_cuda, phi_flash_attention_cuda
-    from repro_torch.kernels.phi_fused import phi_fused_stream_cuda
+    from repro_torch.kernels.phi_fused import (
+        fused_tc, phi_fused_cuda, phi_fused_prefetch_cuda, phi_fused_stream_cuda)
 
-    gemms, (q, k, v, pats, packed) = _data(WORK / "data.pt")
+    gemms, active, (q, k, v, pats, packed) = _data(WORK / "data.pt")
     lib = _build.load(WORK / f"{name}.so", partial=True)
     _build._lib = lib
+    if name.endswith("_cycles"):
+        lib.cycles_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
     res = {"variant": name}
+
+    def stream(layer):
+        a, p, pwp, sc, w, pk = gemms[layer]
+        gt = ops.stream_group_t(p.shape[1], p.shape[2])
+        return (lambda: phi_fused_stream_cuda(a, p, pwp, sc, w, block_m=256, group_t=gt,
+                                              packed=pk)), gt
+
+    def first(layer, prefetch=False):
+        a, p, pwp, sc, w, pk = gemms[layer]
+        if prefetch:
+            return lambda: phi_fused_prefetch_cuda(a, p, pwp, sc, w, active[layer], block_m=256,
+                                                   packed=pk)
+        return lambda: phi_fused_cuda(a, p, pwp, sc, w, block_m=256, packed=pk)
+
+    def matmul(layer):
+        a, w = gemms[layer][0], gemms[layer][4]
+        return lambda: torch.matmul(a, w)
+
     if name.startswith("attn"):
         kw = dict(block_q=64, block_kv=64)
         res["phi_ms"] = _time(lambda: phi_flash_attention_cuda(q, k, v, pats, packed=packed, **kw))
@@ -193,37 +285,38 @@ def _child(name: str) -> dict:
             qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
             res["sdpa_ms"] = _time(lambda: F.scaled_dot_product_attention(qh, kh, vh))
     elif name == "stream_cycles":
-        # Mean cycles a group's iteration spends in each part, per block.
-        lib.cycles_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
-        buf = (ctypes.c_ulonglong * 8)()
-        for layer, (a, p, pwp, sc, w, pk) in gemms.items():
-            gt = ops.stream_group_t(p.shape[1], p.shape[2])
-            fn = lambda: phi_fused_stream_cuda(a, p, pwp, sc, w, block_m=256, group_t=gt,  # noqa
-                                               packed=pk)
-            fn()
-            torch.cuda.synchronize()
-            lib.cycles_read(buf, 1)
-            fn()
-            torch.cuda.synchronize()
-            lib.cycles_read(buf, 1)
+        for layer in STREAM_GEMMS:
+            fn, gt = stream(layer)
+            a, p, w = gemms[layer][0], gemms[layer][1], gemms[layer][4]
             iters = -(-a.shape[0] // 32) * -(-w.shape[1] // 128) * -(-p.shape[0] // gt)
-            for warp, part in ((0, list(buf)[:4]), (7, list(buf)[4:])):
-                res[f"{layer}_warp{warp}_cycles"] = dict(zip(
-                    ("copies_barriers", "match", "sums", "cluster_barrier"),
-                    (c / iters for c in part)))
-    else:
-        for layer, (a, p, pwp, sc, w, pk) in gemms.items():
-            gt = ops.stream_group_t(p.shape[1], p.shape[2])
-            res[f"{layer}_ms"] = _time(lambda: phi_fused_stream_cuda(a, p, pwp, sc, w, block_m=256,
-                                                                     group_t=gt, packed=pk))
+            res[layer] = _read_cycles(lib, fn, iters, STREAM_PARTS)
+    elif name == "first_cycles":
+        for layer in FIRST_GEMMS:
+            a, p, w = gemms[layer][0], gemms[layer][1], gemms[layer][4]
+            chunks = -(-p.shape[0] // fused_tc(p.shape[0]))
+            iters = -(-a.shape[0] // 32) * -(-w.shape[1] // 128) * chunks
+            res[layer] = _read_cycles(lib, first(layer), iters, FIRST_PARTS)
+    elif name.startswith("stream"):
+        for layer in STREAM_GEMMS:
+            res[f"{layer}_ms"] = _time(stream(layer)[0])
             if name == "stream_full":
-                res[f"{layer}_matmul_ms"] = _time(lambda: torch.matmul(a, w))
+                res[f"{layer}_matmul_ms"] = _time(matmul(layer))
+    else:
+        for layer in FIRST_GEMMS:
+            res[f"{layer}_ms"] = _time(first(layer))
+            if name == "first_full":
+                res[f"{layer}_matmul_ms"] = _time(matmul(layer))
+        res["b0_proj_prefetch_ms"] = _time(first("b0_proj", prefetch=True))
+        if name == "first_full":
+            res["b0_proj_matmul_ms"] = _time(matmul("b0_proj"))
     return res
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--child", help=argparse.SUPPRESS)
+    ap.add_argument("--only", default="",
+                    help="run only the copies whose name starts with this (attn, stream, first)")
     args = ap.parse_args()
     import torch
 
@@ -238,6 +331,8 @@ def main() -> int:
     nvcc = _build._nvcc()
     procs = {}
     for name, text in _variants().items():
+        if not name.startswith(args.only):
+            continue
         (WORK / f"{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-shared", str(WORK / f"{name}.cu"), "-o",

@@ -9,10 +9,12 @@ times its scale into the L1 accumulator, the ±1 residual against the weight
 rows into the L2 accumulator; ``out = acc1 + acc2`` once at the end, and the
 residual entries counted per ``block_m`` rows. The CUDA kernels live in
 ``csrc/phi_fused.cu``, whose note says how they are laid out on the card.
-The streaming one copies each group of ``group_t`` partitions (patterns and
-activations) into shared memory one group ahead and shares each row tile's
-match across a cluster of column tiles; it does the first kernel's sums in
-the same order, so :func:`phi_fused_plain` serves both. The prefetching one
+Both share each row tile's match across a cluster of column tiles: the first
+one matches all its partitions (up to 95 at a time) before one cluster
+barrier and then sums them; the streaming one copies each group of
+``group_t`` partitions (patterns and activations) into shared memory one
+group ahead and matches a group ahead of its sums. Both do the sums in the
+same order, so :func:`phi_fused_plain` serves both. The prefetching one
 matches each row only against its M-stripe's active pattern set
 (:func:`stripe_active_sets`) and has its own plain version,
 :func:`phi_fused_prefetch_plain`.
@@ -28,14 +30,16 @@ from repro_torch.kernels import _build
 from repro_torch.utils import cdiv, pad_rows
 
 # Shapes the CUDA kernels take (csrc/phi_fused.cu): one 64-bit word per row
-# partition; for the first kernel a stage of 8 partitions' patterns in 48 KB
-# of shared memory; for the streaming one up to 8 partitions per stage, two
-# stages in the 227 KB a block may use, q < 65536.
+# partition; for the first kernel q (or P) <= 512 and any T, its match tile
+# holding up to 95 partitions at a time; for the streaming one up to 8
+# partitions per stage, two stages in the 227 KB a block may use, q < 65536.
 MAX_K = 64
 MAX_Q = 512
 MAX_GROUP_T = 8
+MAX_TC = 95                 # partitions of the first kernel's match tile (a chunk of T)
 SMEM_LIMIT = 232448         # shared memory a block may use on an H100 (227 KB)
 _BM = 32                    # rows per output tile of the fused kernels
+_FIRST_LIST = 256           # residual entries a warp of the first kernel lists at a time
 _PWP_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
@@ -116,6 +120,28 @@ def stream_smem_bytes(q: int, k: int, group_t: int) -> int:
     r16 = lambda b: -(-b // 16) * 16                               # noqa: E731
     return 2 * (r16(group_t * (q + 1) * 8) + r16(_BM * group_t * k * 4)) \
         + 2 * _BM * group_t * 20 + 4 * _BM
+
+
+def fused_tc(T: int) -> int:
+    """Partitions a chunk of the first kernel's match takes: T in the fewest
+    chunks of at most :data:`MAX_TC`, as even as they go (all of T for every
+    T the policy sends that kernel, T < ``ops.STREAM_MIN_T`` = 96)."""
+    if T <= MAX_TC:
+        return max(T, 1)
+    chunks = -(-T // MAX_TC)
+    return -(-T // chunks)
+
+
+def fused_smem_bytes(T: int) -> int:
+    """Shared memory of one block of the first kernel (and of the
+    prefetching one), in bytes, at T partitions: the match tile of 32 rows ×
+    :func:`fused_tc` partitions (±masks, the matched bank row and its
+    scale: 24 bytes a pair), 32 row counters, each of the 8 warps' list of
+    256 residual entries (4 bytes each) and the 256 threads' parked
+    accumulators (32 floats each). The bank is read from device memory, so q and P do not
+    count. The C layout is ``csrc/phi_fused.cu::phi_fused_smem_bytes``; at
+    most 114 048 bytes (T = 95), under the 227 KB a block may use."""
+    return _BM * fused_tc(T) * 24 + 4 * _BM + 8 * _FIRST_LIST * 4 + 256 * 32 * 4
 
 
 def stripe_active_sets(a2: torch.Tensor, patterns: torch.Tensor, p_active: int,

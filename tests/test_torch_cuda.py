@@ -33,7 +33,7 @@ from repro_torch.kernels.phi_attention import (
 from repro_torch.core.assign import pack_l2_coo_jit
 from repro_torch.kernels.matcher import matcher_cuda, matcher_plain
 from repro_torch.kernels.phi_fused import (
-    pack_patterns, phi_fused_cuda, phi_fused_plain, phi_fused_prefetch_cuda,
+    fused_smem_bytes, pack_patterns, phi_fused_cuda, phi_fused_plain, phi_fused_prefetch_cuda,
     phi_fused_prefetch_plain, phi_fused_stream_cuda, stream_smem_bytes, stripe_active_sets)
 from repro_torch.kernels.phi_gather import l1_gather_cuda, l1_gather_plain
 from repro_torch.kernels.phi_spmm import l2_spmm_cuda, l2_spmm_plain
@@ -224,6 +224,90 @@ def test_stream_kernel_smem_model_and_refusals(dev):
     with pytest.raises(ValueError, match="shared memory"):
         phi_fused_stream_cuda(a, big, torch.zeros((2, (1 << 14) + 1, 8), device=dev),
                               torch.ones((2, (1 << 14) + 1), device=dev), w, block_m=32)
+
+
+def _planted(M_, T, k, q, N, dev, seed, density=0.2):
+    """Random binary rows whose partitions are planted in the bank with a
+    few bits flipped (so rows match and leave a residual), dyadic w."""
+    g = torch.Generator().manual_seed(seed)
+    a = (torch.rand((M_, T * k), generator=g) < density).float()
+    pats = (torch.rand((T, q, k), generator=g) < density).to(torch.uint8)
+    n = min(M_, q // 2)
+    flips = (torch.rand((T, n, k), generator=g) < 0.05).to(torch.uint8)
+    pats[:, q - n:] = a[:n].reshape(n, T, k).transpose(0, 1).to(torch.uint8) ^ flips
+    w = torch.round(torch.randn((T * k, N), generator=g) * 0.3 * 1024) / 1024
+    a, pats, w = a.to(dev), pats.to(dev), w.to(dev)
+    return a, w, pats, pattern_weight_products(pats, w)
+
+
+# (M, T, k, q, N): what the first kernel's tiles, clusters and chunks meet.
+FIRST_CASES = {
+    "cluster3": (293, 24, 16, 128, 384),       # three 128-column tiles share the match
+    "cluster6": (200, 24, 16, 128, 768),
+    "n10": (293, 24, 16, 128, 10),             # the head's N: scalar loads, one ragged tile
+    "n390": (96, 8, 16, 32, 390),              # N % 4 = 2, a cluster of 4, ragged last tile
+    "n75": (130, 12, 16, 64, 75),
+    "t95": (100, 95, 16, 64, 136),             # the largest whole-T match tile
+    "t100": (70, 100, 16, 32, 72),             # T >= 96 on a direct call: two chunks of 50
+    "t200": (40, 200, 8, 16, 256),             # three chunks of 67/67/66
+    "q512_k64": (96, 6, 64, 512, 256),
+    "k5": (77, 9, 5, 33, 72),                  # k not a multiple of 4: scalar bit packing
+    "k12": (64, 10, 12, 40, 132),
+}
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("case", list(FIRST_CASES))
+def test_fused_kernel_tiles_clusters_and_chunks_match_plain(dev, kind, case):
+    M_, T, k, q, N = FIRST_CASES[case]
+    a, w, pats, pwp = _planted(M_, T, k, q, N, dev, seed=M_ + T + N)
+    pwp, scale = _banks(pwp, kind, dev)
+    before = phi_fused_cuda.launches
+    out, nnz = phi_fused_cuda(a, pats, pwp, scale, w, block_m=64)
+    assert phi_fused_cuda.launches == before + 1
+    pout, pnnz = phi_fused_plain(a, pats, pwp, scale, w, block_m=64)
+    torch.cuda.synchronize()
+    assert torch.equal(out, pout) and torch.equal(nnz, pnnz) and int(nnz.sum()) > 0
+
+
+@pytest.mark.parametrize("M_,T,N", [(293, 24, 384), (256, 36, 128), (100, 72, 256),
+                                    (77, 24, 1536)])
+def test_fused_kernel_equals_the_streaming_kernel_off_the_grid(dev, M_, T, N):
+    # Weights not on a dyadic grid: the sums round, so only the same add
+    # order (L1 and L2 apart, ascending t, ascending residual bit) gives
+    # the same bits.
+    a, _, pats, _ = _planted(M_, T, 16, 128, N, dev, seed=T + N)
+    g = torch.Generator().manual_seed(N)
+    w = torch.randn((T * 16, N), generator=g).to(dev)
+    pwp = pattern_weight_products(pats, w)
+    scale = torch.ones(pwp.shape[:2], device=dev)
+    out, nnz = phi_fused_cuda(a, pats, pwp, scale, w, block_m=64)
+    sout, snnz = phi_fused_stream_cuda(a, pats, pwp, scale, w, block_m=64,
+                                       group_t=ops.stream_group_t(128, 16))
+    torch.cuda.synchronize()
+    assert torch.equal(out, sout) and torch.equal(nnz, snnz) and int(nnz.sum()) > 0
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("M_,bm,N", [(293, 32, 384), (293, 96, 768), (64, 32, 10)])
+def test_prefetch_kernel_stripes_of_one_tile(dev, kind, M_, bm, N):
+    # bm = 32: every 32-row tile is a stripe of its own, with its own sets
+    a, w, pats, pwp = _planted(M_, 24, 16, 128, N, dev, seed=M_ + bm)
+    pwp, scale = _banks(pwp, kind, dev)
+    active = stripe_active_sets(a, pats, 8, bm)
+    out, nnz = phi_fused_prefetch_cuda(a, pats, pwp, scale, w, active, block_m=bm)
+    pout, pnnz = phi_fused_prefetch_plain(a, pats, pwp, scale, w, active, block_m=bm)
+    torch.cuda.synchronize()
+    assert torch.equal(out, pout) and torch.equal(nnz, pnnz) and int(nnz.sum()) > 0
+    with pytest.raises(ValueError, match="multiple of 32"):
+        phi_fused_prefetch_cuda(a, pats, pwp, scale, w, stripe_active_sets(a, pats, 8, 48),
+                                block_m=48)
+
+
+def test_fused_smem_model_is_the_kernels(dev):
+    lib = _build.library()
+    for T in (1, 24, 36, 72, 95, 96, 100, 200, 4000):
+        assert lib.phi_fused_smem_bytes(T) == fused_smem_bytes(T)
 
 
 def test_fused_kernel_refuses_k_above_64(dev):
@@ -502,9 +586,10 @@ def test_kernels_report_their_occupancy(dev):
     assert lib.phi_attention_occupancy(64, 64, 32, 0, 0, 0) >= 1
     assert lib.phi_attention_occupancy(128, 64, 128, 0, 0, 0) == 0      # refused block_q
     for kernel in (0, 1):
-        assert lib.phi_fused_occupancy(kernel, 128, 16, 0, 384) >= 1
-    assert lib.phi_fused_occupancy(2, 128, 16, ops.stream_group_t(128, 16), 384) >= 1
-    assert lib.phi_fused_occupancy(2, 4096, 64, ops.stream_group_t(4096, 64), 72) >= 1
+        assert lib.phi_fused_occupancy(kernel, 128, 16, 0, 384, 24) >= 2
+        assert lib.phi_fused_occupancy(kernel, 512, 64, 0, 384, 95) >= 1
+    assert lib.phi_fused_occupancy(2, 128, 16, ops.stream_group_t(128, 16), 384, 0) >= 1
+    assert lib.phi_fused_occupancy(2, 4096, 64, ops.stream_group_t(4096, 64), 72, 0) >= 1
 
 
 def test_attention_smem_model_is_the_kernels(dev):

@@ -23,6 +23,7 @@ from repro.kernels import dispatch as RD
 from repro.kernels import ops as RO
 from repro_torch.kernels import ATTN_IMPLS, IMPLS, dispatch, ops
 from repro_torch.kernels.phi_attention import SMEM_LIMIT, block_q_ok, smem_bytes
+from repro_torch.kernels.phi_fused import MAX_TC, fused_smem_bytes, fused_tc
 from repro_torch.models import flash as F
 from repro_torch.obs import ListSink, Tracer, set_tracer
 
@@ -537,3 +538,47 @@ def test_checkpoint_helpers_equal_the_reference():
     live = SNNConfig(phi=PhiConfig(impl="coo"))
     assert dispatch.apply_checkpoint_extra(live, {"phi_impl": "pallas"}) is live
     assert dispatch.apply_checkpoint_extra(cfg, None) is cfg
+
+
+# Every spiking GEMM of the two main paths, (M, K, N, T, q, P) at k = 16, and
+# the kernel the Hopper gate gives it: b0_proj and b2_proj carry the P their
+# calibration usage gives (PERF.md §4), the other GEMMs no skew.
+MAIN_PATH_GEMMS = {
+    "spikformer_qkv": ((8192, 384, 1152, 24, 128, None), "fused"),
+    "spikformer_proj": ((8192, 384, 384, 24, 128, None), "fused"),
+    "spikformer_b0_proj": ((8192, 384, 384, 24, 128, 24), "fused_prefetch"),
+    "spikformer_b2_proj": ((8192, 384, 384, 24, 128, 64), "fused_prefetch"),
+    "spikformer_fc1": ((8192, 384, 1536, 24, 128, None), "fused"),
+    "spikformer_fc2": ((8192, 1536, 384, 96, 128, None), "fused_stream"),
+    "spikformer_head": ((128, 384, 10, 24, 128, None), "fused"),
+    "vgg_conv1": ((32768, 576, 128, 36, 128, None), "fused"),
+    "vgg_conv2": ((8192, 1152, 256, 72, 128, None), "fused"),
+    "vgg_conv3": ((2048, 2304, 512, 144, 128, None), "fused_stream"),
+    "vgg_conv4": ((512, 4608, 512, 288, 128, None), "fused_stream"),
+    "vgg_head": ((128, 512, 10, 32, 128, None), "fused"),
+}
+
+
+@pytest.mark.parametrize("gemm", list(MAIN_PATH_GEMMS))
+def test_hopper_gate_routes_every_main_path_gemm(gemm):
+    (M, K, N, T, q, p_active), want = MAIN_PATH_GEMMS[gemm]
+    assert ops.fused_shape_viable(M, K, N, T, q, p_active=p_active) == want
+    if want != "fused_stream":            # the first kernel matches T whole, in one tile
+        assert fused_tc(T) == T and fused_smem_bytes(T) <= SMEM_LIMIT
+
+
+def test_first_kernel_smem_model_and_its_limits():
+    # the match tile, 32 × tc pairs of 24 bytes; 32 row counters; 8 warps'
+    # lists of 256 residual entries of 4 bytes; 256 threads' 32 parked floats
+    assert fused_smem_bytes(24) == 32 * 24 * 24 + 4 * 32 + 8 * 256 * 4 + 256 * 32 * 4 == 59520
+    # T whole up to 95 (the gate sends T < 96 here); past it, the fewest
+    # chunks of at most 95, as even as they go
+    assert [fused_tc(T) for T in (0, 1, 24, 95, 96, 100, 190, 191, 1000)] == \
+        [1, 1, 24, 95, 48, 50, 95, 64, 91]
+    assert ops.STREAM_MIN_T - 1 == MAX_TC
+    # the most any T needs: T = 95 (the bank is read from device memory, so
+    # q and P do not count)
+    assert max(fused_smem_bytes(T) for T in range(1, 4000)) == fused_smem_bytes(95) == 114048
+    assert fused_smem_bytes(95) <= SMEM_LIMIT
+    # at the main paths' T (24, 36, 72) two blocks an SM fit by shared memory
+    assert 2 * fused_smem_bytes(72) <= 228 * 1024
