@@ -107,6 +107,26 @@ def device_profile(fn, wall_ms: float) -> dict:
             "top": [[name[:90], ms, n] for name, ms, n in kernels[:10]]}
 
 
+def kernel_device_ms(fn, name: str, calls: int = 10) -> float:
+    """Device time of one call of ``fn`` spent in kernels whose name holds
+    ``name``, from ``torch.profiler`` over ``calls`` calls after a warm-up:
+    the kernel alone, without its wrapper's host time or other launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(ev.device_time_total for ev in prof.key_averages()
+                if ev.device_type == torch.autograd.DeviceType.CUDA and name in ev.key)
+    if total <= 0:
+        raise AssertionError(f"the profiler saw no device time in a kernel named {name!r}")
+    return total / 1e3 / calls
+
+
 def fused_bound_ms(M, K, N, T, q, k, l2_entries, pwp_rows=None) -> tuple[float, float]:
     """Least time for one fused Phi matmul: bytes (inputs once, output once)
     against HBM, float32 operations of this run's data against the CUDA-core
@@ -617,18 +637,23 @@ def unit_checks(label, a, pats, packed, pwp, w, nnz_budget) -> dict:
     import torch
 
     from repro_torch.kernels.matcher import matcher_cuda, matcher_plain
-    from repro_torch.kernels.phi_gather import l1_gather_cuda, l1_gather_plain
+    from repro_torch.kernels.phi_gather import l1_gather_cuda, l1_gather_plain, make_range_flag
     from repro_torch.kernels.phi_spmm import l2_spmm_cuda, l2_spmm_plain
 
     idx, res = matcher_cuda(a, pats, packed=packed)
     pidx, pres = matcher_plain(a, pats)
     _, _, (br, bc, bs, bm), _ = unit_operands(a, pats, pwp, w, nnz_budget)
     runs = {"matcher": [(idx, pidx), (res, pres)]}
-    runs["l1_gather"] = [(l1_gather_cuda(pidx, bank), l1_gather_plain(pidx, bank))
-                         for bank in (pwp, pwp.to(torch.bfloat16))]
+    flag = make_range_flag(a.device)
+    runs["l1_gather"] = [(gather(pidx, bank), l1_gather_plain(pidx, bank))
+                         for bank in (pwp, pwp.to(torch.bfloat16))
+                         for gather in (l1_gather_cuda,     # the check, and the flag
+                                        lambda i, b: l1_gather_cuda(i, b, range_flag=flag))]
     runs["l2_spmm"] = [(l2_spmm_cuda(br, bc, bs, w, block_m=bm),
                         l2_spmm_plain(br, bc, bs, w, block_m=bm))]
     torch.cuda.synchronize()
+    if int(flag[0]):
+        raise AssertionError(f"{label}: the gather flagged an index the matcher made")
     errs = {}
     for kern, pairs in runs.items():
         errs[kern] = max(float((x.float() - y.float()).abs().max()) if x.numel() else 0.0
@@ -657,9 +682,20 @@ def pallas_path(dev, cfg, params, state, batches, dense_logits, smi) -> dict:
     from repro_torch.kernels.matcher import matcher_cuda, matcher_plain
     from repro_torch.kernels.phi_fused import phi_fused_cuda, phi_fused_stream_cuda
     from repro_torch.kernels.phi_fused import phi_fused_prefetch_cuda
-    from repro_torch.kernels.phi_gather import l1_gather_cuda, l1_gather_plain
+    from repro_torch.kernels.phi_gather import (
+        check_range_flag, l1_gather_cuda, l1_gather_plain, make_range_flag, range_flag_to_host)
     from repro_torch.kernels.phi_spmm import l2_spmm_cuda, l2_spmm_plain
     from repro_torch.snn import models as M
+
+    def flagged_gather(idx, pwp):
+        """The gather as the lowering runs it: the range checked by the kernel's
+        flag, read back once the stream has passed it."""
+        flag = make_range_flag(idx.device)
+        out = l1_gather_cuda(idx, pwp, range_flag=flag)
+        host = range_flag_to_host(flag)
+        torch.cuda.synchronize()
+        check_range_flag(host, idx, pwp.shape[1])
+        return out
 
     pcfg = dataclasses.replace(cfg, phi=dataclasses.replace(cfg.phi, impl="pallas"))
     budget = pcfg.phi.nnz_budget
@@ -741,6 +777,9 @@ def pallas_path(dev, cfg, params, state, batches, dense_logits, smi) -> dict:
         ("l1_gather idx past q", lambda: l1_gather_cuda(
             torch.full((8, 1), 5, dtype=torch.int32, device=dev),
             torch.zeros((1, 5, 8), device=dev)), ValueError),
+        ("l1_gather idx past q, flagged", lambda: flagged_gather(
+            torch.full((8, 1), 5, dtype=torch.int32, device=dev),
+            torch.zeros((1, 5, 8), device=dev)), ValueError),
         ("policy k=128", lambda: dispatch.PhiExecutionPolicy().matmul(
             torch.zeros((8, 512), device=dev), torch.zeros((512, 8), device=dev),
             torch.zeros((4, 8, 128), dtype=torch.uint8, device=dev),
@@ -776,10 +815,19 @@ def pallas_path(dev, cfg, params, state, batches, dense_logits, smi) -> dict:
         table = pwp.reshape(T * (q + 1), N)
         sparse = torch.sparse_coo_tensor(torch.stack([crows[real].long(), ccols[real].long()]),
                                          csigns[real].float(), (M_, K)).coalesce()
+
+        def lowered_gather(idx=idx, pwp=pwp):
+            """The gather as the lowering calls it: a zeroed flag, the kernel,
+            the flag's copy to the host (read at the packer's sync, untimed)."""
+            flag = make_range_flag(dev)
+            out = l1_gather_cuda(idx, pwp, range_flag=flag)
+            range_flag_to_host(flag)
+            return out
+
         calls = {
             "matcher": (lambda: matcher_cuda(a, pats, packed=packed),
                         lambda: matcher_plain(a, pats), None),
-            "l1_gather": (lambda: l1_gather_cuda(idx, pwp), lambda: l1_gather_plain(idx, pwp),
+            "l1_gather": (lowered_gather, lambda: l1_gather_plain(idx, pwp),
                           lambda: F.embedding_bag(bags, table, mode="sum")),
             "l2_spmm": (lambda: l2_spmm_cuda(br, bc, bs, w2, block_m=bm),
                         lambda: l2_spmm_plain(br, bc, bs, w2, block_m=bm),
@@ -789,6 +837,10 @@ def pallas_path(dev, cfg, params, state, batches, dense_logits, smi) -> dict:
             b_ms, o_ms = bounds[kern]
             rows.append({"kernel": kern, "layer": name, "M": M_, "K": K, "N": N, "T": T,
                          "l2_entries": entries, "ms": cuda_time_ms(fn),
+                         "device_ms": kernel_device_ms(fn, kern),
+                         # a direct call: the range checked on the host first
+                         **({"ms_checked": cuda_time_ms(lambda: l1_gather_cuda(idx, pwp))}
+                            if kern == "l1_gather" else {}),
                          "plain_ms": cuda_time_ms(plain, runs=3, warmup=1),
                          "library_ms": None if lib is None else cuda_time_ms(lib),
                          "bytes_ms": b_ms, "ops_ms": o_ms, "bound_ms": max(b_ms, o_ms),
@@ -814,6 +866,9 @@ def pallas_path(dev, cfg, params, state, batches, dense_logits, smi) -> dict:
             "name": kern, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "launches": launches[f"{kern}_cuda"],
             "max_abs_err": unit_errs[kern], "ms": sum(r["ms"] for r in krows),
+            "device_ms": sum(r["device_ms"] for r in krows),
+            **({"ms_checked": sum(r["ms_checked"] for r in krows)}
+               if kern == "l1_gather" else {}),
             "plain_ms": sum(r["plain_ms"] for r in krows), "bound_ms": b_ms, "bound_by": by,
             "library_ms": None if kern == "matcher" else sum(r["library_ms"] for r in krows)})
     return entries

@@ -308,13 +308,18 @@ class PhiExecutionPolicy:
                 f"no Phi kernel takes site {site!r}: bank T={t} × k={k_dim // max(t, 1)} "
                 f"with q={q} (every kernel takes k <= {MAX_K}; q > 512 needs a streaming "
                 "stage that fits 227 KB of shared memory); the card has no plain fallback")
-        if d.impl in ("fused", "fused_prefetch"):
-            d = dataclasses.replace(d, blocks=(ops.FUSED_BLOCK_M, 0))
+        # blocks[0]: the l2_nnz counter's rows and the prefetch stripe, by the
+        # reference's rule; the kernels' own tiles do not depend on it.
+        if d.impl == "fused":
+            d = dataclasses.replace(d, blocks=(ops.autotune_fused_blocks(m, k_dim, n, q, t)[0],
+                                               0))
         elif d.impl == "fused_stream":
-            d = dataclasses.replace(
-                d, blocks=(ops.FUSED_BLOCK_M, ops.stream_group_t(q, k_dim // t)))
-        if d.impl == "fused_prefetch":
-            d = dataclasses.replace(d, usage_ratio=usage_ratio, p_active=p_active)
+            d = dataclasses.replace(d, blocks=(ops.autotune_stream_blocks(m, k_dim, n, q, t)[0],
+                                               ops.stream_group_t(q, k_dim // t)))
+        elif d.impl == "fused_prefetch":
+            bm = ops.autotune_prefetch_blocks(m, k_dim, n, q, t, p_active)[0]
+            d = dataclasses.replace(d, blocks=(bm, 0), usage_ratio=usage_ratio,
+                                    p_active=p_active)
             # From the site's second execution on, its aggregated runtime
             # match histogram supplies the gather sets: no pre-pass.
             rt_hist = self.runtime_usage_for(site)

@@ -35,14 +35,10 @@ from repro_torch.kernels.phi_attention import (
 from repro_torch.kernels.phi_fused import (
     MAX_GROUP_T, MAX_K, MAX_Q, phi_fused_cuda, phi_fused_prefetch_cuda, phi_fused_stream_cuda,
     stream_smem_bytes, stripe_active_sets)
-from repro_torch.kernels.phi_gather import l1_gather_cuda
+from repro_torch.kernels.phi_gather import (
+    check_range_flag, l1_gather_cuda, make_range_flag, range_flag_to_host)
 from repro_torch.kernels.phi_spmm import l2_spmm_cuda
 from repro_torch.utils import cdiv, pad_rows
-
-# Rows per l2_nnz audit block when the caller names none (the reference
-# kernel's default block_m). The CUDA kernel's own tiles are fixed in
-# csrc/phi_fused.cu and do not depend on it.
-FUSED_BLOCK_M = 256
 
 
 def effective_block_m(M: int, block_m: int) -> int:
@@ -93,15 +89,18 @@ def matcher(a: torch.Tensor, patterns: torch.Tensor, *, block_m: int = 256,
 
 # -------------------------------------------------------------- L1 gather ---
 def l1_gather(idx: torch.Tensor, pwp: torch.Tensor, *, block_m: int = 256,
-              block_n: int = 256, mode: str = "mxu") -> torch.Tensor:
+              block_n: int = 256, mode: str = "mxu",
+              range_flag: torch.Tensor | None = None) -> torch.Tensor:
     """idx (..., T) in [0, q] -> (..., N): the sum of the indexed PWP rows.
-    ``block_m`` is the reference's row block: the kernel masks ragged M."""
+    ``block_m`` is the reference's row block: the kernel masks ragged M.
+    ``range_flag``: as :func:`phi_gather.l1_gather_cuda` takes it."""
     _check_mode(mode)
     lead = idx.shape[:-1]
     T = idx.shape[-1]
     N = pwp.shape[-1]
     _pick_block_n(N, block_n)
-    out = l1_gather_cuda(idx.reshape(-1, T).to(torch.int32).contiguous(), pwp.contiguous())
+    out = l1_gather_cuda(idx.reshape(-1, T).to(torch.int32).contiguous(), pwp.contiguous(),
+                         range_flag=range_flag)
     return out.reshape(*lead, N)
 
 
@@ -204,6 +203,82 @@ def l2_spmm(rows: torch.Tensor, cols: torch.Tensor, signs: torch.Tensor, w: torc
     return l2_spmm_cuda(br, bc, bs, w, block_m=bm)[:m]
 
 
+# ------------------------------------------------- the counter's block rule ---
+# The rows of one l2_nnz counter block and one prefetch stripe, as the
+# reference picks them: its autotuners' heuristic (unmeasured) branch, the
+# largest (block_m, block_n) whose modelled working set stays under an 8 MiB
+# budget. The budget and the working-set models are the reference's rule for
+# its TPU kernels, kept so that both packages count l2_nnz over the same rows;
+# they say nothing of this card. The CUDA kernels' own tiles (32 rows, 128
+# columns) and the streaming kernel's group (``stream_group_t``) do not depend
+# on them. The reference's measured branch times its Pallas kernels on a TPU
+# and has no counterpart here.
+REF_COUNTER_BLOCK_BUDGET_BYTES = 8 * 1024 * 1024
+
+
+def _fused_vmem_bytes(bm: int, bn: int, K: int, T: int, q: int) -> int:
+    """The reference's model of its first fused kernel's f32 working set."""
+    return 4 * (bm * K + T * q * (K // T) + T * (q + 1) * bn + K * bn + 3 * bm * bn)
+
+
+def _fused_candidates(M: int, N: int) -> list[tuple[int, int]]:
+    bms = [bm for bm in (128, 256) if bm <= max(8, 1 << (M - 1).bit_length())]
+    bns = [bn for bn in (128, 256, 512) if N % bn == 0] or [N]
+    return [(bm, bn) for bm in bms or [128] for bn in bns]
+
+
+def _stream_vmem_bytes(bm: int, bn: int, K: int, T: int, q: int, gt: int) -> int:
+    """The reference's model of its streaming kernel's f32 working set: two
+    stages of ``gt`` partitions, the resident scales, three output blocks."""
+    k = K // T
+    return 4 * (2 * gt * (bm * k + q * k + (q + 1) * bn + k * bn) + T * (q + 1)
+                + 3 * bm * bn)
+
+
+def _stream_candidates(M: int, N: int, T: int) -> list[tuple[int, int, int]]:
+    gts = [gt for gt in (8, 4, 2, 1) if T % gt == 0]
+    return [(bm, bn, gt) for bm, bn in _fused_candidates(M, N) for gt in gts]
+
+
+def _prefetch_vmem_bytes(bm: int, bn: int, K: int, T: int, q: int, p_active: int) -> int:
+    """The reference's model of its prefetching kernel's f32 working set: the
+    first kernel's, with the banks cut to the P active rows (+1)."""
+    return 4 * (bm * K + T * p_active * (K // T) + T * (p_active + 1) * bn + K * bn
+                + 3 * bm * bn)
+
+
+def _pick_blocks(cands: list, size, key) -> tuple:
+    """The largest candidate (by ``key``) under the budget; where none fits,
+    the smallest working set."""
+    fit = [c for c in cands if size(c) <= REF_COUNTER_BLOCK_BUDGET_BYTES]
+    return max(fit, key=key) if fit else min(cands, key=size)
+
+
+def autotune_fused_blocks(M: int, K: int, N: int, q: int, T: int) -> tuple[int, int]:
+    """(block_m, block_n) of the reference's ``autotune_fused_blocks``,
+    heuristic branch; only block_m is used here (the counter's block)."""
+    return _pick_blocks(_fused_candidates(M, N),
+                        lambda c: _fused_vmem_bytes(c[0], c[1], K, T, q),
+                        lambda c: (c[0] * c[1], c[1]))
+
+
+def autotune_stream_blocks(M: int, K: int, N: int, q: int, T: int) -> tuple[int, int, int]:
+    """(block_m, block_n, group_t) of the reference's
+    ``autotune_stream_blocks``, heuristic branch; only block_m is used here:
+    the streaming kernel's group is :func:`stream_group_t`."""
+    return _pick_blocks(_stream_candidates(M, N, T),
+                        lambda c: _stream_vmem_bytes(c[0], c[1], K, T, q, c[2]),
+                        lambda c: (c[0] * c[1], c[2], c[1]))
+
+
+def autotune_prefetch_blocks(M: int, K: int, N: int, q: int, T: int,
+                             p_active: int) -> tuple[int, int]:
+    """(block_m, block_n) of the reference's ``autotune_prefetch_blocks``,
+    heuristic branch; block_m is the counter's block and the stripe."""
+    return _pick_blocks(_fused_candidates(M, N),
+                        lambda c: _prefetch_vmem_bytes(c[0], c[1], K, T, q, p_active),
+                        lambda c: (c[0] * c[1], c[1]))
+
 
 def _fused_prologue(a2: torch.Tensor, pwp: torch.Tensor, pwp_scale: torch.Tensor | None,
                     T: int, q: int, block_m: int) -> tuple[int, torch.Tensor]:
@@ -229,17 +304,18 @@ def phi_fused(a: torch.Tensor, patterns: torch.Tensor, pwp: torch.Tensor, w: tor
 
     a (..., K) binary × w (K, N) -> ((..., N) f32, l2_nnz (num_m_blocks,)
     int32). ``l2_nnz`` counts residual entries per block of ``block_m`` rows
-    (default :data:`FUSED_BLOCK_M`). Exact for any L2 budget: nothing is
-    dropped. pwp may be f32/bf16 (pwp_scale None) or int8 with per-row
-    scales from ``quantize_pwp``. ``packed`` is the bank as the CUDA kernel
-    reads it (``pack_patterns``), made once by the caller.
+    (default: the reference's rule, :func:`autotune_fused_blocks`). Exact for
+    any L2 budget: nothing is dropped. pwp may be f32/bf16 (pwp_scale None) or
+    int8 with per-row scales from ``quantize_pwp``. ``packed`` is the bank as
+    the CUDA kernel reads it (``pack_patterns``), made once by the caller.
     """
     lead = a.shape[:-1]
     K = a.shape[-1]
     T, q, k = patterns.shape
     N = w.shape[-1]
     a2 = a.reshape(-1, K)
-    bm, pwp_scale = _fused_prologue(a2, pwp, pwp_scale, T, q, block_m or FUSED_BLOCK_M)
+    block_m = block_m or autotune_fused_blocks(a2.shape[0], K, N, q, T)[0]
+    bm, pwp_scale = _fused_prologue(a2, pwp, pwp_scale, T, q, block_m)
     # Binary activations and bf16 weights are exact in float32 (the
     # reference kernel widens both the same way); no copy when already f32.
     out, nnz = phi_fused_cuda(a2.to(torch.float32).contiguous(), patterns, pwp, pwp_scale,
@@ -270,7 +346,8 @@ def phi_fused_stream(a: torch.Tensor, patterns: torch.Tensor, pwp: torch.Tensor,
     T, q, k = patterns.shape
     N = w.shape[-1]
     a2 = a.reshape(-1, K)
-    bm, pwp_scale = _fused_prologue(a2, pwp, pwp_scale, T, q, block_m or FUSED_BLOCK_M)
+    block_m = block_m or autotune_stream_blocks(a2.shape[0], K, N, q, T)[0]
+    bm, pwp_scale = _fused_prologue(a2, pwp, pwp_scale, T, q, block_m)
     group_t = group_t or stream_group_t(q, k)
     if group_t is None:
         raise ValueError(f"phi_fused_stream: no stage of q={q}, k={k} fits shared memory")
@@ -315,7 +392,8 @@ def phi_fused_prefetch(a: torch.Tensor, patterns: torch.Tensor, pwp: torch.Tenso
             raise ValueError("usage histogram shows no exploitable skew; use impl='fused'")
         p_active = int(active_sets.shape[-1])
     p_active = min(int(p_active), q)
-    bm, pwp_scale = _fused_prologue(a2, pwp, pwp_scale, T, q, block_m or FUSED_BLOCK_M)
+    block_m = block_m or autotune_prefetch_blocks(a2.shape[0], K, N, q, T, p_active)[0]
+    bm, pwp_scale = _fused_prologue(a2, pwp, pwp_scale, T, q, block_m)
     a2 = a2.to(torch.float32).contiguous()
     hist = None
     if runtime_sets is not None:
@@ -436,7 +514,7 @@ def _phi_matmul_coo_chunked(a2: torch.Tensor, w: torch.Tensor, patterns: torch.T
 
 # -------------------------------------------------------------- composite ---
 def phi_matmul(a: torch.Tensor, w: torch.Tensor, patterns: torch.Tensor, pwp: torch.Tensor,
-               *, impl: str = "fused", nnz_budget: float = 0.08,
+               *, impl: str = "pallas", nnz_budget: float = 0.08,
                block_m: int | None = None, block_n: int | None = None,
                gather_dtype: torch.dtype | None = None,
                pwp_scale: torch.Tensor | None = None,
@@ -458,11 +536,13 @@ def phi_matmul(a: torch.Tensor, w: torch.Tensor, patterns: torch.Tensor, pwp: to
                          ``phi_l2_audit`` counts them); blocks default to 256;
       "coo"            — the row-chunked gather/scatter lowering in plain PyTorch;
       "ref"            — the dense L2 oracle.
-    ``nnz_budget`` (the static L2 capacity as a fraction of M·K, or of the
-    chunk's rows × K) applies to "pallas" and "coo"; ``packed`` (the bank
-    from ``pack_patterns``) to the kernels that match. "pallas" refuses an
-    int8 bank: the reference's lowering passes no scales to its gather and
-    would sum unscaled int8 rows.
+    The default is "pallas", as the reference's. ``nnz_budget`` (the static
+    L2 capacity as a fraction of M·K, or of the chunk's rows × K) applies to
+    "pallas" and "coo"; ``packed`` (the bank from ``pack_patterns``) to the
+    kernels that match. "pallas" refuses an int8 bank: the reference's
+    lowering passes no scales to its gather and would sum unscaled int8 rows.
+    ``block_m`` None gives the fused lowerings the reference's counter block
+    (:func:`autotune_fused_blocks` and its two siblings).
     """
     if impl not in IMPLS:
         raise ValueError(f"impl {impl!r} not in {IMPLS}")
@@ -501,9 +581,16 @@ def _phi_matmul_pallas(a2: torch.Tensor, w: torch.Tensor, patterns: torch.Tensor
                          "rows); use an f32/bf16 bank or a fused lowering")
     M, K = a2.shape
     idx, residual = matcher(a2, patterns, block_m=block_m, packed=packed)
+    # The gather goes ahead of the packer and checks its indices' range on the
+    # card; the flag's copy is read after the packer's torch.nonzero, which
+    # waits for the stream, so the check costs no wait of its own.
+    flag = make_range_flag(idx.device) if idx.is_cuda else None
+    out1 = l1_gather(idx, pwp, block_m=block_m, block_n=block_n, range_flag=flag)
+    flag_host = None if flag is None else range_flag_to_host(flag)
     cap = max(128, int(nnz_budget * M * K))
     rows, cols, signs, _ = pack_l2_coo_jit(residual, cap)   # torch.nonzero: one sync
-    out1 = l1_gather(idx, pwp, block_m=block_m, block_n=block_n)   # reads idx's range
+    if flag_host is not None:
+        check_range_flag(flag_host, idx, pwp.shape[1])
     per_block = l2_per_block_cap(nnz_budget, block_m, K, cap)
     out2 = l2_spmm(rows, cols, signs, w.to(torch.float32), M, block_m=block_m,
                    block_n=block_n, cap=per_block)

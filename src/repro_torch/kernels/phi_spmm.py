@@ -6,8 +6,9 @@ entries as ``ops.bucket_coo`` lays them out ((G, C) local rows, columns and
 signs; the sentinel local row ``bm`` vanishes). Rows without entries come
 out zero. The reference's ``"take"`` and ``"mxu"`` modes select the same
 values; this single gather serves both (``ops.l2_spmm`` takes ``mode``).
-The CUDA source is ``csrc/phi_spmm.cu``: no floating-point atomics, each
-output summed from zero in entry order.
+The CUDA source is ``csrc/phi_spmm.cu``: a warp per few rows and 128
+columns (:func:`spmm_rows_per_warp`), no floating-point atomics, each output
+summed from zero in entry order.
 
 :func:`l2_spmm_cuda` chooses by the device of its tensors: CPU tensors run
 :func:`l2_spmm_plain`; CUDA tensors launch the kernel, counted in
@@ -18,6 +19,22 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.utils import cdiv
+
+# Columns a warp owns (4 a lane), and the warps the grid should hold: 32 an SM
+# of the H100's 132, half of what an SM keeps resident.
+SPMM_SLICE = 128
+SPMM_TARGET_WARPS = 132 * 32
+
+
+def spmm_rows_per_warp(G: int, bm: int, N: int) -> int:
+    """Rows a warp of the kernel owns: the most (16, 8, 4, 2) that still give
+    the grid :data:`SPMM_TARGET_WARPS` warps, else 1. Fewer rows a warp mean
+    more warps and more entry-range searches."""
+    slices = cdiv(N, SPMM_SLICE)
+    return next((rpw for rpw in (16, 8, 4, 2)
+                 if G * cdiv(bm, rpw) * slices >= SPMM_TARGET_WARPS), 1)
+
 
 def l2_spmm_plain(rows: torch.Tensor, cols: torch.Tensor, signs: torch.Tensor,
                   w: torch.Tensor, *, block_m: int) -> torch.Tensor:
@@ -60,11 +77,13 @@ def l2_spmm_cuda(rows: torch.Tensor, cols: torch.Tensor, signs: torch.Tensor,
     if G == 0 or N == 0 or C == 0:                      # no entries: every row is zero
         return torch.zeros((G * block_m, N), dtype=torch.float32, device=w.device)
     out = torch.empty((G * block_m, N), dtype=torch.float32, device=w.device)
+    vec = int(N % 4 == 0 and w.data_ptr() % 16 == 0)    # 16-byte column loads
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream
         err = _build.library().l2_spmm_launch(rows.data_ptr(), cols.data_ptr(),
                                               signs.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                              G, C, block_m, N, stream)
+                                              G, C, block_m, N,
+                                              spmm_rows_per_warp(G, block_m, N), vec, stream)
     _build.check(err, "l2_spmm_launch")
     l2_spmm_cuda.launches += 1
     return out

@@ -35,7 +35,8 @@ from repro_torch.kernels.matcher import matcher_cuda, matcher_plain
 from repro_torch.kernels.phi_fused import (
     fused_smem_bytes, pack_patterns, phi_fused_cuda, phi_fused_plain, phi_fused_prefetch_cuda,
     phi_fused_prefetch_plain, phi_fused_stream_cuda, stream_smem_bytes, stripe_active_sets)
-from repro_torch.kernels.phi_gather import l1_gather_cuda, l1_gather_plain
+from repro_torch.kernels.phi_gather import (
+    check_range_flag, l1_gather_cuda, l1_gather_plain, make_range_flag, range_flag_to_host)
 from repro_torch.kernels.phi_spmm import l2_spmm_cuda, l2_spmm_plain
 from repro_torch.models.flash import flash_attention
 from repro_torch.snn import models as M
@@ -408,6 +409,139 @@ def test_l2_spmm_kernel_matches_plain(dev, M_, K, bm):
                        l2_spmm_plain(br, bc, bs, wd.to(dev), block_m=bm))
     assert torch.equal(l2_spmm_cuda(br, bc, bs, wd.to(dev), block_m=bm)[:M_].cpu(),
                        r.float() @ wd)
+
+
+def _spmm_operands(dev, M_, K, bm, seed, density=0.1, full_row=None, empty_rows=(),
+                   empty_block=None):
+    """A ±1 residual (M_, K), its COO bucketed per bm rows, and the residual."""
+    g = torch.Generator().manual_seed(seed)
+    r = (torch.randint(0, 2, (M_, K), generator=g) * 2 - 1).to(torch.int8)
+    r[torch.rand((M_, K), generator=g) > density] = 0
+    if full_row is not None:                       # an entry in every column
+        r[full_row] = (torch.randint(0, 2, (K,), generator=g) * 2 - 1).to(torch.int8)
+    for row in empty_rows:
+        r[row] = 0
+    if empty_block is not None:                    # a block of sentinels only
+        r[empty_block * bm:(empty_block + 1) * bm] = 0
+    rows, cols, signs, _ = pack_l2_coo_jit(r.to(dev), M_ * K)
+    G = -(-M_ // bm)
+    br, bc, bs, dropped = ops.bucket_coo(rows, cols, signs, G * bm, bm, bm * K)
+    assert int(dropped) == 0
+    return br, bc, bs, r
+
+
+# (M, K, bm, density, full row, empty rows, all-sentinel block)
+SPMM_CASES = {
+    # a row of 300 entries (past the 4 in flight and the 32 a warp loads),
+    # empty rows at every block edge, the middle block all sentinels
+    "long_row_edges": (768, 300, 256, 0.1, 5, (0, 255, 256, 511, 512, 767), 1),
+    "g1_bm8": (5, 40, 8, 0.3, None, (), None),     # one block of 8 rows, 3 of them padding
+    "many_rows_a_warp": (16384, 64, 256, 0.05, 77, (0, 4095), None),   # 2 to 8 rows a warp
+}
+
+
+@pytest.mark.parametrize("N", [10, 72, 130, 512])
+@pytest.mark.parametrize("case", list(SPMM_CASES))
+def test_l2_spmm_kernel_edge_cases(dev, case, N):
+    """Bitwise equal to the plain version on weights off the dyadic grid (the
+    kernel sums each output in entry order), and to r @ w on dyadic ones; N
+    of 10 and 130 take the scalar columns, 72 and 512 the 16-byte ones."""
+    M_, K, bm, density, full_row, empty_rows, empty_block = SPMM_CASES[case]
+    br, bc, bs, r = _spmm_operands(dev, M_, K, bm, seed=M_ + N, density=density,
+                                   full_row=full_row, empty_rows=empty_rows,
+                                   empty_block=empty_block)
+    if empty_block is not None:
+        assert int((bs[empty_block] != 0).sum()) == 0
+    w = torch.randn((K, N), generator=torch.Generator().manual_seed(N))   # not dyadic
+    before = l2_spmm_cuda.launches
+    out = l2_spmm_cuda(br, bc, bs, w.to(dev), block_m=bm)
+    assert l2_spmm_cuda.launches == before + 1
+    want = l2_spmm_plain(br.cpu(), bc.cpu(), bs.cpu(), w, block_m=bm)   # entry order
+    torch.cuda.synchronize()
+    assert torch.equal(out.cpu(), want)
+    wd = torch.round(w * 1024) / 1024
+    got = l2_spmm_cuda(br, bc, bs, wd.to(dev), block_m=bm)
+    assert torch.equal(got[:M_].cpu(), r.float() @ wd)
+    assert int(got[M_:].abs().sum()) == 0                 # padding rows: zeros
+
+
+# (M, T, q, N): rows past the last block's 8, fewer rows than a block, conv4's
+# T = 288 with q = 128, N not a multiple of 4 (one column a lane), N past one
+# 128-column slice, conv3's shape
+GATHER_CASES = {
+    "ragged_m": (700, 9, 33, 64),
+    "below_one_block": (5, 5, 33, 96),
+    "t288": (300, 288, 128, 64),
+    "n10": (293, 7, 33, 10),
+    "n130": (64, 9, 33, 130),
+    "n72": (300, 7, 63, 72),
+    "conv3": (2048, 144, 128, 512),
+}
+
+
+def _gather_operands(dev, M_, T, q, N, kind, seed):
+    g = torch.Generator().manual_seed(seed)
+    idx = torch.randint(0, q + 1, (M_, T), generator=g, dtype=torch.int32).to(dev)
+    pwp = torch.randn((T, q + 1, N), generator=g)                 # not dyadic
+    pwp[:, q] = 0
+    return idx, pwp.to(dev, torch.bfloat16 if kind == "bf16" else torch.float32)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("case", list(GATHER_CASES))
+def test_l1_gather_kernels_match_plain(dev, case, kind):
+    M_, T, q, N = GATHER_CASES[case]
+    idx, pwp = _gather_operands(dev, M_, T, q, N, kind, seed=M_ + T)
+    want = l1_gather_plain(idx, pwp)
+    flag = make_range_flag(dev)
+    before = l1_gather_cuda.launches
+    got = l1_gather_cuda(idx, pwp)
+    flagged = l1_gather_cuda(idx, pwp, range_flag=flag)
+    assert l1_gather_cuda.launches == before + 2
+    torch.cuda.synchronize()
+    assert torch.equal(got, want) and torch.equal(flagged, want)
+    assert int(flag[0]) == 0
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16"])
+@pytest.mark.parametrize("N", [64, 10])
+def test_l1_gather_flags_an_index_outside_the_bank_and_reads_no_bank_row(dev, kind, N):
+    """Indices far outside the bank (2^30, -2^31) would fault if read: the
+    kernel sets the flag, reads nothing for them, and every other row equals
+    the plain version (vector and scalar columns)."""
+    idx, pwp = _gather_operands(dev, 300, 9, 33, N, kind, seed=N)
+    bad_rows = [3, 150, 299]
+    for row, (t, v) in zip(bad_rows, [(0, -1), (4, 2 ** 30), (8, -2 ** 31)]):
+        idx[row, t] = v
+    flag = make_range_flag(dev)
+    out = l1_gather_cuda(idx, pwp, range_flag=flag)
+    host = range_flag_to_host(flag)
+    torch.cuda.synchronize()
+    assert int(host[0]) == 1
+    keep = torch.ones(300, dtype=torch.bool)
+    keep[bad_rows] = False
+    good = idx[keep.to(dev)].contiguous()
+    assert torch.equal(out[keep.to(dev)], l1_gather_plain(good, pwp))
+    with pytest.raises(ValueError, match="outside the bank's rows"):
+        check_range_flag(host, idx, 34)
+
+
+def test_pallas_lowering_refuses_a_flagged_gather_after_launching_it(dev, monkeypatch):
+    """The lowering launches the gather with a flag and refuses the result
+    once the packer's sync has passed it; the gather itself ran."""
+    a, w, pats, pwp = _setup(64, 32, 8, 4, dev)
+    real = ops.matcher
+
+    def bad_matcher(*args, **kw):
+        idx, res = real(*args, **kw)
+        idx[7, 1] = 9                                 # past the bank's 5 rows
+        return idx, res
+
+    monkeypatch.setattr(ops, "matcher", bad_matcher)
+    before = l1_gather_cuda.launches
+    with pytest.raises(ValueError, match="outside the bank's rows"):
+        ops.phi_matmul(a, w, pats, pwp, impl="pallas")
+    assert l1_gather_cuda.launches == before + 1
 
 
 def test_unit_kernels_refuse_what_they_cannot_take(dev):

@@ -582,3 +582,68 @@ def test_first_kernel_smem_model_and_its_limits():
     assert fused_smem_bytes(95) <= SMEM_LIMIT
     # at the main paths' T (24, 36, 72) two blocks an SM fit by shared memory
     assert 2 * fused_smem_bytes(72) <= 228 * 1024
+
+
+# The counter's block: the reference's autotuners (heuristic branch) at every
+# main-path GEMM and at odd shapes (M below 128, N with no 128-multiple
+# divisor, a T that no group divides, a wide bank past the budget).
+ODD_GEMMS = {"tiny_m": (40, 96, 72, 6, 16, None), "n_130": (300, 192, 130, 12, 64, 8),
+             "t_7": (1000, 112, 256, 7, 32, 4), "wide_bank": (4096, 4096, 1024, 64, 512, 100)}
+BLOCK_GEMMS = {**{name: shape for name, (shape, _) in MAIN_PATH_GEMMS.items()}, **ODD_GEMMS}
+
+
+@pytest.mark.parametrize("gemm", list(BLOCK_GEMMS))
+def test_block_rule_equals_the_reference_autotuners(gemm):
+    M, K, N, T, q, p_active = BLOCK_GEMMS[gemm]
+    assert ops.autotune_fused_blocks(M, K, N, q, T) == \
+        RO.autotune_fused_blocks(M, K, N, q, T, measure=False)
+    assert ops.autotune_stream_blocks(M, K, N, q, T) == \
+        RO.autotune_stream_blocks(M, K, N, q, T, measure=False)
+    for p in {p_active or 16, 24, 64}:
+        assert ops.autotune_prefetch_blocks(M, K, N, q, T, p) == \
+            RO.autotune_prefetch_blocks(M, K, N, q, T, p, measure=False)
+
+
+@pytest.mark.parametrize("gemm", list(MAIN_PATH_GEMMS))
+def test_policy_blocks_are_the_references_counter_block(gemm, monkeypatch):
+    """Each main-path GEMM's decision carries the reference's block_m (the
+    counter's rows and the prefetch stripe); the streaming row keeps the
+    port's own group."""
+    monkeypatch.delenv("PHI_IMPL", raising=False)
+    (M, K, N, T, q, p_active), impl = MAIN_PATH_GEMMS[gemm]
+    usage = None if p_active is None else _usage(T, q, p_active // 2)   # a skewed site
+    kw = dict(site="s", m=M, k_dim=K, n=N, t=T, q=q, usage=usage)
+    want = RD.PhiExecutionPolicy(telemetry=False).resolve(**kw)
+    for device in ("cpu", "cuda"):
+        got = dispatch.PhiExecutionPolicy().resolve(device=device, **kw)
+        assert got.impl == want.impl == impl and got.p_active == want.p_active
+        assert got.blocks[0] == want.blocks[0]
+        assert got.blocks[1] == (ops.stream_group_t(q, K // T) if impl == "fused_stream" else 0)
+    if gemm == "spikformer_fc1":
+        assert want.blocks[0] == 128
+
+
+def test_fc1_telemetry_counts_l2_nnz_per_the_references_block(monkeypatch):
+    """One GEMM of fc1's K, N, T and q through the port's policy: its site's
+    counter block is the reference's 128 rows (not 256), and the peak block
+    is the reference kernel's own l2_nnz at block_m = 128."""
+    monkeypatch.delenv("PHI_IMPL", raising=False)
+    M, K, N, T, q = 300, 384, 1536, 24, 128
+    a, w, pats, pwp = _operands(M, K, N, q, seed=11)
+    _, want_nnz = RO.phi_fused(*(jnp.asarray(x) for x in (a, pats, pwp, w)), block_m=128)
+    pol = dispatch.PhiExecutionPolicy()
+    out = pol.matmul(t(a), t(w), t(pats), t(pwp), site="snn.fc1")
+    np.testing.assert_array_equal(out.numpy(), a @ w)
+    d = pol.last_decision("snn.fc1")
+    assert (d.impl, d.blocks) == ("fused", (128, 0))
+    (row,) = pol.site_telemetry("snn.fc1")
+    assert (row["executions"], row["impl"]) == (1, "fused")
+    (b,) = pol.report()["packer_budgets"]
+    assert (b.block_m, b.rows, b.k_dim) == (128, M, K)
+    assert b.l2_nnz_max_block == int(np.max(want_nnz)) == b.cap_required
+    assert b.l2_nnz_total == int(np.sum(want_nnz))
+    # the reference's counters on the same feed give the same packer view
+    ref_pol = RD.PhiExecutionPolicy(telemetry=False)
+    ref_pol._record_nnz("snn.fc1", 128, K, M, np.asarray(want_nnz))
+    (rb,) = ref_pol.report()["packer_budgets"]
+    assert dataclasses.asdict(rb) == dataclasses.asdict(b)

@@ -25,8 +25,9 @@ from repro_torch.core.assign import pack_l2_coo_jit
 from repro_torch.core.patterns import quantize_pwp
 from repro_torch.kernels import ops
 from repro_torch.kernels.matcher import matcher_cuda, matcher_plain
-from repro_torch.kernels.phi_gather import l1_gather_cuda, l1_gather_plain
-from repro_torch.kernels.phi_spmm import l2_spmm_cuda, l2_spmm_plain
+from repro_torch.kernels.phi_gather import (
+    check_range_flag, l1_gather_cuda, l1_gather_plain, make_range_flag)
+from repro_torch.kernels.phi_spmm import l2_spmm_cuda, l2_spmm_plain, spmm_rows_per_warp
 
 
 def _setup(M, K, N, q, seed=0, dyadic_w=True):
@@ -286,3 +287,95 @@ def test_phi_matmul_pallas_refuses_an_int8_bank():
             ops.phi_matmul(t(a), t(w), t(pats), q8, impl="pallas", **kw)
     # the fused lowerings take it, with its scales
     ops.phi_matmul(t(a), t(w), t(pats), q8, impl="fused", pwp_scale=scale)
+
+
+def test_phi_matmul_defaults_are_the_references():
+    """Every keyword both packages' ``phi_matmul`` take has the same default;
+    the lowering a caller gets without naming one is the budgeted "pallas"."""
+    import inspect
+
+    ours = inspect.signature(ops.phi_matmul).parameters
+    theirs = inspect.signature(RO.phi_matmul).parameters
+    shared = [name for name in theirs if name in ours]
+    assert {"impl", "nnz_budget", "block_m", "block_n", "pwp_scale", "usage",
+            "p_active"} <= set(shared)
+    for name in shared:
+        assert ours[name].default == theirs[name].default, name
+    assert ours["impl"].default == "pallas"
+
+
+@pytest.mark.parametrize("budget", [0.02, 0.005])
+def test_phi_matmul_without_an_impl_equals_the_references_at_an_overflowing_budget(budget):
+    rng = np.random.default_rng(4)
+    a = binary(rng, (300, 64), 0.2)
+    w = dyadic(rng.standard_normal((64, 24)).astype(np.float32))
+    pats = RP.calibrate(a, RP.PhiConfig(k=16, q=8, iters=3))
+    pwp = np.asarray(RP.pattern_weight_products(jnp.asarray(pats), jnp.asarray(w)))
+    got = ops.phi_matmul(t(a), t(w), t(pats), t(pwp), nnz_budget=budget)
+    want = RO.phi_matmul(*(jnp.asarray(x) for x in (a, w, pats, pwp)), nnz_budget=budget)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not np.array_equal(got.numpy(), a @ w)          # the budget dropped entries
+
+
+@pytest.mark.parametrize("bad", [-1, 32, 2 ** 30])
+def test_l1_gather_with_a_range_flag_refuses_on_the_cpu_as_the_plain_does(bad):
+    """On CPU tensors the wrapper runs the plain version, which checks the
+    range itself: a flag changes nothing there."""
+    rng = np.random.default_rng(5)
+    T, q = 4, 31
+    idx = rng.integers(0, q + 1, (40, T)).astype(np.int32)
+    idx[11, 3] = bad
+    pwp = t(rng.standard_normal((T, q + 1, 16)).astype(np.float32))
+    flag = make_range_flag(torch.device("cpu"))
+    for call in (lambda: l1_gather_plain(t(idx), pwp),
+                 lambda: l1_gather_cuda(t(idx), pwp, range_flag=flag),
+                 lambda: ops.l1_gather(t(idx), pwp, range_flag=flag)):
+        with pytest.raises(ValueError, match=rf"idx spans \[{min(bad, 0)}, {max(bad, q)}\], "
+                                             "outside the bank's rows"):
+            call()
+    assert int(flag[0]) == 0
+    # a flag the kernel set is refused with the direct call's message
+    flag[0] = 1
+    with pytest.raises(ValueError, match="outside the bank's rows"):
+        check_range_flag(flag, t(idx), q + 1)
+    check_range_flag(torch.zeros(1, dtype=torch.int32), t(idx), q + 1)   # clear: no raise
+
+
+@pytest.mark.parametrize("M,N", [(256, 72), (600, 10)])
+def test_phi_matmul_pallas_gathers_ahead_of_the_packer_bitwise(M, N, monkeypatch):
+    """The lowering launches the gather before the COO packer (whose sync
+    then covers the gather's range flag), and stays bitwise equal to the
+    reference's lowering."""
+    a, w, pats, pwp = _setup(M, 128, N, 32, seed=M + 2 * N)
+    order = []
+    for name in ("l1_gather", "matcher", "l2_spmm"):
+        real = getattr(ops, name)
+        monkeypatch.setattr(ops, name, lambda *x, _r=real, _n=name, **k: (order.append(_n),
+                                                                          _r(*x, **k))[1])
+    real_pack = ops.pack_l2_coo_jit
+    monkeypatch.setattr(ops, "pack_l2_coo_jit",
+                        lambda *x, **k: (order.append("pack"), real_pack(*x, **k))[1])
+    got = ops.phi_matmul(t(a), t(w), t(pats), t(pwp), impl="pallas", nnz_budget=0.10)
+    assert order == ["matcher", "l1_gather", "pack", "l2_spmm"]
+    want = RO.phi_matmul(*(jnp.asarray(x) for x in (a, w, pats, pwp)), impl="pallas",
+                         nnz_budget=0.10)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# The VGG slice's five pallas GEMMs: (M, N, T).
+VGG_UNITS = {"conv1": (32768, 128, 36), "conv2": (8192, 256, 72), "conv3": (2048, 512, 144),
+             "conv4": (512, 512, 288), "head": (128, 10, 32)}
+
+
+@pytest.mark.parametrize("layer,rpw", [("conv1", 4), ("conv2", 2), ("conv3", 1), ("conv4", 1),
+                                       ("head", 1)])
+def test_spmm_rows_per_warp_at_each_vgg_gemm(layer, rpw):
+    """The spmm's launch plan at the slice's GEMMs (blocks of 256 rows): a
+    warp gets the most rows that keep 4224 warps in the grid, fewer where the
+    GEMM has few rows; no fewer than one."""
+    M, N, T = VGG_UNITS[layer]
+    bm = ops.effective_block_m(M, 256)
+    G = -(-M // bm)
+    assert spmm_rows_per_warp(G, bm, N) == rpw
+    warps = G * -(-bm // rpw) * -(-N // 128)
+    assert warps >= 4224 or rpw == 1
