@@ -16,7 +16,8 @@ phases, and the ``kernels`` summary:
   configuration and data, every GEMM on the matcher, L1-gather and L2-spmm
   kernels, logits bitwise equal to dense inference, every capacity audit
   zero), ``pallas_parity`` (the three kernels against their plain versions
-  at every GEMM's operands and at odd shapes), ``pallas_timing``;
+  at every GEMM's operands and at odd shapes, the matcher also at the odd
+  banks its design treats apart), ``pallas_timing``;
 * Spikformer-4-384 with softmax attention — ``spikformer_main_path`` (the
   same, every attention site on the Phi flash-attention kernel, every
   spiking GEMM on the fused kernel the policy resolves; the prefetch sites
@@ -55,9 +56,14 @@ GAIN = 3.0     # every weight but the encoder's: keeps spikes alive at depth (ra
 ATTN_ULPS = 16  # phi_flash_attention against its plain version, in ulps of max|V|
 SEED = 0
 
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and float32 CUDA-core FLOP/s.
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 CUDA-core FLOP/s
+# and dense int8 tensor-core operations/s.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12
+# The kernel each wrapper launches, as the profiler names it.
+FUSED_KERNEL = {"fused": "phi_fused_kernel", "fused_prefetch": "phi_fused_kernel",
+                "fused_stream": "phi_fused_stream_kernel"}
 
 
 def emit(obj) -> None:
@@ -107,24 +113,55 @@ def device_profile(fn, wall_ms: float) -> dict:
             "top": [[name[:90], ms, n] for name, ms, n in kernels[:10]]}
 
 
-def kernel_device_ms(fn, name: str, calls: int = 10) -> float:
-    """Device time of one call of ``fn`` spent in kernels whose name holds
-    ``name``, from ``torch.profiler`` over ``calls`` calls after a warm-up:
-    the kernel alone, without its wrapper's host time or other launches."""
+def _launches(fns, name: str, calls: int) -> list:
+    """The launches of kernels whose name holds ``name``, in time order, that
+    one ``torch.profiler`` session sees over ``calls`` calls of each of
+    ``fns`` in turn, after a warm-up step (the profiler's own, so that no
+    launch at the start of the session is lost)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for fn in fns:
             fn()
         torch.cuda.synchronize()
-    total = sum(ev.device_time_total for ev in prof.key_averages()
-                if ev.device_type == torch.autograd.DeviceType.CUDA and name in ev.key)
-    if total <= 0:
-        raise AssertionError(f"the profiler saw no device time in a kernel named {name!r}")
-    return total / 1e3 / calls
+        prof.step()
+        for fn in fns:
+            for _ in range(calls):
+                fn()
+        torch.cuda.synchronize()
+        prof.step()
+    return sorted((ev for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA and name in ev.name),
+                  key=lambda ev: ev.time_range.start)
+
+
+def attach_device_ms(rows, name_of, calls: int = 10) -> None:
+    """Set each row's ``device_ms``: the device time of one call of its
+    ``_fn`` (removed from the row) in kernels whose name holds
+    ``name_of(row)``, from ``torch.profiler``: the kernel alone, without its
+    wrapper's host time. Each fn launches one such kernel a call; its time is
+    the mean over the launches a session of ``calls`` calls sees. The
+    profiler may miss some launches of a session; a session that sees none is
+    tried again, twice, and then the row's ``device_ms`` is None (not
+    measured)."""
+    for row in rows:
+        fn, name = row.pop("_fn"), name_of(row)
+        events = []
+        for _ in range(3):
+            events = _launches([fn], name, calls)
+            if events:
+                break
+        row["device_ms"] = (sum(ev.device_time_total for ev in events) / 1e3 / len(events)
+                            if events else None)
+        row["device_launches_seen"] = len(events)
+
+
+def device_sum(rows):
+    """The rows' summed ``device_ms``; None where a row's was not measured."""
+    times = [r["device_ms"] for r in rows]
+    return None if None in times else sum(times)
 
 
 def fused_bound_ms(M, K, N, T, q, k, l2_entries, pwp_rows=None) -> tuple[float, float]:
@@ -207,7 +244,8 @@ def fused_checks(label, args, packed, active) -> int:
 def fused_timing(name, args, packed, route, active, plain_runs) -> dict:
     """CUDA-event times of one GEMM on the three fused kernels, the plain
     version of the kernel the path runs and ``torch.matmul``, and that
-    kernel's bound; ``ms`` is the kernel the path runs."""
+    kernel's bound; ``ms`` is the kernel the path runs (``_fn`` calls it, for
+    :func:`attach_device_ms`)."""
     import torch
 
     from repro_torch.kernels.phi_fused import (
@@ -231,6 +269,7 @@ def fused_timing(name, args, packed, route, active, plain_runs) -> dict:
         if route == "fused_prefetch" else (lambda: phi_fused_plain(*args, block_m=256))
     return {"layer": name, "M": a.shape[0], "K": a.shape[1], "N": w2.shape[1], "T": T,
             "route": route, "p_active": active.shape[-1], "ms": times[route],
+            "_fn": calls[route],
             **{f"ms_{impl}": t for impl, t in times.items()},
             "plain_ms": cuda_time_ms(plain, runs=plain_runs, warmup=1),
             "library_ms": cuda_time_ms(lambda: torch.matmul(a, w2)),
@@ -241,8 +280,9 @@ def fused_timing(name, args, packed, route, active, plain_runs) -> dict:
 def lif_rows(inputs) -> tuple[list, float]:
     """The LIF sequence kernel against the plain version (and the autograd
     ``lif_sequence``) on each recorded input, hard and soft reset, bitwise;
-    the step kernel against ``lif_ref``. Returns per-input timing rows and
-    the largest difference seen."""
+    the step kernel against ``lif_ref``. Returns per-input timing rows (CUDA
+    events, and the kernel's profiler device time alone) and the largest
+    difference seen."""
     import torch
 
     from repro_torch.kernels import ref
@@ -274,8 +314,10 @@ def lif_rows(inputs) -> tuple[list, float]:
         rows.append({
             "shape": list(x_seq.shape),
             "ms": cuda_time_ms(lambda: lif_sequence_cuda(x_seq)),
+            "_fn": lambda x_seq=x_seq: lif_sequence_cuda(x_seq),
             "plain_ms": cuda_time_ms(lambda: lif_sequence_plain(x_seq), runs=10),
             "bytes_ms": b_ms, "ops_ms": o_ms, "bound_ms": max(b_ms, o_ms)})
+    attach_device_ms(rows, lambda row: "lif_sequence_kernel")
     return rows, err
 
 
@@ -540,6 +582,8 @@ def spikformer_path(dev, images, smi) -> dict:
             "site": site, "shape": [B, S, H, D], "blocks": [bq, bkv],
             "ms": cuda_time_ms(lambda: phi_flash_attention_cuda(q, k, v, pats, packed=packed,
                                                                 **kw)),
+            "_fn": lambda q=q, k=k, v=v, pats=pats, packed=packed, kw=kw:
+                phi_flash_attention_cuda(q, k, v, pats, packed=packed, **kw),
             "dense_ms": cuda_time_ms(lambda: flash_attention_cuda(q, k, v, **kw)),
             # a smaller q-block: less shared memory per block, more blocks per SM
             "ms_block_q32": cuda_time_ms(lambda: phi_flash_attention_cuda(
@@ -551,9 +595,11 @@ def spikformer_path(dev, images, smi) -> dict:
             "launches_per_batch": 1})
     # Both fused kernels at this path's 17 GEMMs of one batch (the
     # calibration batch's activations have a main-path batch's shapes).
+    attach_device_ms(rows, lambda row: "attn_kernel")
     fused_rows = [fused_timing(name, args, state.packed[name], routes[name], sets[name],
                                plain_runs=3)
                   for name, args in fused_args.items()]
+    attach_device_ms(fused_rows, lambda row: FUSED_KERNEL[row["route"]])
     with torch.no_grad():
         phi_ms = cuda_time_ms(lambda: M.phi_apply(params, cfg, state, batches[0]), runs=10)
         dense_ms = cuda_time_ms(lambda: M.apply(params, cfg, batches[0]), runs=10)
@@ -576,7 +622,8 @@ def spikformer_path(dev, images, smi) -> dict:
                   "source": "src/repro_torch/kernels/csrc/phi_attention.cu",
                   "replaces": "src/repro/kernels/phi_attention.py:158",
                   "launches": launches["phi_flash_attention_cuda"], "max_abs_err": attn_err,
-                  "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
+                  "ms": sum(r["ms"] for r in rows), "device_ms": device_sum(rows),
+                  "plain_ms": sum(r["plain_ms"] for r in rows),
                   "bound_ms": total, "bound_by": by,
                   "library_ms": sum(r["library_ms"] for r in rows),
                   "dense_instantiation_ms": sum(r["dense_ms"] for r in rows),
@@ -589,9 +636,9 @@ def unit_bounds(a, pats, idx, pwp, entries, w_cols, N, G_bm) -> dict:
     """Least times of the three per-unit kernels on one GEMM, (bytes, operations)
     each: inputs read once, outputs written once, over 3.35 TB/s; float32
     operations of this run's data over 67 TFLOP/s. The matcher reads a and
-    the packed bank and writes idx and the int8 residual; its match is integer
-    work, which the table of peaks has no CUDA-core rate for, so it is not
-    counted. The gather reads idx and the bank rows the indices name (each
+    the packed bank and writes idx and the int8 residual; its operations are
+    the scores as int8 tensor-core work, a multiply and an add per row,
+    partition, pattern and bit (M·T·q·k·2 over 1,979 TOP/s). The gather reads idx and the bank rows the indices name (each
     distinct (t, index) row once) and writes the output; T - 1 adds per
     output. The spmm reads the real entries (4 + 4 + 1 bytes) and the weight
     rows they name and writes the (G·bm, N) output; an add per entry and
@@ -603,7 +650,8 @@ def unit_bounds(a, pats, idx, pwp, entries, w_cols, N, G_bm) -> dict:
     rows_named = int(torch.unique(idx.long() + torch.arange(T, device=idx.device)
                                   * (q + 1)).numel())
     return {
-        "matcher": ((4 * M * K + 8 * T * q + 4 * M * T + M * K) / HBM_BYTES_PER_S * 1e3, 0.0),
+        "matcher": ((4 * M * K + 8 * T * q + 4 * M * T + M * K) / HBM_BYTES_PER_S * 1e3,
+                    2 * M * T * q * pats.shape[2] / INT8_OPS_PER_S * 1e3),
         "l1_gather": ((4 * M * T + rows_named * N * pwp.element_size() + 4 * M * N)
                       / HBM_BYTES_PER_S * 1e3, M * N * (T - 1) / F32_FLOP_PER_S * 1e3),
         "l2_spmm": ((9 * entries + 4 * w_cols * N + 4 * G_bm * N) / HBM_BYTES_PER_S * 1e3,
@@ -663,6 +711,54 @@ def unit_checks(label, a, pats, packed, pwp, w, nnz_budget) -> dict:
                                  f"{errs[kern]}")
     return {"case": label, "M": a.shape[0], "K": a.shape[1], "N": w.shape[1],
             "l2_entries": int((bs != 0).sum()), "max_abs_err": errs}
+
+
+def matcher_odd_checks(a) -> list:
+    """The matcher kernel against its plain version, bitwise, on the VGG's
+    conv1 activations (K = 576) at the shapes its design treats apart: k = 9
+    and 36 (partitions straddle 32-bit words), 32 and 64 (the other two mma
+    depths), q = 1 and 9, q = 3500 (past one shared-memory chunk of the
+    bank), M = 1 and one block's 64 rows + 37, and an ``a`` one float past a
+    16-byte boundary (the scalar loads). Each bank is the partitions of q
+    activation rows, with pattern 1 a duplicate of pattern 0: many rows tie
+    between equal or equidistant patterns and between a pattern and their
+    own popcount."""
+    import torch
+
+    from repro_torch.kernels.matcher import matcher_cuda, matcher_plain, matcher_plan
+
+    g = torch.Generator().manual_seed(SEED + 4)
+    K = a.shape[1]
+    out = []
+    for label, rows, k, q in (("k=9", 4096, 9, 128), ("k=32", 4096, 32, 128),
+                              ("k=36", 4096, 36, 128), ("k=64", 4096, 64, 128),
+                              ("q=1", 4096, 16, 1), ("q=9", 4096, 16, 9),
+                              ("q=3500", 512, 16, 3500), ("M=1", 1, 16, 128),
+                              ("M=64+37", 101, 16, 128), ("unaligned a", 4096 + 37, 16, 128)):
+        T = K // k
+        x = a[:rows]
+        if label == "unaligned a":
+            flat = torch.zeros(rows * K + 1, device=a.device)
+            flat[1:] = x.reshape(-1)
+            x = flat[1:].view(rows, K)
+            if x.data_ptr() % 16 == 0:
+                raise AssertionError("the unaligned case's a is 16-byte aligned")
+        pick = torch.randint(0, a.shape[0], (q,), generator=g).to(a.device)
+        pats = a[pick].reshape(q, T, k).transpose(0, 1).to(torch.uint8).contiguous()
+        if q > 1:
+            pats[:, 1] = pats[:, 0]
+        idx, res = matcher_cuda(x, pats)
+        pidx, pres = matcher_plain(x, pats)
+        torch.cuda.synchronize()
+        if not (torch.equal(idx, pidx) and torch.equal(res, pres)):
+            raise AssertionError(f"matcher {label}: kernel != plain version, idx differs at "
+                                 f"{int((idx != pidx).sum())}, residual at "
+                                 f"{int((res != pres).sum())}")
+        tp, chunk, smem = matcher_plan(T, q, k)
+        out.append({"case": label, "M": rows, "K": K, "T": T, "q": q, "k": k,
+                    "plan": {"partitions_a_block": tp, "chunk": chunk, "smem_bytes": smem},
+                    "matched": int((idx < q).sum()), "unmatched": int((idx == q).sum())})
+    return out
 
 
 def pallas_path(dev, cfg, params, state, batches, dense_logits, smi) -> dict:
@@ -766,6 +862,7 @@ def pallas_path(dev, cfg, params, state, batches, dense_logits, smi) -> dict:
         raise AssertionError("block_n for N = 384 is not 192")
     checks.append(unit_checks("conv1 N=384", a1, pats1, packed1,
                               pattern_weight_products(pats1, w384), w384, budget))
+    matcher_odd = matcher_odd_checks(a1)
     refused = []
     for what, call, exc in (
         ("matcher k=128", lambda: matcher_cuda(
@@ -795,8 +892,8 @@ def pallas_path(dev, cfg, params, state, batches, dense_logits, smi) -> dict:
             raise AssertionError(f"the kernel took a refused input ({what}) without raising")
     unit_errs = {kern: max(c["max_abs_err"][kern] for c in checks)
                  for kern in ("matcher", "l1_gather", "l2_spmm")}
-    emit({"phase": "pallas_parity", "checks": checks, "bitwise": True,
-          "max_abs_err": unit_errs, "refused": refused})
+    emit({"phase": "pallas_parity", "checks": checks, "matcher_odd_shapes": matcher_odd,
+          "bitwise": True, "max_abs_err": unit_errs, "refused": refused})
 
     # --------------------------------------------------------- timing ---
     rows = []
@@ -824,12 +921,14 @@ def pallas_path(dev, cfg, params, state, batches, dense_logits, smi) -> dict:
             range_flag_to_host(flag)
             return out
 
-        calls = {
-            "matcher": (lambda: matcher_cuda(a, pats, packed=packed),
+        calls = {   # the kernels' calls are kept (``_fn``): bound to this GEMM's operands
+            "matcher": (lambda a=a, pats=pats, packed=packed: matcher_cuda(a, pats,
+                                                                           packed=packed),
                         lambda: matcher_plain(a, pats), None),
             "l1_gather": (lowered_gather, lambda: l1_gather_plain(idx, pwp),
                           lambda: F.embedding_bag(bags, table, mode="sum")),
-            "l2_spmm": (lambda: l2_spmm_cuda(br, bc, bs, w2, block_m=bm),
+            "l2_spmm": (lambda br=br, bc=bc, bs=bs, w2=w2, bm=bm: l2_spmm_cuda(br, bc, bs, w2,
+                                                                              block_m=bm),
                         lambda: l2_spmm_plain(br, bc, bs, w2, block_m=bm),
                         lambda: torch.sparse.mm(sparse, w2)),
         }
@@ -837,7 +936,7 @@ def pallas_path(dev, cfg, params, state, batches, dense_logits, smi) -> dict:
             b_ms, o_ms = bounds[kern]
             rows.append({"kernel": kern, "layer": name, "M": M_, "K": K, "N": N, "T": T,
                          "l2_entries": entries, "ms": cuda_time_ms(fn),
-                         "device_ms": kernel_device_ms(fn, kern),
+                         "_fn": fn,
                          # a direct call: the range checked on the host first
                          **({"ms_checked": cuda_time_ms(lambda: l1_gather_cuda(idx, pwp))}
                             if kern == "l1_gather" else {}),
@@ -845,6 +944,7 @@ def pallas_path(dev, cfg, params, state, batches, dense_logits, smi) -> dict:
                          "library_ms": None if lib is None else cuda_time_ms(lib),
                          "bytes_ms": b_ms, "ops_ms": o_ms, "bound_ms": max(b_ms, o_ms),
                          "launches_per_batch": 1})
+    attach_device_ms(rows, lambda row: row["kernel"])
     with torch.no_grad():
         x = batches[0]
         times = {"pallas": lambda: M.phi_apply(params, pcfg, state, x),
@@ -866,7 +966,7 @@ def pallas_path(dev, cfg, params, state, batches, dense_logits, smi) -> dict:
             "name": kern, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "launches": launches[f"{kern}_cuda"],
             "max_abs_err": unit_errs[kern], "ms": sum(r["ms"] for r in krows),
-            "device_ms": sum(r["device_ms"] for r in krows),
+            "device_ms": device_sum(krows),
             **({"ms_checked": sum(r["ms_checked"] for r in krows)}
                if kern == "l1_gather" else {}),
             "plain_ms": sum(r["plain_ms"] for r in krows), "bound_ms": b_ms, "bound_by": by,
@@ -1098,6 +1198,7 @@ def main() -> int:
         args = fused_args(name, params[name]["w"].reshape(-1, layers[name]["N"]))
         timing.append(fused_timing(name, args, state.packed[name], routes[name],
                                    active_sets(args, state.p_active[name]), plain_runs=5))
+    attach_device_ms(timing, lambda row: FUSED_KERNEL[row["route"]])
     with torch.no_grad():
         phi_ms = cuda_time_ms(lambda: M.phi_apply(params, cfg, state, batches[0]), runs=10)
         dense_ms = cuda_time_ms(lambda: M.apply(params, cfg, batches[0]), runs=10)
@@ -1137,6 +1238,7 @@ def main() -> int:
                 "source": "src/repro_torch/kernels/csrc/phi_fused.cu", "replaces": replaces,
                 "launches": n,
                 "max_abs_err": fused_errs[f"phi_{impl}_cuda"], "ms": sum(r["ms"] for r in rows),
+                "device_ms": device_sum(rows),
                 "plain_ms": sum(r["plain_ms"] for r in rows), "bound_ms": b_ms, "bound_by": by,
                 "library_ms": sum(r["library_ms"] for r in rows)}
 
@@ -1148,7 +1250,8 @@ def main() -> int:
          "replaces": "src/repro/kernels/lif.py:39",
          "launches": launches["lif_sequence_cuda"] + spk_launches["lif_sequence_cuda"],
          "max_abs_err": max(lif_err, spk["lif_err"]),
-         "ms": sum(r["ms"] for r in all_lif), "plain_ms": sum(r["plain_ms"] for r in all_lif),
+         "ms": sum(r["ms"] for r in all_lif), "device_ms": device_sum(all_lif),
+         "plain_ms": sum(r["plain_ms"] for r in all_lif),
          "bound_ms": lif_bound, "bound_by": lif_by, "library_ms": None},
         spk["attn_entry"],
         fused_entry("fused_stream", "src/repro/kernels/phi_fused.py:326"),

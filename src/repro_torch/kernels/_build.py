@@ -47,6 +47,7 @@ _SIGNATURES = {
     "phi_fused_occupancy": [ctypes.c_int] * 6,
     "phi_fused_smem_bytes": [ctypes.c_int],
     "matcher_launch": [_P, _P, _P, _P, ctypes.c_longlong] + [ctypes.c_int] * 4 + [_P],
+    "matcher_plan": [ctypes.c_int] * 3 + [_P],
     "l1_gather_launch": [_P, _P, ctypes.c_int, _P, _P, ctypes.c_longlong] + [ctypes.c_int] * 4
                         + [_P],
     "l2_spmm_launch": [_P] * 5 + [ctypes.c_int] * 6 + [_P],

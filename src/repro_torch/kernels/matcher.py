@@ -6,7 +6,10 @@ K-partition, the first pattern of least Hamming distance, used only when
 strictly better than the row's own popcount; returns the pattern index
 ((M, T) int32, ``q`` = none) and the ±1 residual ((M, K) int8). The CUDA
 source is ``csrc/matcher.cu``; it reads the bank bit-packed, as the fused
-kernels do (``phi_fused.pack_patterns``).
+kernels do (``phi_fused.pack_patterns``), and scores 16 rows against 8
+patterns a time on the int8 tensor cores. :func:`matcher_plan` is its launch
+plan (partitions a block, the bank chunk, shared-memory bytes), which the
+kernel's ``matcher_plan`` export computes the same way.
 
 :func:`matcher_cuda` chooses by the device of its tensors: CPU tensors run
 :func:`matcher_plain`; CUDA tensors launch the kernel, counted in
@@ -19,6 +22,42 @@ import torch
 from repro_torch.core.assign import assign_patterns
 from repro_torch.kernels import _build
 from repro_torch.kernels.phi_fused import MAX_K, pack_patterns
+from repro_torch.utils import cdiv
+
+# The kernel's constants (csrc/matcher.cu): rows a block, and the shared
+# memory a block may use.
+MATCHER_ROWS = 64
+MATCHER_SMEM_BUDGET = 32768
+
+
+def _padded_k(k: int) -> int:
+    """Bytes of a staged pattern: k padded to the mma's depth (16, 32, 64)."""
+    return 16 if k <= 16 else 32 if k <= 32 else 64
+
+
+def _smem_bytes(tp: int, chunk: int, k: int) -> int:
+    """Shared memory of a block of ``tp`` partitions and a ``chunk`` of the
+    bank: the folded keys (8 bytes a row and partition), the staged patterns
+    (k padded as bytes, and a 4-byte key), and a row's bits (two words past
+    the last, which a partition's funnel shift reads)."""
+    return (MATCHER_ROWS * tp * 8 + tp * chunk * (_padded_k(k) + 4)
+            + MATCHER_ROWS * (cdiv(tp * k, 32) + 2) * 4)
+
+
+def matcher_plan(T: int, q: int, k: int) -> tuple[int, int, int]:
+    """The matcher kernel's launch plan for a (T, q, k) bank: (partitions a
+    block, bank chunk, shared-memory bytes). The chunk is all of q, in
+    multiples of 8 patterns, where one partition's fits the budget, else the
+    most that fits; then as many partitions a block as stay in the budget,
+    evened out over the ``cdiv(T, tp)`` partition blocks (the last may hold
+    fewer)."""
+    fit = (MATCHER_SMEM_BUDGET - _smem_bytes(1, 0, k)) // (_padded_k(k) + 4) // 8 * 8
+    chunk = min(fit, 8 * cdiv(q, 8))
+    tp = 1
+    while tp < T and _smem_bytes(tp + 1, chunk, k) <= MATCHER_SMEM_BUDGET:
+        tp += 1
+    tp = cdiv(T, cdiv(T, tp))
+    return tp, chunk, _smem_bytes(tp, chunk, k)
 
 
 def matcher_plain(a: torch.Tensor, patterns: torch.Tensor

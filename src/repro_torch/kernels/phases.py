@@ -1,29 +1,32 @@
-"""Time the phases of the Phi flash-attention and fused Phi matmul kernels.
+"""Time the phases of the Phi flash-attention, fused Phi matmul and matcher kernels.
 
-    PYTHONPATH=src python3 -m repro_torch.kernels.phases [--only attn|stream|first]
+    PYTHONPATH=src python3 -m repro_torch.kernels.phases [--only attn|stream|first|matcher]
 
-Takes three kernels apart on one NVIDIA card: the attention kernel, the
-K-streaming fused kernel and the first fused kernel (with its prefetching
-instantiation). It builds copies of ``csrc/phi_attention.cu`` and
-``csrc/phi_fused.cu`` with phases switched off by text patches applied at
-run time, with ``_build``'s nvcc and flags, into ``build/kernel_phases/``.
-Each copy computes a wrong result by design: only its time is read. A patch
-whose anchor the source no longer holds once stops the run: a redesign of a
-kernel edits the tables below.
+Takes four kernels apart on one NVIDIA card: the attention kernel, the
+K-streaming fused kernel, the first fused kernel (with its prefetching
+instantiation) and the pattern matcher. It builds copies of
+``csrc/phi_attention.cu``, ``csrc/phi_fused.cu`` and ``csrc/matcher.cu``
+with phases switched off by text patches applied at run time, with
+``_build``'s nvcc and flags, into ``build/kernel_phases/``. Each copy
+computes a wrong result by design (the matcher's ``popc`` copy excepted):
+only its time is read. A patch whose anchor the source no longer holds once
+stops the run: a redesign of a kernel edits the tables below
+(``tests/test_torch_phases.py`` applies them all on the CPU).
 
 It times every copy at the main paths' shapes, on data from seed 0: the
 streaming kernel at Spikformer-4-384's fc2 and the VGG's conv3/conv4, the
 first kernel at the Spikformer's qkv and fc1 and the VGG's conv1/conv2, the
 prefetching one at the Spikformer's b0_proj with its calibrated active sets
 (their calibrated banks and activations; the streaming kernel at the group
-depth ``ops.stream_group_t`` gives), and the attention kernel at the first
-Spikformer attention site, blocks (64, 64), both instantiations, with
-``scaled_dot_product_attention`` and ``torch.matmul`` beside them. Copies
-with clock64 counters give the cycles a block's warps 0 and 7 spend in each
-part of an iteration. A time is the median over 5 runs of 20 back-to-back
-launches between two CUDA events, over 20. Each copy runs in a process of
-its own; one JSON line each, after the card's ``nvidia-smi`` name and power
-limit.
+depth ``ops.stream_group_t`` gives), the matcher at the VGG's five GEMMs
+(CUDA events and profiler device time of the kernel alone), and the
+attention kernel at the first Spikformer attention site, blocks (64, 64),
+both instantiations, with ``scaled_dot_product_attention`` and
+``torch.matmul`` beside them. Copies with clock64 counters give the cycles
+a block's warps 0 and 7 spend in each part of an iteration. A time is the
+median over 5 runs of 20 back-to-back launches between two CUDA events,
+over 20. Each copy runs in a process of its own; one JSON line each, after
+the card's ``nvidia-smi`` name and power limit.
 """
 from __future__ import annotations
 
@@ -120,10 +123,46 @@ _FIRST_CYCLES = [
 ]
 FIRST_PARTS = ("bits_copies", "match", "cluster_barrier", "l1_sums", "l2_sums")
 STREAM_PARTS = ("copies_barriers", "match", "sums", "cluster_barrier")
+# The matcher: the tile loop stopped after one 8-pattern tile, no residual
+# bytes written, only the loads (the row bits built and the bank staged; one
+# word per row and partition written to idx), and the tensor-core score
+# replaced by popcounts of the row's and the bank's words (read through L1)
+# in the kernel's own layout, the scoring of the design the kernel
+# replaced; that copy is exact.
+_MATCHER = {
+    "no_compare": [("for (int n8 = 0; n8 < nq8; n8 += 8) {",
+                    "for (int n8 = 0; n8 < 8; n8 += 8) {")],
+    "no_residual": [("          if (c >= k) break;", "          if (true) break;")],
+    "read_only": [("  // ---- 3-4. match a chunk of the bank at a time, then write",
+                   "  __syncthreads();\n"
+                   "  for (int i = tid; i < ROWS * tn; i += THREADS) {\n"
+                   "    const int r = i / tn, t = i - r * tn;\n"
+                   "    if (m0 + r < M) idx[(m0 + r) * T + t0 + t] =\n"
+                   "        static_cast<int>(bits_at(xbits + r * bs, t * k));\n"
+                   "  }\n"
+                   "  return;\n"
+                   "  // ---- 3-4. match a chunk of the bank at a time, then write")],
+    "popc": [("        dot_tile<KP>(d, af, bf);\n",
+              "        {\n"
+              "          const int j0 = base + n8 + 2 * tig;\n"
+              "          const unsigned long long* pw = packed + static_cast<long long>(t0 + t) * q;\n"
+              "          const unsigned long long p0 = j0 < q ? __ldg(pw + j0) : 0ull;\n"
+              "          const unsigned long long p1 = j0 + 1 < q ? __ldg(pw + j0 + 1) : 0ull;\n"
+              "          if (KP <= 32) {\n"
+              "            const uint32_t a0 = x0, a8 = x8, b0 = p0, b1 = p1;\n"
+              "            d[0] = __popc(a0 & b0); d[1] = __popc(a0 & b1);\n"
+              "            d[2] = __popc(a8 & b0); d[3] = __popc(a8 & b1);\n"
+              "          } else {\n"
+              "            d[0] = __popcll(x0 & p0); d[1] = __popcll(x0 & p1);\n"
+              "            d[2] = __popcll(x8 & p0); d[3] = __popcll(x8 & p1);\n"
+              "          }\n"
+              "        }\n")],
+}
 # (source, kind, phase table, cycle-counter patches or None)
 PATCHES = [("phi_attention.cu", "attn", _ATTN, None),
            ("phi_fused.cu", "stream", _STREAM, _STREAM_CYCLES),
-           ("phi_fused.cu", "first", _FIRST, _FIRST_CYCLES)]
+           ("phi_fused.cu", "first", _FIRST, _FIRST_CYCLES),
+           ("matcher.cu", "matcher", _MATCHER, None)]
 
 
 def _patch(fname: str, src: str, patches) -> str:
@@ -134,13 +173,16 @@ def _patch(fname: str, src: str, patches) -> str:
     return src
 
 
-def _variants() -> dict[str, str]:
+def _variants(only: str = "") -> dict[str, str]:
     """{name: patched source}: the full copy, one phase off each, and all of
     them off (attention: what is left is the loads, barriers and stores;
-    streaming and first fused kernels: L1, L2 and the match off), plus the
-    two fused kernels with their cycle counters."""
+    streaming and first fused kernels: L1, L2 and the match off; matcher:
+    the row bits), plus the two fused kernels with their cycle counters.
+    ``only``: the kernels whose kind starts with it."""
     out = {}
     for fname, kind, table, cycles in PATCHES:
+        if not kind.startswith(only):
+            continue
         src = (_build.CSRC / fname).read_text()
         out[f"{kind}_full"] = src
         for name, patches in {**table, "all_off": [p for ps in table.values() for p in ps]}.items():
@@ -187,7 +229,7 @@ def _data(cache):
     for cfg, names, first in (
             (M.SNNConfig(kind="vgg", widths=(64, 128, 256, 512, 512), input_size=32,
                          phi=PhiConfig(k=16, q=128, iters=20)),
-             ("conv1", "conv2", "conv3", "conv4"), "conv0"),
+             ("conv1", "conv2", "conv3", "conv4", "head"), "conv0"),
             (M.SNNConfig(kind="spikformer", input_size=32, dim=384, heads=12, blocks=4,
                          attn="flash", phi=PhiConfig(k=16, q=128, iters=20)),
              ("b0_qkv", "b0_fc1", "b0_proj", "b0_fc2"), "embed")):
@@ -225,6 +267,30 @@ def _data(cache):
 # its calibrated active sets).
 STREAM_GEMMS = ("b0_fc2", "conv3", "conv4")
 FIRST_GEMMS = ("b0_qkv", "b0_fc1", "conv1", "conv2")
+# The matcher at the VGG's five GEMMs (the pallas path's).
+MATCHER_GEMMS = ("conv1", "conv2", "conv3", "conv4", "head")
+
+
+def _device_ms(fn, name: str, calls: int = 20) -> float:
+    """Device time of one call of ``fn`` in kernels whose name holds ``name``,
+    from ``torch.profiler`` over ``calls`` calls after a warm-up: the kernel
+    alone, without its wrapper's host time; the mean over the launches the
+    profiler saw (it may miss some)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    seen = [ev for ev in prof.key_averages()
+            if ev.device_type == torch.autograd.DeviceType.CUDA and name in ev.key]
+    launches = sum(ev.count for ev in seen)
+    if not launches:
+        raise RuntimeError(f"the profiler saw no launch of a kernel named {name!r}")
+    return sum(ev.device_time_total for ev in seen) / 1e3 / launches
 
 
 def _read_cycles(lib, fn, iters: int, parts) -> dict:
@@ -249,6 +315,7 @@ def _child(name: str) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops
+    from repro_torch.kernels.matcher import matcher_cuda
     from repro_torch.kernels.phi_attention import flash_attention_cuda, phi_flash_attention_cuda
     from repro_torch.kernels.phi_fused import (
         fused_tc, phi_fused_cuda, phi_fused_prefetch_cuda, phi_fused_stream_cuda)
@@ -277,7 +344,14 @@ def _child(name: str) -> dict:
         a, w = gemms[layer][0], gemms[layer][4]
         return lambda: torch.matmul(a, w)
 
-    if name.startswith("attn"):
+    if name.startswith("matcher"):
+        for layer in MATCHER_GEMMS:
+            a, p, pk = gemms[layer][0], gemms[layer][1], gemms[layer][5]
+            fn = lambda: matcher_cuda(a, p, packed=pk)                  # noqa: E731
+            res[f"{layer}_ms"] = _time(fn)
+            res[f"{layer}_device_ms"] = _device_ms(fn, "matcher")
+        res["device_ms"] = sum(res[f"{layer}_device_ms"] for layer in MATCHER_GEMMS)
+    elif name.startswith("attn"):
         kw = dict(block_q=64, block_kv=64)
         res["phi_ms"] = _time(lambda: phi_flash_attention_cuda(q, k, v, pats, packed=packed, **kw))
         res["dense_ms"] = _time(lambda: flash_attention_cuda(q, k, v, causal=False, **kw))
@@ -316,7 +390,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--child", help=argparse.SUPPRESS)
     ap.add_argument("--only", default="",
-                    help="run only the copies whose name starts with this (attn, stream, first)")
+                    help="run only the copies of the kernels whose kind starts with this "
+                         "(attn, stream, first, matcher)")
     args = ap.parse_args()
     import torch
 
@@ -330,9 +405,7 @@ def main() -> int:
     WORK.mkdir(parents=True, exist_ok=True)
     nvcc = _build._nvcc()
     procs = {}
-    for name, text in _variants().items():
-        if not name.startswith(args.only):
-            continue
+    for name, text in _variants(args.only).items():
         (WORK / f"{name}.cu").write_text(text)
         procs[name] = subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-shared", str(WORK / f"{name}.cu"), "-o",

@@ -31,7 +31,7 @@ from repro_torch.kernels.lif import lif_sequence_cuda, lif_sequence_plain, lif_s
 from repro_torch.kernels.phi_attention import (
     flash_attention_cuda, phi_flash_attention_cuda, phi_flash_attention_plain, smem_bytes)
 from repro_torch.core.assign import pack_l2_coo_jit
-from repro_torch.kernels.matcher import matcher_cuda, matcher_plain
+from repro_torch.kernels.matcher import matcher_cuda, matcher_plain, matcher_plan
 from repro_torch.kernels.phi_fused import (
     fused_smem_bytes, pack_patterns, phi_fused_cuda, phi_fused_plain, phi_fused_prefetch_cuda,
     phi_fused_prefetch_plain, phi_fused_stream_cuda, stream_smem_bytes, stripe_active_sets)
@@ -356,20 +356,75 @@ def test_vgg16_widths_phi_apply_equals_apply(dev):
 
 
 # --------------------------------------------------- the pallas lowering ---
-@pytest.mark.parametrize("M_,K,k,q", [(256, 96, 16, 16), (293, 64, 16, 128), (1, 96, 16, 16),
-                                      (77, 40, 5, 9), (130, 128, 64, 32)])
-def test_matcher_kernel_matches_plain(dev, M_, K, k, q):
-    g = torch.Generator().manual_seed(M_ + k)
-    a = (torch.rand((M_, K), generator=g) < 0.3).float().to(dev)
-    pats = (torch.rand((K // k, q, k), generator=g) < 0.3).to(torch.uint8).to(dev)
-    pats[:, 1] = pats[:, 0]                               # a duplicate: ties go to index 0
+# (M, K, k, q, kind): the kernel's block is 64 rows (``MATCHER_ROWS``);
+# k <= 16, <= 32 and <= 64 take the three mma depths, k = 5 and 33 straddle
+# 32-bit words; q = 3500 (k = 16) and 900 (k = 64) run past one bank chunk;
+# K = 368 (T = 23) splits into partition blocks of 8, 8 and 7. ``ties``:
+# one-hot patterns and duplicates, so many patterns are equidistant and the
+# lowest index must win; ``popcount_tie``: disjoint 2-bit patterns against
+# rows on even bits, so the best distance only ties the row's popcount
+# (idx = q everywhere); ``unaligned``: ``a`` a contiguous view one float
+# past a 16-byte boundary (the kernel's scalar loads).
+MATCHER_CASES = [
+    (256, 96, 16, 16, "random"), (293, 64, 16, 128, "random"), (1, 96, 16, 16, "random"),
+    (77, 40, 5, 9, "random"), (130, 128, 64, 32, "random"), (101, 96, 32, 128, "random"),
+    (101, 99, 33, 9, "random"), (64, 48, 16, 1, "random"), (101, 368, 16, 128, "random"),
+    (101, 45, 5, 128, "random"), (130, 64, 16, 3500, "random"), (70, 128, 64, 900, "random"),
+    (101, 96, 16, 16, "ties"), (77, 40, 5, 9, "ties"), (101, 128, 64, 64, "ties"),
+    (101, 96, 16, 8, "popcount_tie"), (101, 96, 16, 128, "unaligned"),
+    (37, 40, 5, 9, "unaligned"),
+]
+
+
+@pytest.mark.parametrize("M_,K,k,q,kind", MATCHER_CASES)
+def test_matcher_kernel_matches_plain(dev, M_, K, k, q, kind):
+    g = torch.Generator().manual_seed(M_ + k + q)
+    T = K // k
+    if kind == "popcount_tie":
+        a = torch.zeros((M_, K))
+        a[:, ::2] = (torch.rand((M_, K // 2), generator=g) < 0.5).float()
+        pats = torch.zeros((T, q, k), dtype=torch.uint8)
+        for i in range(q):
+            pats[:, i, 2 * i:2 * i + 2] = 1                  # a row holds at most one bit of each
+    else:
+        a = (torch.rand((M_, K), generator=g) < 0.3).float()
+        pats = (torch.rand((T, q, k), generator=g) < 0.3).to(torch.uint8)
+        if kind == "ties":
+            pats = torch.zeros((T, q, k), dtype=torch.uint8)
+            pats[:, torch.arange(q), torch.arange(q) % k] = 1    # one-hot, repeating past k
+        if q > 1:
+            pats[:, 1] = pats[:, 0]                           # a duplicate: ties go to index 0
+    if kind == "unaligned":
+        flat = torch.zeros(M_ * K + 1, device=dev)
+        flat[1:] = a.reshape(-1).to(dev)
+        a = flat[1:].view(M_, K)
+        assert a.is_contiguous() and a.data_ptr() % 16 != 0
+    a, pats = a.to(dev), pats.to(dev)
     before = matcher_cuda.launches
     idx, res = matcher_cuda(a, pats)
     assert matcher_cuda.launches == before + 1
     pidx, pres = matcher_plain(a, pats)
     torch.cuda.synchronize()
     assert torch.equal(idx, pidx) and torch.equal(res, pres)
-    assert idx.dtype == torch.int32 and res.dtype == torch.int8 and int((idx < q).sum()) > 0
+    assert idx.dtype == torch.int32 and res.dtype == torch.int8
+    if kind == "popcount_tie":
+        assert bool((idx == q).all())
+    else:
+        assert int((idx < q).sum()) > 0
+
+
+def test_matcher_plan_is_the_kernels(dev):
+    """The kernel's own launch plan (its ``matcher_plan`` export) equals the
+    Python one at the VGG's banks and at the card cases' shapes."""
+    import ctypes
+
+    lib = _build.library()
+    out = (ctypes.c_int * 3)()
+    shapes = [(36, 128, 16), (72, 128, 16), (144, 128, 16), (288, 128, 16), (32, 128, 16)]
+    shapes += [(K // k, q, k) for _, K, k, q, _ in MATCHER_CASES]
+    for T, q, k in shapes:
+        assert lib.matcher_plan(T, q, k, out) == 0
+        assert tuple(out) == matcher_plan(T, q, k), (T, q, k)
 
 
 @pytest.mark.parametrize("kind", ["f32", "bf16"])

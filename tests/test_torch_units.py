@@ -24,7 +24,8 @@ from repro.kernels import ops as RO
 from repro_torch.core.assign import pack_l2_coo_jit
 from repro_torch.core.patterns import quantize_pwp
 from repro_torch.kernels import ops
-from repro_torch.kernels.matcher import matcher_cuda, matcher_plain
+from repro_torch.kernels.matcher import (
+    MATCHER_ROWS, MATCHER_SMEM_BUDGET, matcher_cuda, matcher_plain, matcher_plan)
 from repro_torch.kernels.phi_gather import (
     check_range_flag, l1_gather_cuda, l1_gather_plain, make_range_flag)
 from repro_torch.kernels.phi_spmm import l2_spmm_cuda, l2_spmm_plain, spmm_rows_per_warp
@@ -379,3 +380,44 @@ def test_spmm_rows_per_warp_at_each_vgg_gemm(layer, rpw):
     assert spmm_rows_per_warp(G, bm, N) == rpw
     warps = G * -(-bm // rpw) * -(-N // 128)
     assert warps >= 4224 or rpw == 1
+
+
+@pytest.mark.parametrize("layer,tp,smem,blocks", [("conv1", 9, 29440, 2048),
+                                                   ("conv2", 9, 29440, 1024),
+                                                   ("conv3", 10, 32512, 480),
+                                                   ("conv4", 10, 32512, 232),
+                                                   ("head", 8, 26112, 8)])
+def test_matcher_plan_at_each_vgg_gemm(layer, tp, smem, blocks):
+    """The matcher's launch plan at the slice's GEMMs (k = 16, q = 128): the
+    whole bank in one chunk and at most 10 partitions a block (the most that
+    fit 32 KB at 20 bytes a staged pattern), so T = 36 and 72 take blocks of
+    9, T = 144 and 288 blocks of 10 (the last of 4 and 8), T = 32 blocks of
+    8; a block of 64 rows per partition block."""
+    M, _, T = VGG_UNITS[layer]
+    assert matcher_plan(T, 128, 16) == (tp, 128, smem)
+    assert smem <= MATCHER_SMEM_BUDGET
+    assert -(-M // MATCHER_ROWS) * -(-T // tp) == blocks
+
+
+@pytest.mark.parametrize("T,q,k", [(1, 1, 1), (3, 9, 5), (11, 128, 16), (3, 128, 32),
+                                   (3, 9, 33), (2, 900, 64), (4, 3500, 16), (100, 1, 16),
+                                   (100, 1, 64), (1000, 7, 3), (36, 128, 16), (7, 100000, 64)])
+def test_matcher_plan_keeps_its_rule(T, q, k):
+    """The plan's rule at odd shapes: the chunk is all of q rounded up to 8
+    where that fits, else the most multiples of 8 that fit beside one
+    partition; the block holds the most partitions the budget allows, evened
+    out so the cdiv(T, tp) partition blocks differ by less than one block's
+    share; the shared memory is the kernel's formula and within the budget."""
+    tp, chunk, smem = matcher_plan(T, q, k)
+    kp = 16 if k <= 16 else 32 if k <= 32 else 64
+
+    def smem_of(tp_, chunk_):
+        words = -(-tp_ * k // 32) + 2
+        return MATCHER_ROWS * tp_ * 8 + tp_ * chunk_ * (kp + 4) + MATCHER_ROWS * words * 4
+
+    assert chunk % 8 == 0 and 8 <= chunk <= 8 * -(-q // 8)
+    assert chunk == 8 * -(-q // 8) or smem_of(1, chunk + 8) > MATCHER_SMEM_BUDGET
+    assert smem == smem_of(tp, chunk) <= MATCHER_SMEM_BUDGET
+    most = max(n for n in range(1, T + 1) if n == 1 or smem_of(n, chunk) <= MATCHER_SMEM_BUDGET)
+    blocks = -(-T // most)
+    assert -(-T // tp) == blocks and tp == -(-T // blocks)
