@@ -22,11 +22,23 @@ phases, and the ``kernels`` summary:
   same, every attention site on the Phi flash-attention kernel, every
   spiking GEMM on the fused kernel the policy resolves; the prefetch sites
   take their gather sets from runtime telemetry from the second batch on),
-  ``spikformer_parity``, ``spikformer_timing``.
+  ``spikformer_parity``, ``spikformer_timing``;
+* training and PAFT (the paper's Sec. 3.3–3.4 workflow) — ``train`` (the
+  VGG's weights trained with surrogate gradients on the card; step 1's loss
+  and gradients against the same step on the CPU; CUDA-event ms a step and
+  the profiler's busy share), ``paft`` (the trained weights calibrated, Phi
+  inference over four batches, PAFT with the matcher kernel assigning every
+  step, recalibration, Phi inference again: logits bitwise equal to dense
+  inference in both rounds, L2 density from ``phi_stats`` and from the fused
+  kernels' ``l2_nnz`` before and after), ``spikformer_train`` (Spikformer-4-384
+  trained through the attention kernel's dense instantiation with its
+  logsumexp and the flash backward; lse and one site's gradients against
+  the plain versions).
 
 Every ``*main_path`` phase prints the policy's decisions (site, impl,
-reason, count). Each main path is driven with every kernel's launch count
-set to 0 just before it and read just after. The card's ``nvidia-smi`` name
+reason, count). Each main path, and each of the three training phases, is
+driven with every kernel's launch count set to 0 just before it and read
+just after. The card's ``nvidia-smi`` name
 and power limit sit on their own line before the summary; the last line is
 the result object.
 
@@ -50,11 +62,25 @@ SRC = ROOT / "src"
 # widths (the kind="vgg" builder pools after every conv, so a 32x32 input
 # admits five); depth is the only reduction (5 convs instead of 13).
 WIDTHS = (64, 128, 256, 512, 512)
+# Spikformer-4-384 (Zhou et al., ICLR 2023, CIFAR-10): 4 blocks, 384 wide, 12 heads.
+SPIKFORMER = dict(kind="spikformer", input_size=32, input_channels=3, num_classes=10,
+                  timesteps=4, dim=384, heads=12, blocks=4, attn="flash")
 BATCH = 32
 BATCHES = 4
 GAIN = 3.0     # every weight but the encoder's: keeps spikes alive at depth (random init)
 ATTN_ULPS = 16  # phi_flash_attention against its plain version, in ulps of max|V|
 SEED = 0
+# Training and PAFT. Images on the 2^-10 grid, so step 1's spikes are the
+# same on the card and the CPU; trained weights are rounded onto the grid
+# before each calibration, so Phi inference stays bitwise against dense.
+TRAIN_IMAGES, TEST_IMAGES = 1024, 256
+TRAIN_STEPS = 30
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=5, decay_steps=TRAIN_STEPS, weight_decay=1e-4)
+PAFT_STEPS, PAFT_LAM, PAFT_LR = 20, 50.0, 1e-3
+SPK_TRAIN_STEPS = 5
+LOSS_REL = 1e-6  # step 1's loss, card against CPU (one log-softmax, rounded otherwise)
+GRAD_REL = 1e-5  # gradients against another order of the backward's sums
+LSE_ULPS = 64    # the kernel's lse against _flash_fwd_impl's, in ulps of max(1, max|lse|)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 CUDA-core FLOP/s
 # and dense int8 tensor-core operations/s.
@@ -110,7 +136,30 @@ def device_profile(fn, wall_ms: float) -> dict:
     kernels.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in kernels)
     return {"device_ms": device_ms, "wall_ms": wall_ms, "busy_share": device_ms / wall_ms,
+            "kernel_launches": sum(r[2] for r in kernels),
             "top": [[name[:90], ms, n] for name, ms, n in kernels[:10]]}
+
+
+def step_parts_ms(cfg, params, ocfg, x, y) -> dict:
+    """CUDA-event ms of a train step's parts at one batch: the forward under
+    autograd (the LIF layers' differentiable loop, the graph kept), forward
+    and backward (``loss_and_grads``), and the optimizer update alone."""
+    import torch
+
+    from repro_torch.snn import models as M
+    from repro_torch.snn import train as snn_train
+    from repro_torch.train import optimizer as opt
+
+    leaves = {n: {"w": leaf["w"].detach().requires_grad_()} for n, leaf in params.items()}
+    grads, _ = snn_train.loss_and_grads(params, cfg, x, y)
+    state = opt.init(params, ocfg)
+    with torch.enable_grad():
+        fwd = cuda_time_ms(lambda: M.apply(leaves, cfg, x), runs=10)
+    return {"forward_autograd_ms": fwd,
+            "forward_backward_ms": cuda_time_ms(
+                lambda: snn_train.loss_and_grads(params, cfg, x, y), runs=10),
+            "optimizer_ms": cuda_time_ms(lambda: opt.apply_updates(params, grads, state, ocfg),
+                                         runs=10)}
 
 
 def _launches(fns, name: str, calls: int) -> list:
@@ -397,9 +446,7 @@ def spikformer_path(dev, images, smi) -> dict:
         phi_fused_cuda, phi_fused_prefetch_cuda, phi_fused_stream_cuda)
     from repro_torch.snn import models as M
 
-    cfg = M.SNNConfig(kind="spikformer", input_size=32, input_channels=3, num_classes=10,
-                      timesteps=4, dim=384, heads=12, blocks=4, attn="flash",
-                      phi=PhiConfig(k=16, q=128, iters=20))
+    cfg = M.SNNConfig(**SPIKFORMER, phi=PhiConfig(k=16, q=128, iters=20))
     params = M.init(cfg, torch.Generator().manual_seed(SEED), device=dev)
     for name, leaf in params.items():
         leaf["w"] = dyadic(leaf["w"] * (1.0 if name == "embed" else GAIN))
@@ -621,7 +668,9 @@ def spikformer_path(dev, images, smi) -> dict:
     attn_entry = {"name": "phi_flash_attention", "route": "cuda",
                   "source": "src/repro_torch/kernels/csrc/phi_attention.cu",
                   "replaces": "src/repro/kernels/phi_attention.py:158",
-                  "launches": launches["phi_flash_attention_cuda"], "max_abs_err": attn_err,
+                  "launches": launches["phi_flash_attention_cuda"],
+                  "launches_by_path": {"spikformer": launches["phi_flash_attention_cuda"]},
+                  "max_abs_err": attn_err,
                   "ms": sum(r["ms"] for r in rows), "device_ms": device_sum(rows),
                   "plain_ms": sum(r["plain_ms"] for r in rows),
                   "bound_ms": total, "bound_by": by,
@@ -965,6 +1014,7 @@ def pallas_path(dev, cfg, params, state, batches, dense_logits, smi) -> dict:
         entries.append({
             "name": kern, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{source}",
             "replaces": replaces, "launches": launches[f"{kern}_cuda"],
+            "launches_by_path": {"pallas": launches[f"{kern}_cuda"]},
             "max_abs_err": unit_errs[kern], "ms": sum(r["ms"] for r in krows),
             "device_ms": device_sum(krows),
             **({"ms_checked": sum(r["ms_checked"] for r in krows)}
@@ -972,6 +1022,358 @@ def pallas_path(dev, cfg, params, state, batches, dense_logits, smi) -> dict:
             "plain_ms": sum(r["plain_ms"] for r in krows), "bound_ms": b_ms, "bound_by": by,
             "library_ms": None if kern == "matcher" else sum(r["library_ms"] for r in krows)})
     return entries
+
+
+def counted_kernels():
+    """Every kernel wrapper's launch counter, in one tuple."""
+    from repro_torch.kernels.lif import lif_sequence_cuda, lif_step_cuda
+    from repro_torch.kernels.matcher import matcher_cuda
+    from repro_torch.kernels.phi_attention import flash_attention_cuda, phi_flash_attention_cuda
+    from repro_torch.kernels.phi_fused import (
+        phi_fused_cuda, phi_fused_prefetch_cuda, phi_fused_stream_cuda)
+    from repro_torch.kernels.phi_gather import l1_gather_cuda
+    from repro_torch.kernels.phi_spmm import l2_spmm_cuda
+
+    return (phi_fused_cuda, phi_fused_stream_cuda, phi_fused_prefetch_cuda, lif_sequence_cuda,
+            lif_step_cuda, phi_flash_attention_cuda, flash_attention_cuda, matcher_cuda,
+            l1_gather_cuda, l2_spmm_cuda)
+
+
+def zero_launches() -> None:
+    from repro_torch.kernels.phi_attention import flash_attention_cuda
+
+    for fn in counted_kernels():
+        fn.launches = 0
+    flash_attention_cuda.lse_launches = 0
+
+
+def read_launches() -> dict:
+    from repro_torch.kernels.phi_attention import flash_attention_cuda
+
+    return {**{fn.__name__: fn.launches for fn in counted_kernels()},
+            "flash_attention_cuda_lse": flash_attention_cuda.lse_launches}
+
+
+def train_data():
+    """Training images (``TRAIN_IMAGES``, seed 1) and held-out test images
+    (``TEST_IMAGES``, seed 2), 32x32, on the 2^-10 grid, as numpy."""
+    import torch
+
+    from repro_torch.snn.data import synthetic_images
+
+    out = []
+    for n, seed in ((TRAIN_IMAGES, SEED + 1), (TEST_IMAGES, SEED + 2)):
+        x, y = synthetic_images(n, size=32, seed=seed)
+        out.append((dyadic(torch.from_numpy(x)).numpy(), y))
+    return out
+
+
+def grid(params):
+    return {name: {"w": dyadic(leaf["w"])} for name, leaf in params.items()}
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want| (want on the CPU or the card)."""
+    return float((got.cpu() - want.cpu()).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def train_phase(dev, cfg, params, data, smi) -> dict:
+    """The ``train`` phase: the VGG of the main path (its x GAIN, 2^-10-grid
+    weights) trained ``TRAIN_STEPS`` steps on the card, accuracy before and
+    after; step 1 against the CPU; ms a step. Returns the trained weights and
+    the phase's launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.snn import models as M
+    from repro_torch.snn import train as snn_train
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.optimizer import init as opt_init
+
+    (x, y), (xt, yt) = data
+    ocfg = OptConfig(**TRAIN_OPT)
+    # Step 1 as train() draws it, on the card and on the CPU: identical
+    # spikes (grid weights and images), another order of the backward's sums.
+    sl = np.random.default_rng(SEED).integers(0, len(x), BATCH)
+    xb, yb = torch.from_numpy(x[sl]), torch.from_numpy(y[sl])
+    grads, (loss, _) = snn_train.loss_and_grads(params, cfg, xb.to(dev), yb.to(dev))
+    cpu_params = {name: {"w": leaf["w"].cpu()} for name, leaf in params.items()}
+    cgrads, (closs, _) = snn_train.loss_and_grads(cpu_params, cfg, xb, yb)
+    loss_err = abs(float(loss) - float(closs)) / abs(float(closs))
+    grad_err = {name: rel_err(grads[name]["w"], cgrads[name]["w"]) for name in grads}
+    if loss_err > LOSS_REL or max(grad_err.values()) > GRAD_REL:
+        raise AssertionError(f"train step 1: card against CPU, loss {loss_err} (tol "
+                             f"{LOSS_REL}), gradients {grad_err} (tol {GRAD_REL})")
+    if any(float(g["w"].abs().max()) == 0 for g in cgrads.values()):
+        raise AssertionError("train step 1: a layer's gradient is zero")
+
+    zero_launches()
+    t0 = time.perf_counter()
+    trained, hist = snn_train.train(cfg, x, y, steps=TRAIN_STEPS, batch=BATCH, ocfg=ocfg,
+                                    seed=SEED, params=params, log_every=0, device=dev)
+    train_s = time.perf_counter() - t0
+    acc0 = snn_train.evaluate(params, cfg, xt, yt)
+    acc1 = snn_train.evaluate(trained, cfg, xt, yt)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    losses = [h[0] for h in hist]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train: a loss is not finite: {losses}")
+    first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    if not last5 < first5:
+        raise AssertionError(f"train: mean of the last 5 losses {last5} >= first 5 {first5}")
+    if abs(losses[0] - float(loss)) > LOSS_REL * abs(float(loss)):
+        raise AssertionError(f"train: step 1's loss {losses[0]} != loss_and_grads' {loss}")
+    if launches["lif_sequence_cuda"] <= 0:
+        raise AssertionError("train: evaluate never launched the LIF kernel")
+
+    step_fn = snn_train.make_train_step(cfg, ocfg)
+    state = opt_init(trained, ocfg)
+    xd, yd = xb.to(dev), yb.to(dev)
+    step_ms = cuda_time_ms(lambda: step_fn(trained, state, xd, yd), runs=10, warmup=3)
+    with torch.no_grad():
+        dense_ms = cuda_time_ms(lambda: M.apply(trained, cfg, xd), runs=10)
+    profile = device_profile(lambda: step_fn(trained, state, xd, yd), step_ms)
+    parts = step_parts_ms(cfg, trained, ocfg, xd, yd)
+    emit({"phase": "train", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "config": {"kind": cfg.kind, "widths": cfg.widths, "input_size": cfg.input_size,
+                     "timesteps": cfg.timesteps, "batch": BATCH, "steps": TRAIN_STEPS,
+                     "images": TRAIN_IMAGES, "opt": TRAIN_OPT},
+          "losses": losses, "first5_mean": first5, "last5_mean": last5,
+          "accuracy_before": acc0, "accuracy_after": acc1, "test_images": TEST_IMAGES,
+          "step1_cpu": {"loss_rel_err": loss_err, "loss_tol": LOSS_REL,
+                        "grad_rel_err": grad_err, "grad_tol": GRAD_REL},
+          "train_s": train_s, "launches": launches, "ms_per_step": step_ms,
+          "dense_forward_ms": dense_ms, "step_parts": parts, "profile_step": profile})
+    return {"params": trained, "launches": launches}
+
+
+def phi_round(cfg, w, calib_x, batches) -> dict:
+    """Calibrate ``w``, run phi_apply and dense apply over ``batches`` through
+    a fresh policy, and count the L2 entries two ways: the fused kernels'
+    per-block ``l2_nnz`` (the policy's counters) and ``phi_stats`` on the
+    same batches' activations. Raises unless the logits are bitwise equal
+    and, at every GEMM matched against the whole bank (``fused``,
+    ``fused_stream``), the counts agree; a prefetched GEMM matches against
+    its active sets, so its kernel count is reported beside the bank's."""
+    import torch
+
+    from repro_torch.core.assign import phi_stats
+    from repro_torch.kernels import dispatch
+    from repro_torch.snn import models as M
+
+    policy = dispatch.PhiExecutionPolicy()
+    prev = dispatch.set_policy(policy)
+    try:
+        with torch.no_grad():
+            state, _ = M.calibrate_model(w, cfg, calib_x)
+            logits = [(M.phi_apply(w, cfg, state, x), M.apply(w, cfg, x)) for x in batches]
+        budgets = {b.site: b for b in policy.report()["packer_budgets"]}
+        impls = {name: policy.last_decision(f"snn.{name}").impl for name in state.patterns}
+    finally:
+        dispatch.set_policy(prev)
+    for i, (p, d) in enumerate(logits):
+        if not torch.isfinite(p).all() or not torch.equal(p, d):
+            raise AssertionError(f"batch {i}: phi_apply != dense apply, max |diff| "
+                                 f"{float((p - d).abs().max())}")
+    stats = dict.fromkeys(state.patterns, 0)
+    size = dict.fromkeys(state.patterns, 0)
+    with torch.no_grad():
+        for x in batches:
+            cap = {}
+            M.apply(w, cfg, x, capture=cap)
+            for name, act in cap.items():
+                st = phi_stats(act, state.patterns[name])
+                stats[name] += round(st.l2_density * act.numel())
+                size[name] += act.numel()
+    layers = {}
+    for name in state.patterns:
+        kern = budgets[f"snn.{name}"].l2_nnz_total
+        if impls[name] != "fused_prefetch" and kern != stats[name]:
+            raise AssertionError(f"{name}: the kernels' l2_nnz {kern} != phi_stats' {stats[name]}")
+        layers[name] = {"impl": impls[name], "l2_entries": stats[name],
+                        "l2_density": stats[name] / size[name], "kernel_l2_entries": kern}
+    density = sum(v["l2_density"] for v in layers.values()) / len(layers)
+    return {"state": state, "layers": layers, "l2_density_mean": density,
+            "l2_density_pooled": sum(v["l2_entries"] for v in layers.values())
+            / sum(size.values())}
+
+
+def paft_phase(dev, cfg, trained, images, data, smi) -> dict:
+    """The ``paft`` phase: the trained weights (on the 2^-10 grid) calibrated
+    and run through Phi inference, PAFT for ``PAFT_STEPS`` steps, then the
+    same again; densities, accuracy, the matcher's launches, ms a step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import paft
+    from repro_torch.snn import train as snn_train
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.optimizer import init as opt_init
+
+    (x, y), (xt, yt) = data
+    calib_x, batches = images[:BATCH], images[BATCH:].split(BATCH)
+    w0 = grid(trained)
+    zero_launches()
+    t0 = time.perf_counter()
+    before = phi_round(cfg, w0, calib_x, batches)
+    state = before["state"]
+    matcher_before = read_launches()["matcher_cuda"]
+    w1, hist = paft.paft_finetune(w0, cfg, state, x, y, lam=PAFT_LAM, lr=PAFT_LR,
+                                  steps=PAFT_STEPS, batch=BATCH, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    matcher_paft = read_launches()["matcher_cuda"] - matcher_before
+    w1 = grid(w1)
+    after = phi_round(cfg, w1, calib_x, batches)
+    acc0 = snn_train.evaluate(w0, cfg, xt, yt)
+    acc1 = snn_train.evaluate(w1, cfg, xt, yt)
+    torch.cuda.synchronize()
+    paft_s = time.perf_counter() - t0
+    launches = read_launches()
+    if matcher_paft != PAFT_STEPS * len(state.patterns):
+        raise AssertionError(f"paft: matcher launched {matcher_paft} times, want "
+                             f"{PAFT_STEPS} steps x {len(state.patterns)} layers")
+    if not all(np.isfinite([h[0] for h in hist])):
+        raise AssertionError(f"paft: a loss is not finite: {hist}")
+    if not after["l2_density_mean"] < before["l2_density_mean"]:
+        raise AssertionError(f"paft: L2 density {before['l2_density_mean']} -> "
+                             f"{after['l2_density_mean']} did not fall")
+
+    ocfg = OptConfig(lr=PAFT_LR, warmup_steps=0, decay_steps=PAFT_STEPS, weight_decay=0.0)
+    step_fn = snn_train.make_train_step(cfg, ocfg, paft.paft_regularizer(cfg, state, PAFT_LAM))
+    opt_state = opt_init(w0, ocfg)
+    xd, yd = (torch.from_numpy(a[:BATCH]).to(dev) for a in (x, y))
+    step_ms = cuda_time_ms(lambda: step_fn(w0, opt_state, xd, yd), runs=10, warmup=3)
+    profile = device_profile(lambda: step_fn(w0, opt_state, xd, yd), step_ms)
+    reg = paft.paft_regularizer(cfg, state, PAFT_LAM)
+    parts = {"forward_backward_ms": cuda_time_ms(
+        lambda: snn_train.loss_and_grads(w0, cfg, xd, yd, reg), runs=10)}
+    emit({"phase": "paft", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "lam": PAFT_LAM, "lr": PAFT_LR, "steps": PAFT_STEPS, "batch": BATCH,
+          "weights_on_2^-10_grid": True, "losses": [h[0] for h in hist],
+          "before": {k: v for k, v in before.items() if k != "state"},
+          "after": {k: v for k, v in after.items() if k != "state"},
+          "logits_bitwise_equal_dense": True, "batches_checked": 2 * BATCHES,
+          "accuracy_before": acc0, "accuracy_after": acc1,
+          "matcher_launches_paft": matcher_paft, "launches": launches, "paft_s": paft_s,
+          "ms_per_step": step_ms, "step_parts": parts, "profile_step": profile})
+    return {"launches": launches}
+
+
+def spikformer_train_phase(dev, data, smi) -> dict:
+    """The ``spikformer_train`` phase: Spikformer-4-384 (attn="flash", x GAIN
+    2^-10-grid weights) trained ``SPK_TRAIN_STEPS`` steps, every attention
+    site on the dense kernel with lse and the flash backward; one site's lse
+    and q/k/v gradients against the plain versions. Returns the attention
+    kernel's lse error and the phase's launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.patterns import PhiConfig
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.phi_attention import flash_attention_cuda
+    from repro_torch.models import flash as flash_mod
+    from repro_torch.snn import models as M
+    from repro_torch.snn import train as snn_train
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.optimizer import init as opt_init
+
+    (x, y), _ = data
+    cfg = M.SNNConfig(**SPIKFORMER, phi=PhiConfig(k=16, q=128, iters=20))
+    params = M.init(cfg, torch.Generator().manual_seed(SEED), device=dev)
+    for name, leaf in params.items():
+        leaf["w"] = dyadic(leaf["w"] * (1.0 if name == "embed" else GAIN))
+    policy = dispatch.PhiExecutionPolicy()
+    prev = dispatch.set_policy(policy)
+    try:
+        zero_launches()
+        t0 = time.perf_counter()
+        trained, hist = snn_train.train(cfg, x, y, steps=SPK_TRAIN_STEPS, batch=BATCH,
+                                        seed=SEED, params=params, log_every=0, device=dev)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        launches = read_launches()
+        decisions = policy.decisions()
+        # One more step's attention operands, recorded at each site.
+        sites, real = [], flash_mod.flash_attention
+
+        def recording(q, k, v, causal, window, chunk, bq, bkv):
+            sites.append((q.detach(), k.detach(), v.detach(), causal, bq, bkv))
+            return real(q, k, v, causal, window, chunk, bq, bkv)
+
+        flash_mod.flash_attention = recording
+        try:
+            xb, yb = (torch.from_numpy(a[:BATCH]).to(dev) for a in (x, y))
+            snn_train.loss_and_grads(trained, cfg, xb, yb)
+        finally:
+            flash_mod.flash_attention = real
+    finally:
+        dispatch.set_policy(prev)
+    n_sites = cfg.blocks * SPK_TRAIN_STEPS
+    if launches["flash_attention_cuda_lse"] != n_sites or \
+            launches["flash_attention_cuda"] != n_sites:
+        raise AssertionError(f"spikformer_train: dense attention launches {launches}, want "
+                             f"{n_sites} with lse")
+    for b in range(cfg.blocks):
+        key = (f"snn.b{b}_attn", "flash", "autodiff_keeps_flash")
+        if decisions.get(key) != SPK_TRAIN_STEPS:
+            raise AssertionError(f"spikformer_train: {key} resolved {decisions.get(key)}")
+    losses = [h[0] for h in hist]
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"spikformer_train: a loss is not finite: {losses}")
+    if len(sites) != cfg.blocks:
+        raise AssertionError(f"spikformer_train: recorded {len(sites)} sites")
+
+    # lse at every site, and one site's gradients against plain autograd.
+    lse_err, lse_tol = 0.0, 0.0
+    for q, k, v, causal, bq, bkv in sites:
+        _, lse = flash_attention_cuda(q, k, v, causal=causal, block_q=bq, block_kv=bkv,
+                                      return_lse=True)
+        _, plse = flash_mod._flash_fwd_impl(q, k, v, causal, None, None, bq, bkv)
+        tol = LSE_ULPS * 2.0 ** -24 * max(1.0, float(plse.abs().max()))
+        err = float((lse - plse).abs().max())
+        if err > tol:
+            raise AssertionError(f"spikformer_train: lse max |diff| {err} > {tol}")
+        lse_err, lse_tol = max(lse_err, err), max(lse_tol, tol)
+    q, k, v, causal, bq, bkv = sites[0]
+    cot = torch.randn(q.shape, generator=torch.Generator().manual_seed(SEED + 5)).to(dev)
+    kern = [z.clone().requires_grad_() for z in (q, k, v)]
+    (flash_mod.flash_attention(*kern, causal, None, None, bq, bkv) * cot).sum().backward()
+    plain = [z.clone().requires_grad_() for z in (q, k, v)]
+    (flash_mod._flash_fwd_impl(*plain, causal, None, None, bq, bkv)[0] * cot).sum().backward()
+    grad_err = {name: rel_err(a.grad, b.grad) for name, a, b in zip("qkv", kern, plain)}
+    if max(grad_err.values()) > GRAD_REL:
+        raise AssertionError(f"spikformer_train: site gradients {grad_err} > {GRAD_REL}")
+
+    # One site, forward and backward: the kernel with lse and the flash
+    # backward, against autograd through the plain forward (x4 sites a step).
+    def site_step(fn):
+        def run():
+            z = [t.clone().requires_grad_() for t in (q, k, v)]
+            (fn(*z) * cot).sum().backward()
+        return run
+
+    site = {"kernel_fwd_ms": cuda_time_ms(lambda: flash_attention_cuda(
+                q, k, v, causal=causal, block_q=bq, block_kv=bkv, return_lse=True)),
+            "fwd_bwd_ms": cuda_time_ms(site_step(
+                lambda *z: flash_mod.flash_attention(*z, causal, None, None, bq, bkv))),
+            "plain_autograd_fwd_bwd_ms": cuda_time_ms(site_step(
+                lambda *z: flash_mod._flash_fwd_impl(*z, causal, None, None, bq, bkv)[0]))}
+    ocfg = OptConfig(lr=1e-3, warmup_steps=20, decay_steps=SPK_TRAIN_STEPS, weight_decay=1e-4)
+    step_fn = snn_train.make_train_step(cfg, ocfg)
+    state = opt_init(trained, ocfg)
+    step_ms = cuda_time_ms(lambda: step_fn(trained, state, xb, yb), runs=5, warmup=2)
+    profile = device_profile(lambda: step_fn(trained, state, xb, yb), step_ms)
+    parts = step_parts_ms(cfg, trained, ocfg, xb, yb)
+    emit({"phase": "spikformer_train", "device": torch.cuda.get_device_name(0),
+          "nvidia_smi": smi, "steps": SPK_TRAIN_STEPS, "batch": BATCH, "losses": losses,
+          "train_s": train_s, "launches": launches,
+          "decisions": [[*key, n] for key, n in sorted(decisions.items())],
+          "site_shape": list(q.shape), "blocks": [bq, bkv],
+          "lse_max_abs_err": lse_err, "lse_tol": lse_tol,
+          "site_grad_rel_err": grad_err, "grad_tol": GRAD_REL, "site_ms": site,
+          "ms_per_step": step_ms, "step_parts": parts, "profile_step": profile})
+    return {"lse_err": lse_err, "launches": launches}
 
 
 def main() -> int:
@@ -1216,6 +1618,14 @@ def main() -> int:
     # --------------------------------------------------------- spikformer ---
     spk = spikformer_path(dev, images, smi)
 
+    # -------------------------------------------------- training and PAFT ---
+    data = train_data()
+    trained = train_phase(dev, cfg, params, data, smi)
+    paft_run = paft_phase(dev, cfg, trained["params"], images, data, smi)
+    spk_train = spikformer_train_phase(dev, data, smi)
+    later = {"train": trained["launches"], "paft": paft_run["launches"],
+             "spikformer_train": spk_train["launches"]}
+
     # ------------------------------------------------------------ summary ---
     # Times are per batch of the main paths: the sum over the calls one
     # batch of each path makes (the VGG's five Phi GEMMs and the
@@ -1237,18 +1647,22 @@ def main() -> int:
         return {"name": f"phi_{impl}", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/phi_fused.cu", "replaces": replaces,
                 "launches": n,
+                "launches_by_path": {"vgg": launches[f"phi_{impl}_cuda"],
+                                     "spikformer": spk_launches[f"phi_{impl}_cuda"]},
                 "max_abs_err": fused_errs[f"phi_{impl}_cuda"], "ms": sum(r["ms"] for r in rows),
                 "device_ms": device_sum(rows),
                 "plain_ms": sum(r["plain_ms"] for r in rows), "bound_ms": b_ms, "bound_by": by,
                 "library_ms": sum(r["library_ms"] for r in rows)}
 
     lif_bound, lif_by = bound(all_lif)
-    emit({"kernels": [
+    entries = [
         fused_entry("fused", "src/repro/kernels/phi_fused.py:135"),
         {"name": "lif_sequence", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/lif.cu",
          "replaces": "src/repro/kernels/lif.py:39",
          "launches": launches["lif_sequence_cuda"] + spk_launches["lif_sequence_cuda"],
+         "launches_by_path": {"vgg": launches["lif_sequence_cuda"],
+                              "spikformer": spk_launches["lif_sequence_cuda"]},
          "max_abs_err": max(lif_err, spk["lif_err"]),
          "ms": sum(r["ms"] for r in all_lif), "device_ms": device_sum(all_lif),
          "plain_ms": sum(r["plain_ms"] for r in all_lif),
@@ -1257,7 +1671,23 @@ def main() -> int:
         fused_entry("fused_stream", "src/repro/kernels/phi_fused.py:326"),
         fused_entry("fused_prefetch", "src/repro/kernels/phi_fused.py:549"),
         *unit_entries,
-    ]})
+    ]
+    # The training phases' launches join each kernel's count (the attention
+    # entry's: its Phi instantiation; the dense one's lse launches apart).
+    wrapper = {"phi_fused": "phi_fused_cuda", "phi_fused_stream": "phi_fused_stream_cuda",
+               "phi_fused_prefetch": "phi_fused_prefetch_cuda",
+               "lif_sequence": "lif_sequence_cuda",
+               "phi_flash_attention": "phi_flash_attention_cuda", "matcher": "matcher_cuda",
+               "l1_gather": "l1_gather_cuda", "l2_spmm": "l2_spmm_cuda"}
+    for entry in entries:
+        by = {path: counts[wrapper[entry["name"]]] for path, counts in later.items()}
+        entry["launches_by_path"].update(by)
+        entry["launches"] += sum(by.values())
+    attn = entries[2]
+    attn["lse_max_abs_err"] = spk_train["lse_err"]
+    attn["dense_lse_launches"] = spk_train["launches"]["flash_attention_cuda_lse"]
+    attn["dense_instantiation_launches"] += sum(c["flash_attention_cuda"] for c in later.values())
+    emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0

@@ -41,7 +41,7 @@ _SIGNATURES = {
                         ctypes.c_int, _P],
     "lif_sequence_launch": [_P, _P, ctypes.c_int, ctypes.c_longlong, ctypes.c_float,
                             ctypes.c_float, ctypes.c_int, _P],
-    "phi_attention_launch": [_P] * 6 + [ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_int, _P],
+    "phi_attention_launch": [_P] * 7 + [ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_int, _P],
     "phi_attention_smem_bytes": [ctypes.c_int] * 6,
     "phi_attention_occupancy": [ctypes.c_int] * 6,
     "phi_fused_occupancy": [ctypes.c_int] * 6,

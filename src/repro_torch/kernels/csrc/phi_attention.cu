@@ -17,6 +17,9 @@
 //   masks (padded keys, causal, window, chunk), then the online softmax:
 //     m' = max(m, max_c s);  p = exp(s - m') (NaN -> 0);  corr = exp(m - m') (NaN -> 0)
 //     den = den*corr + sum_c p;  acc = acc*corr + p @ V;  out = acc / max(den, 1e-30)
+//   and, where the caller passes a buffer (dense only), lse = m + log(max(den, 1e-30))
+//   per query row: the forward of models/flash.py's autograd Function, whose
+//   backward recomputes p from it.
 //
 // The template flag PHI picks the score source: the decomposition above, or
 // the dense q.k^T. Both feed one online-softmax body, whose arithmetic for a
@@ -175,6 +178,7 @@ __global__ void __launch_bounds__(THREADS, RPT == 1 ? 3 : 2) attn_kernel(
     const unsigned long long* __restrict__ packed,    // (T, qp), PHI only
     float* __restrict__ out,                          // (B, S, H, D)
     int* __restrict__ l2_nnz,                         // (B*H, nq), PHI only
+    float* __restrict__ lse,                          // (B*H, S) or null, dense only
     int S, int H, int D, int T, int qp, int kp, int bq, int bkv, int nq, int nkv,
     int causal, int has_window, int window, int chunk, float scale, int vec) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -459,6 +463,15 @@ __global__ void __launch_bounds__(THREADS, RPT == 1 ? 3 : 2) attn_kernel(
     const int r = sr0 + 64 * i;
     if (r < bq && ssub == 0) s_corr[r] = den[i];
   }
+  if (lse != nullptr) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = sr0 + 64 * i, sr = q0 + r;
+      if (r < bq && sr < S && ssub == 0)
+        lse[static_cast<long long>(bh) * S + sr] =
+            __fadd_rn(m_run[i], logf(fmaxf(den[i], 1e-30f)));
+    }
+  }
   __syncthreads();
   if (pv_on) {
 #pragma unroll
@@ -505,8 +518,8 @@ cudaError_t prepare(const void* fn, size_t smem) {
 
 template <bool PHI>
 cudaError_t launch(const float* q, const float* k, const float* v,
-                   const unsigned long long* packed, float* out, int* l2_nnz, int B, int S,
-                   int H, int D, int T, int qp, int kp, int bq, int bkv, int causal,
+                   const unsigned long long* packed, float* out, int* l2_nnz, float* lse, int B,
+                   int S, int H, int D, int T, int qp, int kp, int bq, int bkv, int causal,
                    int has_window, int window, int chunk, float scale, cudaStream_t stream) {
   const size_t smem = make_layout(bq, bkv, D, T, qp, PHI).total;
   const int passes = pv_passes(bq, D);
@@ -523,17 +536,17 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   switch (passes) {
     case 1:
       attn_kernel<PHI, 1><<<blocks, THREADS, smem, stream>>>(
-          q, k, v, packed, out, l2_nnz, S, H, D, T, qp, kp, bq, bkv, nq, nkv, causal,
+          q, k, v, packed, out, l2_nnz, lse, S, H, D, T, qp, kp, bq, bkv, nq, nkv, causal,
           has_window, window, chunk, scale, vec);
       break;
     case 2:
       attn_kernel<PHI, 2><<<blocks, THREADS, smem, stream>>>(
-          q, k, v, packed, out, l2_nnz, S, H, D, T, qp, kp, bq, bkv, nq, nkv, causal,
+          q, k, v, packed, out, l2_nnz, lse, S, H, D, T, qp, kp, bq, bkv, nq, nkv, causal,
           has_window, window, chunk, scale, vec);
       break;
     default:
       attn_kernel<PHI, 4><<<blocks, THREADS, smem, stream>>>(
-          q, k, v, packed, out, l2_nnz, S, H, D, T, qp, kp, bq, bkv, nq, nkv, causal,
+          q, k, v, packed, out, l2_nnz, lse, S, H, D, T, qp, kp, bq, bkv, nq, nkv, causal,
           has_window, window, chunk, scale, vec);
   }
   return cudaGetLastError();
@@ -563,29 +576,33 @@ int phi_attention_occupancy(int bq, int bkv, int D, int T, int qp, int phi) {
 }
 
 // q, k, v, out (B, S, H, D) f32 contiguous; packed (T, qp) and l2_nnz
-// (B*H, ceil(S/bq)) for phi = 1, ignored for phi = 0. bq and bkv are the
+// (B*H, ceil(S/bq)) for phi = 1, ignored for phi = 0; lse (B*H, S) f32 for
+// phi = 0, or null to skip it (phi = 1 takes none). bq and bkv are the
 // clamped blocks (<= S); bq <= 128 and covered by at most four p.V passes
 // (bq <= 4 * 256 / ceil(D / 8)). Returns cudaGetLastError() after the launch
 // (0 on success); the caller synchronises as it needs.
 int phi_attention_launch(const float* q, const float* k, const float* v,
-                         const unsigned long long* packed, float* out, int* l2_nnz, int B,
-                         int S, int H, int D, int T, int qp, int kp, int bq, int bkv,
+                         const unsigned long long* packed, float* out, int* l2_nnz, float* lse,
+                         int B, int S, int H, int D, int T, int qp, int kp, int bq, int bkv,
                          int causal, int has_window, int window, int chunk, float scale,
                          int phi, void* stream) {
   if (B < 1 || S < 1 || H < 1 || D < 1 || bq < 1 || bkv < 1 || bq > S || bkv > S ||
       chunk < 0 || pv_passes(bq, D) == 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (phi && (kp < 1 || kp > 64 || qp < 1 || qp > 0xffff || T < 1 || T * kp > D))
+  if (phi && (kp < 1 || kp > 64 || qp < 1 || qp > 0xffff || T < 1 || T * kp > D ||
+              lse != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(B) * H * ((S + bq - 1) / bq) > 0x7fffffffLL ||
       phi_attention_smem_bytes(bq, bkv, D, T, qp, phi) > SMEM_LIMIT)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (phi)
-    return static_cast<int>(launch<true>(q, k, v, packed, out, l2_nnz, B, S, H, D, T, qp, kp,
-                                         bq, bkv, causal, has_window, window, chunk, scale, s));
-  return static_cast<int>(launch<false>(q, k, v, nullptr, out, nullptr, B, S, H, D, 0, 0, 0,
-                                        bq, bkv, causal, has_window, window, chunk, scale, s));
+    return static_cast<int>(launch<true>(q, k, v, packed, out, l2_nnz, nullptr, B, S, H, D, T,
+                                         qp, kp, bq, bkv, causal, has_window, window, chunk,
+                                         scale, s));
+  return static_cast<int>(launch<false>(q, k, v, nullptr, out, nullptr, lse, B, S, H, D, 0, 0,
+                                        0, bq, bkv, causal, has_window, window, chunk, scale,
+                                        s));
 }
 
 }  // extern "C"

@@ -678,12 +678,18 @@ def phi_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA tensors launch the hand-written kernel, or raise where it refuses
     the shape; CPU tensors run its plain version, the reference's "xla"
     lowering. ``packed`` is the bank as the kernel reads it
-    (``pack_patterns``). Forward only: raises where autograd would need a
-    backward.
+    (``pack_patterns``). Inference only, as in the reference: raises where
+    autograd would need a backward, rather than return an output cut off
+    from q, k and v.
     """
-    from repro_torch.models.flash import refuse_autograd
+    from repro_torch.models.flash import under_autograd
 
-    refuse_autograd("phi_flash_attention", q, k, v)
+    if under_autograd(q, k, v):
+        raise NotImplementedError(
+            "phi_flash_attention is inference only: the Phi lowering has no backward, as in "
+            "the reference. Under autograd call models.flash.flash_attention (its backward is "
+            "the flash backward), or route the site through dispatch.attention, which "
+            "resolves dense flash there (autodiff_keeps_flash, autodiff_demotes_phi_flash)")
     B, S, H, D = q.shape
     T, qp, kp = patterns.shape
     if T * kp > D:

@@ -19,8 +19,10 @@ scale is applied after the contraction.
 * :func:`phi_flash_attention_cuda` — the kernel's wrapper
   (``csrc/phi_attention.cu``, whose note says how it is laid out on the
   card); :func:`flash_attention_cuda` launches the same kernel's dense
-  instantiation. CPU tensors run the plain versions; CUDA tensors launch
-  the kernel, counted in the wrapper's ``.launches``, or raise.
+  instantiation, which also writes the per-row logsumexp where asked
+  (``return_lse``: the forward of ``models.flash.flash_attention`` under
+  autograd). CPU tensors run the plain versions; CUDA tensors launch the
+  kernel, counted in the wrapper's ``.launches``, or raise.
 """
 from __future__ import annotations
 
@@ -156,10 +158,11 @@ def _check_operands(q, k, v, packed, patterns_shape) -> None:
                          f"{packed.dtype} on {packed.device}")
 
 
-def _launch(q, k, v, packed, patterns_shape, *, causal, window, chunk, block_q, block_kv
-            ) -> tuple[torch.Tensor, torch.Tensor | None]:
+def _launch(q, k, v, packed, patterns_shape, *, causal, window, chunk, block_q, block_kv,
+            lse: bool = False) -> tuple[torch.Tensor, torch.Tensor | None]:
     """Launch one instantiation: Phi scores and ``l2_nnz`` when ``packed`` is
-    given, else dense scores and no count."""
+    given, else dense scores and, with ``lse``, the (B·H, S) float32
+    logsumexp of each query row in place of the count."""
     if q.device.type != "cuda":
         raise ValueError(f"attention kernel: unsupported device {q.device}")
     _check_operands(q, k, v, packed, patterns_shape)
@@ -177,8 +180,10 @@ def _launch(q, k, v, packed, patterns_shape, *, causal, window, chunk, block_q, 
                          "takes (at most 128, and 4 * (256 // ceil(D / 8)))")
     nq = cdiv(S, bq) if S else 0
     out = torch.empty_like(q)
+    lse_out = torch.empty((B * H, S), dtype=torch.float32, device=q.device) if lse else None
     if out.numel() == 0:
-        return out, torch.zeros((B * H, nq), dtype=torch.int32, device=q.device)
+        return out, lse_out if lse else torch.zeros((B * H, nq), dtype=torch.int32,
+                                                     device=q.device)
     # Every block of the Phi instantiation writes its (batch·head, q-block) count.
     nnz = None if packed is None else torch.empty((B * H, nq), dtype=torch.int32,
                                                   device=q.device)
@@ -187,12 +192,13 @@ def _launch(q, k, v, packed, patterns_shape, *, causal, window, chunk, block_q, 
         err = _build.library().phi_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if packed is None else packed.data_ptr(), out.data_ptr(),
-            None if packed is None else nnz.data_ptr(), B, S, H, D, T, qp, kp, bq, bkv,
+            None if packed is None else nnz.data_ptr(),
+            None if lse_out is None else lse_out.data_ptr(), B, S, H, D, T, qp, kp, bq, bkv,
             int(causal), int(window is not None), 0 if window is None else window,
             0 if chunk is None else chunk, ctypes.c_float(D ** -0.5), int(packed is not None),
             stream)
     _build.check(err, "phi_attention_launch")
-    return out, nnz
+    return out, lse_out if lse else nnz
 
 
 def phi_flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -224,19 +230,29 @@ phi_flash_attention_cuda.launches = 0
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool = True, window: int | None = None,
                          chunk: int | None = None, block_q: int = 512,
-                         block_kv: int = 1024) -> torch.Tensor:
+                         block_kv: int = 1024, return_lse: bool = False
+                         ) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Dense flash attention through the kernel's dense instantiation.
 
     Same contract as ``models.flash.flash_attention`` (float32 q/k/v on the
-    card). CPU tensors run ``_flash_fwd_impl``; CUDA tensors launch the
-    kernel, counted in ``.launches``, or raise.
+    card). With ``return_lse`` it returns ``(out, lse)``, lse (B, H, S)
+    float32 = m + log(max(den, 1e-30)) per query row, as ``_flash_fwd_impl``
+    gives it. CPU tensors run ``_flash_fwd_impl``; CUDA tensors launch the
+    kernel, counted in ``.launches`` (and in ``.lse_launches`` when it writes
+    lse), or raise.
     """
     if q.device.type == "cpu":
-        return _flash_fwd_impl(q, k, v, causal, window, chunk, block_q, block_kv)[0]
-    out, _ = _launch(q, k, v, None, None, causal=causal, window=window, chunk=chunk,
-                     block_q=block_q, block_kv=block_kv)
+        out, lse = _flash_fwd_impl(q, k, v, causal, window, chunk, block_q, block_kv)
+        return (out, lse) if return_lse else out
+    out, lse = _launch(q, k, v, None, None, causal=causal, window=window, chunk=chunk,
+                       block_q=block_q, block_kv=block_kv, lse=return_lse)
     flash_attention_cuda.launches += 1
-    return out
+    if not return_lse:
+        return out
+    flash_attention_cuda.lse_launches += 1
+    B, S, H, _ = q.shape
+    return out, lse.view(B, H, S)
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.lse_launches = 0

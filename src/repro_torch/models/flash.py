@@ -1,19 +1,24 @@
-"""Blockwise flash attention, forward only (port of ``repro/models/flash.py``).
+"""Blockwise flash attention and its backward (port of ``repro/models/flash.py``).
 
-q-major online softmax over (block_q, block_kv) score blocks, with causal,
-sliding-window and chunked-local masks in one implementation. Every internal
-sum is float32; the output takes the caller's dtype.
+forward : q-major online softmax over (block_q, block_kv) score blocks, with
+          causal, sliding-window and chunked-local masks in one
+          implementation; saves (q, k, v, out, lse).
+backward: Δ = Σ(do·o);
+          dq pass (q-major):  dqᵢ = Σⱼ [pᵢⱼ ∘ (doᵢvⱼᵀ − Δᵢ)] kⱼ · scale
+          dkv pass (kv-major): dvⱼ = Σᵢ pᵢⱼᵀ doᵢ ;  dkⱼ = Σᵢ dsᵢⱼᵀ qᵢ · scale
+          with pᵢⱼ = exp(qᵢkⱼᵀ·scale − lseᵢ) recomputed per block pair.
 
-:func:`_flash_fwd_impl` is the plain PyTorch version and keeps the
+Every internal sum is float32; outputs and gradients take the caller's dtype.
+
+:func:`_flash_fwd_impl` is the plain PyTorch forward and keeps the
 reference's ``score_fn`` hook: ``kernels/phi_attention.py`` passes the Phi
 L1+L2 score decomposition through it and so shares this accumulator code.
 :func:`flash_attention` runs it for CPU tensors; CUDA tensors go to the
 dense instantiation of the hand-written kernel in
 ``kernels/csrc/phi_attention.cu``, the same kernel body the Phi path
-launches. The backward pass (``_flash_bwd`` in the reference) is not ported
-yet; it becomes an ``autograd.Function`` with the training slice. Until then
-:func:`flash_attention` raises where autograd would need it, rather than
-return an output cut off from q, k and v.
+launches, which also writes lse where autograd needs a backward.
+:func:`_flash_bwd` is the backward, as the reference's is plain JAX: batched
+PyTorch products over block pairs, on either device.
 """
 from __future__ import annotations
 
@@ -28,17 +33,6 @@ ScoreFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 def under_autograd(*tensors: torch.Tensor) -> bool:
     """True when a backward pass would run through these operands."""
     return torch.is_grad_enabled() and any(x.requires_grad for x in tensors)
-
-
-def refuse_autograd(what: str, *tensors: torch.Tensor) -> None:
-    """Raise when autograd would need a backward of ``what``: the attention
-    lowerings are forward only, and an output without a graph would leave
-    every gradient upstream silently missing."""
-    if under_autograd(*tensors):
-        raise NotImplementedError(
-            f"{what} is forward only (the backward, the reference's _flash_bwd, is not "
-            "ported yet: ROADMAP queue 1 item 9); call it under torch.no_grad() or with "
-            "operands that do not require grad")
 
 
 def _mask(qpos: torch.Tensor, kpos: torch.Tensor, *, causal: bool, window: int | None,
@@ -118,19 +112,114 @@ def _flash_fwd_impl(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: b
     return o.movedim(1, 2).to(q.dtype), lse
 
 
+def _flash_bwd(causal: bool, window: int | None, chunk: int | None, block_q: int,
+               block_kv: int, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor
+               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flash backward: (dq, dk, dv), each (B, S, H, D) in q's dtype.
+
+    Same pad-and-mask contract as the forward: padded key columns and
+    padded query rows are zeroed out of every recomputed p block. Padded
+    rows carry a garbage lse, and fully masked rows an lse of -inf, so
+    masking p by ``valid`` (not s) is what keeps the inf/NaN they would give
+    out of the gradients.
+    """
+    B, S, H, D = q.shape
+    scale = D ** -0.5
+    bq, bkv = min(block_q, S), min(block_kv, S)
+    sq, skv = S + (-S) % bq, S + (-S) % bkv
+    nq, nkv = sq // bq, skv // bkv
+    dev = q.device
+
+    def heads(x, to):                                              # (B, H, to, D) f32
+        return _pad_seq(x.movedim(2, 1).to(torch.float32), to)
+
+    qt, kt, vt = heads(q, sq), heads(k, skv), heads(v, skv)
+    dot_, ot = heads(dout, sq), heads(out, sq)
+    lse = F.pad(lse.to(torch.float32), [0, sq - S])
+    delta = (dot_ * ot).sum(-1)                                    # (B, H, sq)
+    qpos_all = torch.arange(sq, device=dev)
+    kpos_all = torch.arange(skv, device=dev)
+
+    def p_block(iq, jk):
+        qpos = qpos_all[iq * bq:(iq + 1) * bq]
+        kpos = kpos_all[jk * bkv:(jk + 1) * bkv]
+        qi = qt[:, :, iq * bq:(iq + 1) * bq]
+        kj = kt[:, :, jk * bkv:(jk + 1) * bkv]
+        s = (qi @ kj.transpose(-1, -2)) * scale
+        p = torch.exp(s - lse[:, :, iq * bq:(iq + 1) * bq, None])
+        valid = (_mask(qpos, kpos, causal=causal, window=window, chunk=chunk)
+                 & (qpos < S)[:, None] & (kpos < S)[None, :])
+        return torch.where(valid, p, 0.0)
+
+    def ds_block(p, iq, jk):
+        do_i = dot_[:, :, iq * bq:(iq + 1) * bq]
+        vj = vt[:, :, jk * bkv:(jk + 1) * bkv]
+        return p * (do_i @ vj.transpose(-1, -2) - delta[:, :, iq * bq:(iq + 1) * bq, None])
+
+    # ---- dq pass: q-major, block-local accumulator
+    dq = []
+    for iq in range(nq):
+        dq_i = torch.zeros((B, H, bq, D), device=dev)
+        for jk in range(nkv):
+            ds = ds_block(p_block(iq, jk), iq, jk)
+            dq_i = dq_i + (ds @ kt[:, :, jk * bkv:(jk + 1) * bkv]) * scale
+        dq.append(dq_i)
+    # ---- dk/dv pass: kv-major, block-local accumulators
+    dk, dv = [], []
+    for jk in range(nkv):
+        dk_j = torch.zeros((B, H, bkv, D), device=dev)
+        dv_j = torch.zeros((B, H, bkv, D), device=dev)
+        for iq in range(nq):
+            p = p_block(iq, jk)
+            dv_j = dv_j + p.transpose(-1, -2) @ dot_[:, :, iq * bq:(iq + 1) * bq]
+            ds = ds_block(p, iq, jk)
+            dk_j = dk_j + (ds.transpose(-1, -2) @ qt[:, :, iq * bq:(iq + 1) * bq]) * scale
+        dk.append(dk_j)
+        dv.append(dv_j)
+
+    def back(parts):
+        return torch.cat(parts, dim=2)[:, :, :S].movedim(1, 2).to(q.dtype)
+
+    return back(dq), back(dk), back(dv)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with the flash backward: the forward keeps
+    (q, k, v, out, lse), the backward is :func:`_flash_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, chunk, block_q, block_kv):
+        # Imported here: kernels.phi_attention imports this module.
+        from repro_torch.kernels.phi_attention import flash_attention_cuda
+
+        out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window, chunk=chunk,
+                                        block_q=block_q, block_kv=block_kv, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.blocks = (causal, window, chunk, block_q, block_kv)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        dq, dk, dv = _flash_bwd(*ctx.blocks, *ctx.saved_tensors, dout)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True,
                     window: int | None = None, chunk: int | None = None,
                     block_q: int = 512, block_kv: int = 1024) -> torch.Tensor:
     """q, k, v: (B, S, H, D) with H already GQA-repeated. Returns (B, S, H, D).
 
-    Forward only: raises where autograd would need a backward. CPU tensors
-    run :func:`_flash_fwd_impl`; CUDA tensors launch the dense instantiation
-    of the attention kernel (``kernels.phi_attention.flash_attention_cuda``).
+    CPU tensors run :func:`_flash_fwd_impl`; CUDA tensors launch the dense
+    instantiation of the attention kernel
+    (``kernels.phi_attention.flash_attention_cuda``). Where autograd needs a
+    backward, the forward also keeps lse (the kernel writes it on the card)
+    and the backward is :func:`_flash_bwd`; elsewhere no lse is written.
     """
-    # Imported here: kernels.phi_attention imports this module.
     from repro_torch.kernels.phi_attention import flash_attention_cuda
 
-    refuse_autograd("flash_attention", q, k, v)
+    if under_autograd(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, window, chunk, block_q, block_kv)
     with torch.no_grad():
         return flash_attention_cuda(q, k, v, causal=causal, window=window, chunk=chunk,
                                     block_q=block_q, block_kv=block_kv)

@@ -1,8 +1,9 @@
 """Synthetic datasets for the paper-side SNN experiments.
 
-A numpy copy of ``synthetic_images`` and ``batches`` from the reference
-package's ``snn/data.py``: class-conditional spatial templates plus noise,
-whose spike activations show the clustered binary statistics Phi exploits.
+A numpy copy of ``synthetic_images``, ``synthetic_event_frames`` and
+``batches`` from the reference package's ``snn/data.py``: class-conditional
+spatial templates plus noise (and a DVS-style frame stream of them), whose
+spike activations show the clustered binary statistics Phi exploits.
 """
 from __future__ import annotations
 
@@ -31,6 +32,21 @@ def synthetic_images(
     x = templates[y][..., None].repeat(channels, -1)
     x = x + noise * rng.standard_normal(x.shape)
     return np.clip(x, 0, 1).astype(np.float32), y
+
+
+def synthetic_event_frames(
+    n: int, num_classes: int = 10, size: int = 16, timesteps: int = 4, seed: int = 0
+) -> tuple[np.ndarray, np.ndarray]:
+    """DVS-style binary event frames: (n, T, H, W, 2) {0,1}, labels (n,)."""
+    x, y = synthetic_images(n, num_classes, size, channels=1, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    frames = []
+    for t in range(timesteps):
+        shift = np.roll(x, t, axis=2)  # simple motion
+        pos = (shift[..., 0] > rng.uniform(0.55, 0.75)).astype(np.float32)
+        neg = (shift[..., 0] < rng.uniform(0.25, 0.45)).astype(np.float32)
+        frames.append(np.stack([pos, neg], -1))
+    return np.stack(frames, 1).astype(np.float32), y
 
 
 def batches(x: np.ndarray, y: np.ndarray, batch: int, seed: int = 0, epochs: int = 1):

@@ -1,8 +1,19 @@
-"""Small shared helpers: integer ceil-division, row padding, device choice."""
+"""Small shared helpers: the package's logger, integer ceil-division, row
+padding, device choice."""
 from __future__ import annotations
+
+import logging
+import os
 
 import torch
 import torch.nn.functional as F
+
+log = logging.getLogger("repro_torch")
+if not log.handlers:
+    _h = logging.StreamHandler()
+    _h.setFormatter(logging.Formatter("[%(asctime)s %(levelname).1s] %(message)s", "%H:%M:%S"))
+    log.addHandler(_h)
+    log.setLevel(os.environ.get("REPRO_LOGLEVEL", "INFO"))
 
 
 def cdiv(a: int, b: int) -> int:

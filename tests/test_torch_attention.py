@@ -16,7 +16,9 @@ and XLA's differ by an ulp on about one value in ten, the two reduce
 ``p.sum`` in another order, and XLA contracts ``den·corr + Σp`` and
 ``acc·corr + p·V`` into fused multiply-adds. Each output is a convex
 combination of V rows, so the difference is held to ATOL_ULPS ulps of
-max|V| (measured: at most 2.4e-7 at max|V| ≈ 3, about 2 ulps).
+max|V| (measured: at most 2.4e-7 at max|V| ≈ 3, about 2 ulps). Gradients of
+the flash backward are held to GRAD_REL of each gradient's largest
+magnitude (another order of the block products' sums).
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from repro_torch.snn import models as M
 from repro_torch.snn.data import synthetic_images
 
 ATOL_ULPS = 16
+GRAD_REL = 1e-5
 
 # (B, S, H, D, causal, window, chunk, block_q, block_kv): unmasked, the three
 # masks, and S % block != 0 on both axes.
@@ -105,6 +108,40 @@ def test_flash_attention_vs_reference(case):
     got = F.flash_attention(t(q), t(k), t(v), causal, window, chunk, bq, bkv)
     assert got.shape == (B, S, H, D) and torch.isfinite(got).all()
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=_atol(v))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_flash_attention_gradients_vs_reference(case):
+    # The flash backward against jax.grad through the reference's custom
+    # VJP, q/k/v standard normal; every gradient to GRAD_REL of its largest
+    # magnitude (the two sum the block products in other orders; measured
+    # at most 9e-7). The forward also keeps the reference's lse.
+    B, S, H, D, causal, window, chunk, bq, bkv = CASES[case]
+    rng = np.random.default_rng(30 + len(case))
+    q, k, v, g = (rng.standard_normal((B, S, H, D)).astype(np.float32) for _ in range(4))
+
+    def loss(q_, k_, v_):
+        return (RF.flash_attention(q_, k_, v_, causal, window, chunk, bq, bkv) * g).sum()
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    x = [t(a).requires_grad_() for a in (q, k, v)]
+    out = F.flash_attention(*x, causal, window, chunk, bq, bkv)
+    assert out.grad_fn is not None
+    (out * t(g)).sum().backward()
+    for name, xi, wi in zip("qkv", x, want):
+        wi = np.asarray(wi)
+        assert np.isfinite(xi.grad.numpy()).all(), name
+        np.testing.assert_allclose(xi.grad.numpy(), wi, rtol=0,
+                                   atol=GRAD_REL * np.abs(wi).max(), err_msg=name)
+    _, want_lse = RF._flash_fwd_impl(*(jnp.asarray(a) for a in (q, k, v)), causal, window,
+                                     chunk, bq, bkv)
+    got_out, got_lse = A.flash_attention_cuda(t(q), t(k), t(v), causal=causal, window=window,
+                                              chunk=chunk, block_q=bq, block_kv=bkv,
+                                              return_lse=True)
+    assert got_lse.shape == (B, H, S) and torch.equal(got_out, out.detach())
+    # lse = m + log(den): a few ulps of its terms, which may cancel to a small sum
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse), rtol=0,
+                               atol=1e-6 * max(1.0, float(np.abs(want_lse).max())))
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -275,3 +312,39 @@ def test_spikformer_flash_phi_apply_vs_reference_apply_with_injected_lowerings()
     # moves a membrane potential across the LIF threshold here.
     np.testing.assert_array_equal(got.numpy(), want)
     assert np.abs(want).sum() > 0
+
+
+def test_spikformer_flash_gradients_vs_reference_apply_with_injected_flash():
+    # One training step's gradients through Spikformer attn="flash": the
+    # port's policy resolves dense flash under autograd (its backward is the
+    # flash backward); the reference injects its flash_attention (custom VJP)
+    # into models.apply, its policy being out of reach on this jax. Spikes
+    # are identical (dyadic weights and images), so the gradients differ only
+    # in the order of the backward's sums: GRAD_REL of each largest magnitude.
+    from repro.snn import train as RT
+    from repro_torch.snn import train as T
+
+    rcfg, cfg, w, x = _spikformer()
+    rng = np.random.default_rng(4)
+    y = rng.integers(0, 10, x.shape[0]).astype(np.int32)
+
+    def loss(params):
+        logits = RM.apply(params, rcfg, jnp.asarray(x), attention=_ref_flash_attention())
+        return RT.cross_entropy(logits, jnp.asarray(y))
+
+    jw = jax.tree.map(jnp.asarray, w)
+    want_loss, want = float(loss(jw)), jax.grad(loss)(jw)
+    prev = dispatch.set_policy(dispatch.PhiExecutionPolicy())
+    try:
+        grads, (got_loss, _) = T.loss_and_grads(params_from_numpy(w, "cpu"), cfg, t(x), t(y))
+        decisions = dispatch.get_policy().decisions()
+    finally:
+        dispatch.set_policy(prev)
+    assert decisions == {(f"snn.b{b}_attn", "flash", "autodiff_keeps_flash"): 1
+                         for b in range(2)}
+    assert abs(float(got_loss) - want_loss) <= 1e-6 * abs(want_loss)
+    for name in grads:
+        wi = np.asarray(want[name]["w"])
+        assert np.abs(wi).max() > 0, name
+        np.testing.assert_allclose(grads[name]["w"].numpy(), wi, rtol=0,
+                                   atol=GRAD_REL * np.abs(wi).max(), err_msg=name)

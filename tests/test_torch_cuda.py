@@ -17,7 +17,13 @@ exact too (binary Q and K), but its softmax sums ``p`` and ``p·V`` in
 another order than the plain version and uses CUDA's ``expf``: its output
 is held to ATTN_ATOL_ULPS ulps of max|V| (each output is a convex
 combination of V rows). Its Phi and dense instantiations share the softmax
-code and are compared bitwise.
+code and are compared bitwise. The dense instantiation's ``lse`` (the
+forward of ``models.flash.flash_attention`` under autograd) is held to
+LSE_ATOL_ULPS ulps of max(1, max|lse|), m + log(den) in another order; the
+flash backward's gradients against plain autograd through
+``_flash_fwd_impl`` to GRAD_REL of each gradient's largest magnitude, and so
+are one VGG train step's gradients on the card against the CPU's (identical
+spikes, another order of the backward's sums).
 """
 from __future__ import annotations
 
@@ -38,8 +44,12 @@ from repro_torch.kernels.phi_fused import (
 from repro_torch.kernels.phi_gather import (
     check_range_flag, l1_gather_cuda, l1_gather_plain, make_range_flag, range_flag_to_host)
 from repro_torch.kernels.phi_spmm import l2_spmm_cuda, l2_spmm_plain
+from repro_torch.core import paft
+from repro_torch.core.assign import assign_patterns, level1_matrix
+from repro_torch.models import flash as flash_mod
 from repro_torch.models.flash import flash_attention
 from repro_torch.snn import models as M
+from repro_torch.snn import train as snn_train
 from repro_torch.snn.data import synthetic_images
 
 _FUSED = {"fused": phi_fused_cuda, "fused_stream": phi_fused_stream_cuda,
@@ -838,3 +848,130 @@ def test_spikformer_phi_apply_equals_apply(dev):
     assert torch.isfinite(got).all() and float(got.abs().sum()) > 0
     for act in acts.values():
         assert float(act.mean()) >= 0.01
+
+
+# -------------------------------------------------------------- training ---
+LSE_ATOL_ULPS = 64
+GRAD_REL = 1e-5
+# (B, S, H, D, causal, window, chunk, block_q, block_kv): the Spikformer-4-384
+# site (T·B = 128 images, 12 heads of 32, S = 64, the policy's blocks), an odd
+# S with a ragged last block on both axes, and the three masks.
+TRAIN_ATTN_CASES = {
+    "spikformer_site": (128, 64, 12, 32, False, None, None, 64, 64),
+    "odd_s": (3, 37, 2, 32, False, None, None, 16, 16),
+    "odd_s_causal": (2, 53, 3, 32, True, None, None, 32, 16),
+    "window": (2, 96, 3, 32, True, 7, None, 64, 32),
+    "chunk": (2, 96, 3, 32, False, None, 16, 32, 32),
+}
+
+
+@pytest.mark.parametrize("case", list(TRAIN_ATTN_CASES))
+def test_attention_kernel_lse_matches_flash_fwd_impl(dev, case):
+    B, S, H, D, causal, window, chunk, bq, bkv = TRAIN_ATTN_CASES[case]
+    q, k, v, _ = _attn_inputs(B, S, H, D, 2, 16, 8, dev, seed=S)
+    kw = dict(causal=causal, window=window, chunk=chunk, block_q=bq, block_kv=bkv)
+    before = flash_attention_cuda.lse_launches
+    out, lse = flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert flash_attention_cuda.lse_launches == before + 1
+    pout, plse = flash_mod._flash_fwd_impl(q, k, v, causal, window, chunk, bq, bkv)
+    torch.cuda.synchronize()
+    assert lse.shape == plse.shape == (B, H, S)
+    atol = LSE_ATOL_ULPS * 2.0 ** -24 * max(1.0, float(plse.abs().max()))
+    assert float((lse - plse).abs().max()) <= atol
+    assert float((out - pout).abs().max()) <= ATTN_ATOL_ULPS * 2.0 ** -24 * float(v.abs().max())
+    # the output is the inference launch's, bit for bit
+    assert torch.equal(out, flash_attention_cuda(q, k, v, **kw))
+
+
+@pytest.mark.parametrize("case", list(TRAIN_ATTN_CASES))
+def test_flash_function_gradients_match_plain_autograd(dev, case, monkeypatch):
+    B, S, H, D, causal, window, chunk, bq, bkv = TRAIN_ATTN_CASES[case]
+    g = torch.Generator().manual_seed(S + 1)
+    qkv = [torch.randn((B, S, H, D), generator=g).to(dev) for _ in range(3)]
+    cot = torch.randn((B, S, H, D), generator=g).to(dev)
+    plain = [x.clone().requires_grad_() for x in qkv]
+    out_p, _ = flash_mod._flash_fwd_impl(*plain, causal, window, chunk, bq, bkv)
+    (out_p * cot).sum().backward()
+
+    def refuse(*a, **k):
+        raise AssertionError("_flash_fwd_impl ran on the card")
+
+    import repro_torch.kernels.phi_attention as attn_mod
+
+    monkeypatch.setattr(flash_mod, "_flash_fwd_impl", refuse)
+    monkeypatch.setattr(attn_mod, "_flash_fwd_impl", refuse)
+    x = [z.clone().requires_grad_() for z in qkv]
+    before = (flash_attention_cuda.launches, flash_attention_cuda.lse_launches)
+    out = flash_attention(*x, causal, window, chunk, bq, bkv)
+    (out * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert (flash_attention_cuda.launches, flash_attention_cuda.lse_launches) == \
+        (before[0] + 1, before[1] + 1)
+    for name, xi, pi in zip("qkv", x, plain):
+        assert torch.isfinite(xi.grad).all(), name
+        err = float((xi.grad - pi.grad).abs().max())
+        assert err <= GRAD_REL * float(pi.grad.abs().max()), (name, err)
+
+
+def test_inference_attention_launches_write_no_lse(dev):
+    q, k, v, _ = _attn_inputs(8, 64, 12, 32, 2, 16, 8, dev)
+    before = (flash_attention_cuda.launches, flash_attention_cuda.lse_launches)
+    with torch.no_grad():
+        out = flash_attention(q, k, v, False, None, None, 64, 64)
+    assert out.grad_fn is None
+    assert (flash_attention_cuda.launches, flash_attention_cuda.lse_launches) == \
+        (before[0] + 1, before[1])
+    qg = q.clone().requires_grad_()
+    out_g = flash_attention(qg, k, v, False, None, None, 64, 64)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.lse_launches == before[1] + 1
+    assert torch.equal(out_g.detach(), out)       # one kernel, lse on or off
+
+
+def test_paft_hamming_through_the_matcher_matches_plain(dev):
+    """PAFT's assignment on the card (the matcher kernel) against the plain
+    ``assign_patterns``: value exact, gradient bitwise."""
+    g = torch.Generator().manual_seed(5)
+    M_, T_, k, q = 4096 + 37, 36, 16, 128
+    base = (torch.rand((24, T_ * k), generator=g) < 0.2).float()
+    a = base[torch.randint(0, 24, (M_,), generator=g)]
+    a = (a + (torch.rand(a.shape, generator=g) < 0.03).float()) % 2
+    pats = a[torch.randint(0, M_, (q,), generator=g)].reshape(q, T_, k).transpose(0, 1)
+    pats = pats.to(torch.uint8).contiguous().to(dev)
+    a = a.to(dev)
+    x = a.clone().requires_grad_()
+    before = matcher_cuda.launches
+    h = paft.hamming_to_assigned(x, pats, packed=pack_patterns(pats))
+    h.backward()
+    torch.cuda.synchronize()
+    assert matcher_cuda.launches == before + 1
+    idx, _ = assign_patterns(a, pats)
+    p_star = level1_matrix(idx, pats.float())
+    want = (a * (1 - p_star) + p_star * (1 - a)).sum()
+    assert float(h.detach()) == float(want) > 0
+    assert torch.equal(x.grad, 1 - 2 * p_star)
+
+
+def test_vgg_train_step_on_the_card_matches_the_cpu(dev):
+    cfg = M.SNNConfig(kind="vgg", widths=(64, 128, 256), input_size=32,
+                      phi=PhiConfig(k=16, q=128, iters=20))
+    params = M.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    for name, leaf in params.items():
+        gain = 1.0 if name == "conv0" else 3.0
+        leaf["w"] = torch.round(leaf["w"] * gain * 1024) / 1024
+    x, y = synthetic_images(16, size=32, seed=1)
+    x = torch.from_numpy(np.round(x * 1024) / 1024)
+    y = torch.from_numpy(y)
+    cpu, (cpu_loss, cpu_acc) = snn_train.loss_and_grads(params, cfg, x, y)
+    on_card = {n: {"w": leaf["w"].to(dev)} for n, leaf in params.items()}
+    lif_before = lif_sequence_cuda.launches
+    got, (loss, acc) = snn_train.loss_and_grads(on_card, cfg, x.to(dev), y.to(dev))
+    torch.cuda.synchronize()
+    assert lif_sequence_cuda.launches == lif_before     # the differentiable loop
+    assert abs(float(loss) - float(cpu_loss)) <= 1e-6 * abs(float(cpu_loss))
+    assert float(acc) == float(cpu_acc)
+    for name in cpu:
+        want = cpu[name]["w"]
+        assert float(want.abs().max()) > 0, name
+        err = float((got[name]["w"].cpu() - want).abs().max())
+        assert err <= GRAD_REL * float(want.abs().max()), (name, err)

@@ -169,11 +169,16 @@ def test_attention_runs_the_resolved_lowering_and_records_it():
         assert torch.equal(dense, F.flash_attention(t(q), t(k), t(v), False, None, None,
                                                     *pol.last_decision("s").blocks))
         # autodiff through the operands resolves the dense lowering, as the
-        # reference does; with no backward ported, running it raises
-        with torch.enable_grad(), pytest.raises(NotImplementedError, match="forward only"):
-            dispatch.phi_flash_attention(t(q).requires_grad_(), t(k), t(v), t(pats), site="g",
-                                         spike_qk=True)
+        # reference does, whose backward is the flash backward
+        qg = t(q).requires_grad_()
+        with torch.enable_grad():
+            out = dispatch.phi_flash_attention(qg, t(k), t(v), t(pats), site="g",
+                                               spike_qk=True)
+            assert out.grad_fn is not None
+            out.sum().backward()
         assert pol.last_decision("g").reason == "autodiff_keeps_flash"
+        assert qg.grad is not None and torch.isfinite(qg.grad).all()
+        assert float(qg.grad.abs().sum()) > 0
         assert pol.decisions() == {("s", "phi_flash", "spike_qk_phi_flash_xla"): 1,
                                    ("s", "flash", "call_override"): 1,
                                    ("g", "flash", "autodiff_keeps_flash"): 1}
@@ -205,17 +210,46 @@ def test_tracer_numbers_records_and_drops_none():
 
 @pytest.mark.parametrize("grad_on", ["q", "k", "v"])
 def test_attention_lowerings_refuse_autograd(grad_on):
+    # The Phi lowering is inference only, as in the reference: it refuses
+    # autograd and names the route that has a backward.
     rng = np.random.default_rng(1)
     x = {n: t(binary(rng, (1, 8, 1, 16))) for n in "qkv"}
     x[grad_on].requires_grad_()
     pats = t(binary(rng, (1, 4, 16)).astype(np.uint8))
-    with pytest.raises(NotImplementedError, match="forward only"):
-        F.flash_attention(x["q"], x["k"], x["v"], False)
-    with pytest.raises(NotImplementedError, match="forward only"):
+    with pytest.raises(NotImplementedError, match="inference only") as err:
         ops.phi_flash_attention(x["q"], x["k"], x["v"], pats)
+    assert "models.flash.flash_attention" in str(err.value)
+    assert "autodiff_keeps_flash" in str(err.value)
     with torch.no_grad():                     # no graph wanted: runs
-        F.flash_attention(x["q"], x["k"], x["v"], False)
         ops.phi_flash_attention(x["q"], x["k"], x["v"], pats)
+
+
+@pytest.mark.parametrize("grad_on", ["q", "k", "v"])
+def test_flash_attention_gradient_vs_reference_jax_grad(grad_on):
+    # Dense flash has its backward: the gradient of one operand against
+    # jax.grad through the reference's custom VJP, to 1e-5 of its largest
+    # magnitude (other orders of the block products' sums).
+    import jax
+
+    from repro.models import flash as RF
+
+    rng = np.random.default_rng(1)
+    arrs = {n: binary(rng, (1, 8, 1, 16)) for n in "qkv"}
+    g = rng.standard_normal((1, 8, 1, 16)).astype(np.float32)
+    idx = "qkv".index(grad_on)
+
+    def loss(*qkv):
+        return (RF.flash_attention(*qkv, False) * g).sum()
+
+    want = np.asarray(jax.grad(loss, argnums=idx)(*(jnp.asarray(arrs[n]) for n in "qkv")))
+    x = {n: t(a) for n, a in arrs.items()}
+    x[grad_on].requires_grad_()
+    (F.flash_attention(x["q"], x["k"], x["v"], False) * t(g)).sum().backward()
+    assert np.abs(want).max() > 0
+    np.testing.assert_allclose(x[grad_on].grad.numpy(), want, rtol=0,
+                               atol=1e-5 * np.abs(want).max())
+    with torch.no_grad():                     # no graph wanted: no lse, no graph
+        assert F.flash_attention(x["q"], x["k"], x["v"], False).grad_fn is None
 
 
 # ============================================================ matmul half ===
