@@ -23,6 +23,15 @@ phases, and the ``kernels`` summary:
   spiking GEMM on the fused kernel the policy resolves; the prefetch sites
   take their gather sets from runtime telemetry from the second batch on),
   ``spikformer_parity``, ``spikformer_timing``;
+* the paper's accelerator evaluation — ``accel_sim`` (one batch of the VGG
+  and of Spikformer-4-384: ``capture_phi_traces`` on the card, the matcher
+  kernel assigning every calibrated GEMM, each trace held to the integer
+  against the plain matcher's and each layer's L2 entries against the fused
+  kernels' ``l2_nnz``; the event-driven sims of the Phi accelerator and of
+  Eyeriss and ``perfmodel.compare``, modelled numbers of the paper's 28 nm,
+  500 MHz design; ``phi_kernel_traffic`` at the Hopper kernels' tiles beside
+  each GEMM's bound and device time; the measured kernel-launch constant and
+  what ``ops.launch_cost_prefers_coo`` decides at each GEMM);
 * training and PAFT (the paper's Sec. 3.3–3.4 workflow) — ``train`` (the
   VGG's weights trained with surrogate gradients on the card; step 1's loss
   and gradients against the same step on the CPU; CUDA-event ms a step and
@@ -36,11 +45,11 @@ phases, and the ``kernels`` summary:
   the plain versions).
 
 Every ``*main_path`` phase prints the policy's decisions (site, impl,
-reason, count). Each main path, and each of the three training phases, is
-driven with every kernel's launch count set to 0 just before it and read
-just after. The card's ``nvidia-smi`` name
-and power limit sit on their own line before the summary; the last line is
-the result object.
+reason, count). Each main path, ``accel_sim``'s captures and ``phi_apply``
+calls, and each of the three training phases are driven with every
+kernel's launch count set to 0 just before and read just after. The card's
+``nvidia-smi`` name and power limit sit on their own line before the
+summary; the last line is the result object.
 
 Any failure raises and exits non-zero: no phase is caught. Without a CUDA
 card, or run where ``src/repro_torch`` is not beside it, it exits 1 and
@@ -83,10 +92,13 @@ GRAD_REL = 1e-5  # gradients against another order of the backward's sums
 LSE_ULPS = 64    # the kernel's lse against _flash_fwd_impl's, in ulps of max(1, max|lse|)
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, float32 CUDA-core FLOP/s
-# and dense int8 tensor-core operations/s.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOP_PER_S = 67e12
-INT8_OPS_PER_S = 1979e12
+# and dense int8 tensor-core operations/s, from the port's hwconst. Outside a
+# checkout there is none: main() then says so and exits 1.
+if (SRC / "repro_torch" / "__init__.py").is_file():
+    sys.path.insert(0, str(SRC))
+    from repro_torch.core.hwconst import F32_FLOP_PER_S, HBM_BYTES_PER_S, INT8_OPS_PER_S
+else:
+    F32_FLOP_PER_S = HBM_BYTES_PER_S = INT8_OPS_PER_S = None
 # The kernel each wrapper launches, as the profiler names it.
 FUSED_KERNEL = {"fused": "phi_fused_kernel", "fused_prefetch": "phi_fused_kernel",
                 "fused_stream": "phi_fused_stream_kernel"}
@@ -678,7 +690,8 @@ def spikformer_path(dev, images, smi) -> dict:
                   "dense_instantiation_ms": sum(r["dense_ms"] for r in rows),
                   "dense_instantiation_launches": launches["flash_attention_cuda"]}
     return {"attn_entry": attn_entry, "fused_rows": fused_rows, "lif_rows": lif_timing,
-            "lif_err": lif_err, "launches": launches}
+            "lif_err": lif_err, "launches": launches, "cfg": cfg, "params": params,
+            "state": state}
 
 
 def unit_bounds(a, pats, idx, pwp, entries, w_cols, N, G_bm) -> dict:
@@ -1376,6 +1389,160 @@ def spikformer_train_phase(dev, data, smi) -> dict:
     return {"lse_err": lse_err, "launches": launches}
 
 
+def launch_bytes(dev) -> dict:
+    """One kernel launch in HBM byte-equivalents: the CUDA-event time of
+    ``lif_sequence_cuda`` on one element (the wrapper's host time included)
+    times HBM bytes/s."""
+    import torch
+
+    from repro_torch.kernels.lif import lif_sequence_cuda
+
+    one = torch.zeros((1, 1), device=dev)
+    ms = cuda_time_ms(lambda: lif_sequence_cuda(one), runs=200, warmup=20)
+    return {"lif_sequence_one_element_ms": ms, "bytes": ms * 1e-3 * HBM_BYTES_PER_S}
+
+
+def accel_sim_phase(dev, models, smi) -> dict:
+    """The ``accel_sim`` phase: the paper's accelerator evaluation on traces
+    the port captures on the card. ``models`` maps a path's name to (cfg,
+    params, state, one batch, its ``fused_timing`` rows). For each model,
+    with every kernel's launch count set to 0 just before and read just
+    after: ``capture_phi_traces`` (the LIF kernel in ``apply``, the matcher
+    kernel assigning every calibrated GEMM) and ``phi_apply`` on the same
+    batch through a fresh policy. Then, outside the counted run: every trace
+    against the one built by ``matcher_plain`` on the card from the same
+    activations (to the integer); each layer's ``l2_nnz`` against the fused
+    kernels' (gated where the site matched against the whole bank) and
+    ``phi_stats``'; the event-driven sim (Phi ``asic`` dataflow, Eyeriss) and
+    ``perfmodel.compare`` (modelled 28 nm / 500 MHz ASIC numbers, not the
+    card's); ``phi_kernel_traffic`` at the Hopper kernels' tiles in ms at
+    HBM bytes/s beside each GEMM's bound and device time; the measured
+    launch constant and what ``ops.launch_cost_prefers_coo`` decides at each
+    GEMM."""
+    import torch
+
+    from repro_torch.core import hwconst
+    from repro_torch.core import perfmodel as pm
+    from repro_torch.core.assign import phi_stats
+    from repro_torch.kernels import dispatch, ops
+    from repro_torch.kernels.matcher import matcher_cuda, matcher_plain
+    from repro_torch.kernels.phi_fused import _BM
+    from repro_torch.sim import EyerissSim, PhiAcceleratorSim, summarize_run
+    from repro_torch.sim.trace import _assign_torch
+    from repro_torch.snn import models as M
+
+    t_phase = time.perf_counter()
+    runs = {}
+    zero_launches()
+    t0 = time.perf_counter()
+    for path, (cfg, params, state, x, _) in models.items():
+        policy = dispatch.PhiExecutionPolicy()
+        prev = dispatch.set_policy(policy)
+        try:
+            with torch.no_grad():
+                traces = M.capture_phi_traces(params, cfg, state, x)
+                M.phi_apply(params, cfg, state, x)
+            torch.cuda.synchronize()
+            budgets = {b.site: b for b in policy.report()["packer_budgets"]}
+            impls = {t.name: policy.last_decision(t.name).impl for t in traces}
+        finally:
+            dispatch.set_policy(prev)
+        runs[path] = (traces, budgets, impls)
+    launches = read_launches()
+    counted_s = time.perf_counter() - t0
+    n_traces = sum(len(r[0]) for r in runs.values())
+    if launches["matcher_cuda"] != n_traces:
+        raise AssertionError(f"the matcher launched {launches['matcher_cuda']} times for "
+                             f"{n_traces} traces")
+    if launches["lif_sequence_cuda"] <= 0:
+        raise AssertionError("the LIF kernel never launched in capture_phi_traces")
+
+    out = {"phase": "accel_sim", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+           "counted_s": counted_s, "launches": launches,
+           "note": "sim_* and model_* are modelled numbers of the paper's 28 nm, 500 MHz "
+                   "accelerator (hwconst's ASIC section), not the card's", "models": {}}
+    launch = launch_bytes(dev)
+    for path, (cfg, params, state, x, timing_rows) in models.items():
+        traces, budgets, impls = runs[path]
+        timing = {r["layer"]: r for r in timing_rows}
+        with torch.no_grad():
+            cap = {}
+            M.apply(params, cfg, x, capture=cap)
+        reps = cfg.timesteps * x.shape[0]
+        layers, shapes, stats, matcher_rows = [], [], [], []
+        for tr in traces:
+            name = tr.name.removeprefix("snn.")
+            pats = state.patterns[name]
+            T, q, k = pats.shape
+            a = cap[name][:, :T * k].to(torch.float32).contiguous()
+            plain = _assign_torch(a, pats, matcher_plain)
+            got = (tr.idx, tr.tile_pop, tr.tile_res, tr.usage)
+            for field, g, want in zip(("idx", "tile_pop", "tile_res", "usage"), got, plain):
+                if g.shape != want.shape or not (g == want).all():
+                    raise AssertionError(f"{path} {name}: the kernel's trace {field} != the "
+                                         f"plain version's")
+            matcher_rows.append({"_fn": lambda a=a, p=pats, pk=state.packed[name]:
+                                 matcher_cuda(a, p, packed=pk)})
+            st = phi_stats(a, pats)
+            if round(st.l2_density * a.numel()) != tr.l2_nnz:
+                raise AssertionError(f"{path} {name}: phi_stats' L2 entries "
+                                     f"{round(st.l2_density * a.numel())} != the trace's "
+                                     f"{tr.l2_nnz}")
+            kern = budgets[tr.name].l2_nnz_total
+            whole_bank = impls[tr.name] != "fused_prefetch"
+            if whole_bank and kern != tr.l2_nnz:
+                raise AssertionError(f"{path} {name}: the fused kernels' l2_nnz {kern} != the "
+                                     f"trace's {tr.l2_nnz}")
+            N = tr.n
+            shapes.append(pm.GemmShape(tr.m // reps, tr.k_dim, N))
+            stats.append(st)
+            p_active = state.p_active.get(name)
+            usage = None if p_active is None else (p_active + 1) / (q + 1)
+            entry = impls[tr.name]
+            traffic = pm.phi_kernel_traffic(
+                pm.GemmShape(tr.m, tr.k_dim, N), k=k, q=q, block_m=_BM, block_n=128,
+                pwp_usage=usage, prefetch_prepass=False)[entry]
+            row = timing.get(name, {})
+            layers.append({
+                "layer": name, "M": tr.m, "K": tr.k_dim, "N": N, "T": T, "impl": entry,
+                "l2_nnz": tr.l2_nnz, "kernel_l2_nnz": kern, "gated": whole_bank,
+                "idx_density": tr.idx_density, "bit_density": tr.bit_density,
+                "model_traffic_bytes": traffic.total,
+                "model_traffic_ms": traffic.total / HBM_BYTES_PER_S * 1e3,
+                "bound_ms": row.get("bound_ms"), "device_ms": row.get("device_ms"),
+                "ms": row.get("ms"),
+                "stream_group_t": ops.stream_group_t(q, k) if entry == "fused_stream" else None,
+                "launch_cost_prefers_coo": ops.launch_cost_prefers_coo(
+                    tr.m, tr.k_dim, N, T, q, pwp_usage=usage)})
+        attach_device_ms(matcher_rows, lambda row: "matcher")
+        for row, m in zip(layers, matcher_rows):
+            row["matcher_device_ms"] = m["device_ms"]
+        with torch.no_grad():
+            capture_ms = cuda_time_ms(lambda: M.capture_phi_traces(params, cfg, state, x),
+                                      runs=3, warmup=1)
+        t0 = time.perf_counter()
+        phi_res = PhiAcceleratorSim().run(traces)
+        eye_res = EyerissSim().run(traces)
+        sim_s = time.perf_counter() - t0
+        for row, r, e in zip(layers, phi_res, eye_res):
+            row.update(sim_cycles=r.cycles, sim_eyeriss_cycles=e.cycles,
+                       sim_p_active=r.p_active, sim_l2_processed=r.l2_processed)
+        phi_sum, eye_sum = summarize_run(phi_res), summarize_run(eye_res)
+        model = pm.compare(shapes, stats)
+        out["models"][path] = {
+            "traces": len(traces), "sim_s": sim_s, "capture_phi_traces_ms": capture_ms,
+            "matcher_device_ms": device_sum(matcher_rows),
+            "sim_phi": phi_sum, "sim_eyeriss": eye_sum,
+            "sim_speedup_vs_eyeriss": eye_sum["cycles"] / phi_sum["cycles"],
+            "sim_energy_eff_vs_eyeriss": phi_sum["gop_per_j"] / eye_sum["gop_per_j"],
+            "model_compare": model, "model_rows_per_image_step": [s.m for s in shapes],
+            "layers": layers}
+    out["launch"] = {**launch, "hwconst_bytes": hwconst.KERNEL_LAUNCH_BYTES}
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return {"launches": launches}
+
+
 def main() -> int:
     import torch
 
@@ -1387,7 +1554,6 @@ def main() -> int:
         print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a checkout of the repo",
               file=sys.stderr)
         return 1
-    sys.path.insert(0, str(SRC))
 
     from repro_torch.core.assign import phi_stats
     from repro_torch.core.patterns import PhiConfig, pattern_weight_products, quantize_pwp
@@ -1618,13 +1784,19 @@ def main() -> int:
     # --------------------------------------------------------- spikformer ---
     spk = spikformer_path(dev, images, smi)
 
+    # -------------------------------------------------- accelerator model ---
+    accel = accel_sim_phase(dev, {
+        "vgg": (cfg, params, state, batches[0], timing),
+        "spikformer": (spk["cfg"], spk["params"], spk["state"], batches[0], spk["fused_rows"])},
+        smi)
+
     # -------------------------------------------------- training and PAFT ---
     data = train_data()
     trained = train_phase(dev, cfg, params, data, smi)
     paft_run = paft_phase(dev, cfg, trained["params"], images, data, smi)
     spk_train = spikformer_train_phase(dev, data, smi)
-    later = {"train": trained["launches"], "paft": paft_run["launches"],
-             "spikformer_train": spk_train["launches"]}
+    later = {"accel_sim": accel["launches"], "train": trained["launches"],
+             "paft": paft_run["launches"], "spikformer_train": spk_train["launches"]}
 
     # ------------------------------------------------------------ summary ---
     # Times are per batch of the main paths: the sum over the calls one

@@ -25,6 +25,7 @@ import os
 
 import torch
 
+from repro_torch.core import hwconst
 from repro_torch.core.assign import assign_patterns, pack_l2_coo_jit
 from repro_torch.core.patterns import active_pattern_sets
 from repro_torch.kernels import IMPLS, ref
@@ -455,6 +456,35 @@ def fused_shape_viable(M: int, K: int, N: int, T: int, q: int, usage=None,
     return "fused_stream" if T >= STREAM_MIN_T else "fused"
 
 
+def launch_cost_prefers_coo(m: int, k_dim: int, n: int, t: int, q: int,
+                            *, nnz_budget: float = 0.08,
+                            pwp_usage: float | None = None) -> bool:
+    """Cost-model crossover of the reference's policy: True when the
+    modelled HBM bytes of the "coo" lowering undercut the cheapest fused
+    lowering's plus one kernel launch.
+
+    The fused kernels stream the full PWP bank and weight stripe per
+    M-stripe regardless of M; the coo path's gathers touch only referenced
+    rows, so its traffic scales with M. The launch is
+    ``hwconst.KERNEL_LAUNCH_BYTES``, measured on the H100. ``pwp_usage``
+    (the (P+1)/(q+1) fraction of a skewed usage histogram) lets the
+    prefetching lowering compete. The port's policy applies no such row on
+    ``cuda``: there the coo lowering is several PyTorch launches, not one
+    program, so the crossover's premise does not hold (``chip_smoke.py``
+    prints what this function would decide at each main-path GEMM).
+    """
+    from repro_torch.core.perfmodel import GemmShape, phi_coo_traffic, phi_kernel_traffic
+
+    tr = phi_kernel_traffic(GemmShape(m, k_dim, n), k=k_dim // t, q=q,
+                            nnz_budget=nnz_budget, pwp_usage=pwp_usage)
+    fused_total = min(tr["fused"].total, tr["fused_stream"].total)
+    if pwp_usage is not None:
+        fused_total = min(fused_total, tr["fused_prefetch"].total)
+    coo_total = phi_coo_traffic(GemmShape(m, k_dim, n), k=k_dim // t, q=q,
+                                nnz_budget=nnz_budget)
+    return coo_total < fused_total + hwconst.KERNEL_LAUNCH_BYTES
+
+
 # -------------------------------------------------------------------- LIF ---
 def lif_step(v: torch.Tensor, x: torch.Tensor, *, decay: float = 0.5, threshold: float = 1.0,
              reset: str = "hard") -> tuple[torch.Tensor, torch.Tensor]:
@@ -618,8 +648,8 @@ def _attn_candidates(S: int, D: int) -> list[tuple[int, int]]:
 
 
 # Shared memory of one H100 SM, and what the hardware reserves per block.
-_SM_SMEM = 228 * 1024
-_SM_SMEM_PER_BLOCK = 1024
+_SM_SMEM = hwconst.SM_SMEM
+_SM_SMEM_PER_BLOCK = hwconst.SM_SMEM_PER_BLOCK_RESERVED
 
 
 def _attn_blocks_per_sm(bq: int, bkv: int, S: int, D: int, T: int, qp: int) -> int:

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import hwconst
 from repro_torch.kernels import _build
 from repro_torch.utils import cdiv, pad_rows
 
@@ -37,7 +38,7 @@ MAX_K = 64
 MAX_Q = 512
 MAX_GROUP_T = 8
 MAX_TC = 95                 # partitions of the first kernel's match tile (a chunk of T)
-SMEM_LIMIT = 232448         # shared memory a block may use on an H100 (227 KB)
+SMEM_LIMIT = hwconst.SMEM_PER_BLOCK  # shared memory a block may use on an H100 (227 KB)
 _BM = 32                    # rows per output tile of the fused kernels
 _FIRST_LIST = 256           # residual entries a warp of the first kernel lists at a time
 _PWP_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}

@@ -342,6 +342,30 @@ def calibrate_model(params: Params, cfg: SNNConfig, calib_x: torch.Tensor
     return PhiState(patterns, pwps, usage), cap
 
 
+def capture_phi_traces(params: Params, cfg: SNNConfig, phi: PhiState, x: torch.Tensor
+                       ) -> list:
+    """Capture per-layer simulator traces from a real forward pass.
+
+    Runs ``apply`` with activation capture on ``x``'s device (on the card,
+    the LIF kernel) and converts every calibrated layer's binary GEMM
+    activations into a ``repro_torch.sim.LayerTrace`` against the same
+    pattern bank the Phi execution paths use; on the card the matcher
+    kernel assigns them (``sim.trace.trace_from_acts``). The captured GEMM
+    rows already cover timesteps × batch, so ``reps`` stays 1. Attention
+    sites are skipped, as in the reference: they have no weight matrix, and
+    ``perfmodel.phi_attention_traffic`` covers them.
+    """
+    from repro_torch.sim.trace import trace_from_acts
+
+    cap: dict[str, torch.Tensor] = {}
+    with torch.no_grad():
+        apply(params, cfg, x, capture=cap)
+        return [trace_from_acts(f"snn.{name}", cap[name], pats,
+                                _layer_weight(params, name).shape[-1])
+                for name, pats in phi.patterns.items()
+                if name in cap and not name.endswith("_attn")]
+
+
 def phi_apply(params: Params, cfg: SNNConfig, phi: PhiState, x: torch.Tensor,
               impl: str | None = None, attn_impl: str | None = None) -> torch.Tensor:
     """Inference with Phi sparse matmuls substituted for every spiking GEMM.

@@ -48,6 +48,7 @@ from repro_torch.core import paft
 from repro_torch.core.assign import assign_patterns, level1_matrix
 from repro_torch.models import flash as flash_mod
 from repro_torch.models.flash import flash_attention
+from repro_torch.sim import trace as sim_trace
 from repro_torch.snn import models as M
 from repro_torch.snn import train as snn_train
 from repro_torch.snn.data import synthetic_images
@@ -975,3 +976,63 @@ def test_vgg_train_step_on_the_card_matches_the_cpu(dev):
         assert float(want.abs().max()) > 0, name
         err = float((got[name]["w"].cpu() - want).abs().max())
         assert err <= GRAD_REL * float(want.abs().max()), (name, err)
+
+
+# The VGG's five GEMMs on the main path (M, K at k = 16, q = 128), and odd
+# banks: k = 9 (the table-4 traces' conv partitions), q = 7, ragged M.
+TRACE_CASES = [(32768, 576, 16, 128), (8192, 1152, 16, 128), (2048, 2304, 16, 128),
+               (512, 4608, 16, 128), (128, 512, 16, 128), (1000, 63, 9, 7),
+               (777, 144, 9, 128), (301, 96, 16, 7)]
+
+
+@pytest.mark.parametrize("M_,K,k,q", TRACE_CASES)
+def test_trace_from_acts_on_the_card_matches_plain_and_numpy(dev, M_, K, k, q):
+    """``trace_from_acts`` on a CUDA tensor (the matcher kernel) equals the
+    same arrays built by the plain matcher on the card and the reference's
+    numpy mirror on the CPU, to the integer."""
+    g = torch.Generator().manual_seed(M_ + K + q)
+    T = K // k
+    base = (torch.rand((24, K), generator=g) < 0.15).float()
+    a = base[torch.randint(0, 24, (M_,), generator=g)]
+    a = (a + (torch.rand(a.shape, generator=g) < 0.03).float()) % 2
+    pats = a[torch.randint(0, M_, (q,), generator=g)].reshape(q, T, k).transpose(0, 1)
+    pats = pats.to(torch.uint8).contiguous()
+    before = matcher_cuda.launches
+    got = sim_trace.trace_from_acts("t", a.to(dev), pats.to(dev), 64)
+    assert matcher_cuda.launches == before + 1
+    plain = sim_trace._assign_torch(a.to(dev), pats.to(dev), matcher_plain)
+    host = sim_trace.trace_from_acts("t", a.numpy(), pats.numpy(), 64)
+    for i, field in enumerate(("idx", "tile_pop", "tile_res", "usage")):
+        np.testing.assert_array_equal(getattr(got, field), plain[i])
+        np.testing.assert_array_equal(getattr(got, field), getattr(host, field))
+    assert got.idx_density > 0 and (got.m, got.k_dim, got.k, got.q) == (M_, K, k, q)
+
+
+def test_capture_phi_traces_on_the_card_never_assigns_on_the_host(dev, monkeypatch):
+    """On the card every calibrated GEMM is assigned by the matcher kernel:
+    the numpy mirror is swapped for a raise, and the traces equal the ones
+    captured on the CPU from the same weights and patterns."""
+    cfg = M.SNNConfig(kind="vgg", widths=(64, 128, 256), input_size=32,
+                      phi=PhiConfig(k=16, q=128, iters=10))
+    params = M.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    for name, leaf in params.items():
+        leaf["w"] = torch.round(leaf["w"] * (1.0 if name == "conv0" else 3.0) * 1024) / 1024
+    x, _ = synthetic_images(16, size=32, seed=0)
+    x = torch.round(torch.from_numpy(x) * 1024) / 1024
+    state, _ = M.calibrate_model(params, cfg, x)
+    want = M.capture_phi_traces(params, cfg, state, x)
+
+    def refuse(*a, **k):
+        raise AssertionError("_assign_np ran on the card")
+
+    monkeypatch.setattr(sim_trace, "_assign_np", refuse)
+    params_d = {n: {"w": leaf["w"].to(dev)} for n, leaf in params.items()}
+    state_d = M.PhiState({n: p.to(dev) for n, p in state.patterns.items()},
+                         {n: p.to(dev) for n, p in state.pwp.items()}, state.usage)
+    before = matcher_cuda.launches
+    got = M.capture_phi_traces(params_d, cfg, state_d, x.to(dev))
+    assert matcher_cuda.launches == before + len(want) and len(want) == 3
+    for g_, w_ in zip(got, want):
+        assert (g_.name, g_.m, g_.k_dim, g_.n) == (w_.name, w_.m, w_.k_dim, w_.n)
+        for field in ("idx", "tile_pop", "tile_res", "usage"):
+            np.testing.assert_array_equal(getattr(g_, field), getattr(w_, field))
