@@ -42,12 +42,23 @@ phases, and the ``kernels`` summary:
   kernels' ``l2_nnz`` before and after), ``spikformer_train`` (Spikformer-4-384
   trained through the attention kernel's dense instantiation with its
   logsumexp and the flash backward; lse and one site's gradients against
-  the plain versions).
+  the plain versions);
+* LM serving — ``lm_serve`` (OLMo-1B at full width and depth in Phi spiking
+  mode, T = 4, q = 128, k = 16: params from a seeded generator on the card,
+  rounded onto the 2^-10 grid; ``calibrate_lm_phi`` on 2 x 128 tokens; the
+  prefill gate, ``train_logits`` at B = 1, S = 2048, Phi logits bitwise the
+  spiking-dense ones with the attention kernel at every layer; the serving
+  engine over 8 requests and 4 slots as Phi, spiking-dense, paged and
+  paged-with-preemption runs, token- and logit-identical; the policy's
+  decisions at prefill and decode; each kernel the phase launched against
+  its plain version at layer 0's operands; prefill, decode and GEMM timings
+  beside their bounds; PWP bytes and peak memory).
 
-Every ``*main_path`` phase prints the policy's decisions (site, impl,
-reason, count). Each main path, ``accel_sim``'s captures and ``phi_apply``
-calls, and each of the three training phases are driven with every
-kernel's launch count set to 0 just before and read just after. The card's
+Every ``*main_path`` phase and ``lm_serve`` print the policy's decisions
+(site, impl, reason, count). Each main path, ``accel_sim``'s captures and
+``phi_apply`` calls, each of the three training phases and ``lm_serve``'s
+counted run are driven with every kernel's launch count set to 0 just
+before and read just after. The card's
 ``nvidia-smi`` name and power limit sit on their own line before the
 summary; the last line is the result object.
 
@@ -225,19 +236,43 @@ def device_sum(rows):
     return None if None in times else sum(times)
 
 
-def fused_bound_ms(M, K, N, T, q, k, l2_entries, pwp_rows=None) -> tuple[float, float]:
+def fused_bound_ms(M, K, N, T, q, k, l2_entries, pwp_rows=None, w_rows=None,
+                   l1_pairs=None) -> tuple[float, float]:
     """Least time for one fused Phi matmul: bytes (inputs once, output once)
     against HBM, float32 operations of this run's data against the CUDA-core
     peak (L1: a multiply and an add per row, partition and column; L2: an add
     per residual entry and column; the final add). ``pwp_rows`` is the number
     of PWP rows (and scales) the call needs: the whole bank, T·(q+1), unless
-    the prefetching kernel's active sets leave fewer. The integer match work
-    is not counted: the table of peaks has no integer CUDA-core rate."""
+    the prefetching kernel's active sets leave fewer; ``w_rows`` the weight
+    rows it needs (default all K) and ``l1_pairs`` its matched (row,
+    partition) pairs (default M·T) — :func:`needed_bound_ms` counts both
+    from the data where few rows leave most of them untouched. The integer
+    match work is not counted: the table of peaks has no integer CUDA-core
+    rate."""
     pwp_rows = T * (q + 1) if pwp_rows is None else pwp_rows
-    nbytes = 4 * M * K + T * q * k + 4 * pwp_rows * N + 4 * pwp_rows + 4 * K * N \
+    w_rows = K if w_rows is None else w_rows
+    l1_pairs = M * T if l1_pairs is None else l1_pairs
+    nbytes = 4 * M * K + T * q * k + 4 * pwp_rows * N + 4 * pwp_rows + 4 * w_rows * N \
         + 4 * M * N + 4 * -(-M // 256)
-    flops = 2 * M * T * N + l2_entries * N + M * N
+    flops = 2 * l1_pairs * N + l2_entries * N + M * N
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+
+
+def needed_bound_ms(a, patterns, N) -> tuple[float, float]:
+    """:func:`fused_bound_ms` counting what these rows need: the PWP rows of
+    the (partition, pattern) pairs they match, the weight rows their
+    residual touches, their matched pairs and residual entries."""
+    import torch
+
+    from repro_torch.core.assign import assign_patterns
+
+    T, q, k = patterns.shape
+    idx, res = assign_patterns(a, patterns)
+    used = idx < q
+    pairs = idx.long() + torch.arange(T, device=a.device) * (q + 1)
+    return fused_bound_ms(a.shape[0], a.shape[1], N, T, q, k, int((res != 0).sum()),
+                          pwp_rows=int(torch.unique(pairs[used]).numel()),
+                          w_rows=int((res != 0).any(0).sum()), l1_pairs=int(used.sum()))
 
 
 def lif_bound_ms(T, n) -> tuple[float, float]:
@@ -1543,6 +1578,328 @@ def accel_sim_phase(dev, models, smi) -> dict:
     return {"launches": launches}
 
 
+# The LM serving path: OLMo-1B (src/repro_torch/configs/olmo_1b.py) at full
+# width and depth in Phi spiking mode (phi_variant: T = 4, q = 128, k = 16).
+LM_ARCH = "olmo_1b"
+LM_SMOKE = False           # the smoke cut, for rehearsing the phase on the CPU
+LM_CALIB = (2, 128)        # calibration batch, sequences x tokens
+LM_PREFILL_S = 2048        # prefill gate: S > 1024 takes the attention kernel
+LM_REQUESTS, LM_SLOTS, LM_MAX_NEW, LM_MAX_CONTEXT = 8, 4, 16, 256
+LM_PROMPT = (16, 100)      # prompt lengths, inclusive
+LM_PAGE, LM_TIGHT_PAGES = 16, 16   # the undersized pool: one full lane
+# Prompt lengths and tokens of the engine runs. A pool only preempts where a
+# running request grows into an unmapped page while the pool is full; with
+# this seed's lengths that happens under FIFO and under cohort admission
+# alike (seed 0's lengths never cross a page boundary then).
+LM_PROMPT_SEED = 3
+
+
+def tree_leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from tree_leaves(v)
+        else:
+            yield v
+
+
+def causal_attn_bound_ms(B, S, H, D) -> tuple[float, float]:
+    """Least time for one causal dense attention: q, k, v read and out
+    written once (float32); per score that causality keeps (S(S+1)/2 a
+    head) q.k (2 D), the softmax (4) and p.V (2 D), and a division per
+    output."""
+    nbytes = 16 * B * S * H * D
+    flops = B * H * S * (S + 1) // 2 * (4 * D + 4) + B * H * S * D
+    return nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+
+
+def lm_serve_phase(dev, smi) -> dict:
+    """The ``lm_serve`` phase: OLMo-1B in Phi spiking mode, full width, on
+    the card. With every kernel's launch count set to 0 just before and read
+    just after: params from a seeded generator on the card, rounded onto the
+    2^-10 grid; ``calibrate_lm_phi`` on a 2 x 128 batch (the PWP banks written
+    in place); the prefill gate (``train_logits`` at B = 1, S = 2048, Phi
+    bitwise the spiking-dense oracle, the attention kernel at every layer);
+    the engine over 8 requests and 4 slots four times — Phi, spiking-dense,
+    paged, and paged from an undersized pool that forces preemption — each
+    token- and logit-identical to the first; the drift monitor. Then, outside
+    the counted run: every kernel the phase launched against its plain
+    version at layer 0's operands; timings of the prefill, a decode step and
+    the GEMMs at prefill and decode rows; peak memory."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config, phi_variant
+    from repro_torch.core.patterns import active_pattern_sets
+    from repro_torch.distributed.sharding import init_params
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.matcher import matcher_cuda, matcher_plain
+    from repro_torch.kernels.phi_fused import pack_patterns
+    from repro_torch.kernels.phi_attention import flash_attention_cuda
+    from repro_torch.models import layers as ll
+    from repro_torch.models import model, transformer
+    from repro_torch.models.flash import _flash_fwd_impl
+    from repro_torch.obs import DriftMonitor, ListSink, Tracer, set_tracer
+    from repro_torch.serve.engine import Engine, Request
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = phi_variant(get_config(LM_ARCH, smoke=LM_SMOKE))
+    policy = dispatch.PhiExecutionPolicy()
+    prev_policy = dispatch.set_policy(policy)
+    sink = ListSink()
+    tracer = Tracer(sink)
+    prev_tracer = set_tracer(tracer)
+    times = {}
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    rng = np.random.default_rng(LM_PROMPT_SEED)
+    prompts = [rng.integers(3, cfg.vocab, int(n))
+               for n in rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)]
+    engines = {"phi": {}, "spiking_dense": {}, "paged": dict(paged=True, page_size=LM_PAGE),
+               "paged_tight": dict(paged=True, page_size=LM_PAGE, num_pages=LM_TIGHT_PAGES)}
+    marks = {}
+
+    def serve(name, kw):
+        eng = Engine(cfg, params, batch_slots=LM_SLOTS, max_context=LM_MAX_CONTEXT,
+                     record_logits=True, wall_time=True, tracer=tracer,
+                     matmul=model.spiking_dense_matmul(cfg) if name == "spiking_dense" else None,
+                     **kw)
+        for rid, toks in enumerate(prompts):
+            eng.submit(Request(rid=rid, tokens=toks, max_new_tokens=LM_MAX_NEW))
+        first = len(sink.records)
+        res = stage(f"engine_{name}", eng.run)
+        marks[name] = (first, len(sink.records))
+        return eng, {r.rid: r.tokens for r in res}
+
+    zero_launches()
+    try:
+        with torch.no_grad():
+            def build():
+                p = init_params(model.lm_specs(cfg), torch.Generator(device=dev).manual_seed(SEED),
+                                dev)
+                for leaf in tree_leaves(model.split_phi_state(p)[0]):
+                    leaf.copy_(dyadic(leaf))
+                return p
+
+            params = stage("init_params", build)
+            calib = model.dummy_batch(cfg, *LM_CALIB, False, torch.Generator().manual_seed(SEED),
+                                      dev)
+            params, stats = stage("calibrate", lambda: model.calibrate_lm_phi(cfg, params, calib))
+            maxd = max(st.l2_density for st in stats.values())
+            cfg = cfg.with_(phi=dataclasses.replace(cfg.phi, nnz_budget=min(0.9, 2 * maxd + 0.05)))
+            batch = model.dummy_batch(cfg, 1, LM_PREFILL_S, False,
+                                      torch.Generator().manual_seed(SEED + 1), dev)
+            first = len(sink.records)
+            phi_logits = stage("prefill_phi", lambda: model.train_logits(cfg, params, batch))
+            marks["prefill"] = (first, len(sink.records))
+            dense_logits = stage("prefill_spiking_dense", lambda: model.train_logits(
+                cfg, params, batch, matmul=model.spiking_dense_matmul(cfg)))
+            runs = {name: serve(name, kw) for name, kw in engines.items()}
+            drift = DriftMonitor(policy, prefix="lm.").check()
+        launches = read_launches()
+    finally:
+        set_tracer(prev_tracer)
+        dispatch.set_policy(prev_policy)
+    counted_s = time.perf_counter() - t_phase
+
+    # ------------------------------------------------------------ gates ---
+    V = cfg.vocab
+    if phi_logits.shape != (1, LM_PREFILL_S, V) or not torch.isfinite(phi_logits).all():
+        raise AssertionError(f"prefill logits {tuple(phi_logits.shape)} not finite/(1, S, V)")
+    if not torch.equal(phi_logits, dense_logits):
+        raise AssertionError(f"prefill: Phi logits differ from spiking-dense, max |diff| "
+                             f"{float((phi_logits - dense_logits).abs().max())}")
+    if float(phi_logits.std()) == 0:
+        raise AssertionError("prefill: constant logits")
+    want_eng, want = runs["phi"]
+    if sorted(want) != list(range(LM_REQUESTS)) or \
+            any(len(t) != LM_MAX_NEW for t in want.values()):
+        raise AssertionError(f"phi engine: results {[len(t) for t in want.values()]}")
+    # A preempted request resumes with a prefill over its prompt and prefix,
+    # whose logits row for the next token is the prefill's, not a decode
+    # step's: its tokens are gated, the rest of its rows and every other
+    # request's rows bitwise.
+    preempted = {name: sorted({r["rid"] for r in sink.records[slice(*marks[name])]
+                               if r["kind"] == "preempt"}) for name in runs}
+    if not preempted["paged_tight"] or any(preempted[n] for n in runs if n != "paged_tight"):
+        raise AssertionError(f"preemptions {preempted}: want some in paged_tight only")
+    for name, (eng, res) in runs.items():
+        if res != want:
+            raise AssertionError(f"engine {name}: tokens differ from the Phi engine's")
+        for rid, rows in want_eng.logit_trace.items():
+            if rid in preempted[name]:
+                continue
+            if len(rows) != len(eng.logit_trace[rid]) or not all(
+                    np.array_equal(a, b) for a, b in zip(rows, eng.logit_trace[rid])):
+                raise AssertionError(f"engine {name}: request {rid}'s logits not bitwise")
+    recs = [r for r in sink.records if r["kind"] == "dispatch"]
+    n_attn = sum(r["site"] == "lm.attn_prefill" for r in recs)
+    if launches["flash_attention_cuda"] != n_attn or n_attn != 2 * cfg.n_layers:
+        raise AssertionError(f"attention kernel launches {launches['flash_attention_cuda']}, "
+                             f"decisions {n_attn}, want 2 x {cfg.n_layers} layers")
+    for impl in ("fused", "fused_stream", "fused_prefetch"):
+        n = sum(r["impl"] == impl for r in recs)
+        if launches[f"phi_{impl}_cuda"] != n:
+            raise AssertionError(f"phi_{impl} launched {launches[f'phi_{impl}_cuda']} times for "
+                                 f"{n} decisions")
+    if launches["lif_sequence_cuda"] <= 0 or launches["matcher_cuda"] <= 0:
+        raise AssertionError(f"LIF or matcher kernel never launched: {launches}")
+
+    def tally(lo, hi, keep=lambda r: True):
+        out = {}
+        for r in sink.records[lo:hi]:
+            if r["kind"] == "dispatch" and keep(r):
+                key = (r["site"], r["impl"], r["reason"])
+                out[key] = out.get(key, 0) + 1
+        return [[*key, n] for key, n in sorted(out.items())]
+
+    decode_m = cfg.phi.timesteps * LM_SLOTS
+    decisions = {"prefill": tally(*marks["prefill"]),
+                 "engine_decode": tally(*marks["phi"], lambda r: r["shape"][0] == decode_m),
+                 "engine_prefill": tally(*marks["phi"], lambda r: r["shape"][0] != decode_m)}
+
+    # ------------------------------------ kernels against plain versions ---
+    layer0 = transformer.layer_slice(params["decoder"]["stack"], 0)["p0"]
+    with torch.no_grad():
+        captured = model._capture_phi_spikes(cfg, params, calib)
+    sites = {"wq": layer0, "wk": layer0, "wv": layer0, "wo": layer0,
+             "w1": layer0["mlp"], "w3": layer0["mlp"], "w2": layer0["mlp"]}
+    last = {r["site"]: r["impl"] for r in recs}
+    gemm_rows, checks = [], {}
+    for name, node in sites.items():
+        spk = captured[f"{name}#0"][0]
+        K = spk.shape[-1]
+        a = spk.reshape(-1, K).to(torch.float32).contiguous()
+        phi_p = node["phi_" + name]
+        pats, pwp = phi_p["patterns"], phi_p["pwp"].to(torch.float32)
+        w = node[name].to(torch.float32).contiguous()
+        args = [a[:256].contiguous(), pats, pwp, torch.ones(pwp.shape[:2], device=dev), w]
+        route = last[f"lm.{name}"]
+        sets, _ = active_pattern_sets(phi_p["usage"].cpu().numpy())
+        p_active = None if sets is None else int(sets.shape[-1])
+        packed = pack_patterns(pats)
+        checks[name] = fused_checks(f"lm {name}", args, packed, active_sets(args, p_active))
+        for rows_label, m in (("calibration", a.shape[0]), ("decode", decode_m)):
+            targs = [a[:m].contiguous()] + args[1:]
+            row = fused_timing(name, targs, packed, route, active_sets(targs, p_active),
+                               plain_runs=1)
+            b_ms, o_ms = needed_bound_ms(targs[0], pats, w.shape[1])
+            row.update(rows=rows_label, bytes_ms=b_ms, ops_ms=o_ms, bound_ms=max(b_ms, o_ms),
+                       whole_bank_bound_ms=row["bound_ms"])
+            gemm_rows.append(row)
+    attach_device_ms(gemm_rows, lambda row: FUSED_KERNEL[row["route"]])
+    # LIF: the rate coding of layer 0's wq operand (the calibration batch).
+    x0 = ll.apply_norm(cfg, layer0["ln1"], model._embed_inputs(cfg, params, calib))
+    x_seq = x0.to(torch.float32).unsqueeze(0).expand(cfg.phi.timesteps, *x0.shape).contiguous()
+    lif_timing, lif_err = lif_rows([x_seq])
+    # Matcher: the calibration's assignment at w2 (K = 8192).
+    a2 = captured["w2#0"][0].reshape(-1, cfg.d_ff).to(torch.float32).contiguous()
+    pats2 = layer0["mlp"]["phi_w2"]["patterns"]
+    idx, res = matcher_cuda(a2, pats2)
+    pidx, pres = matcher_plain(a2, pats2)
+    if not (torch.equal(idx, pidx) and torch.equal(res, pres)):
+        raise AssertionError("lm w2: matcher kernel != assign_patterns")
+    matcher_row = {"shape": list(a2.shape), "T": pats2.shape[0],
+                   "ms": cuda_time_ms(lambda: matcher_cuda(a2, pats2)),
+                   "_fn": lambda: matcher_cuda(a2, pats2),
+                   "plain_ms": cuda_time_ms(lambda: matcher_plain(a2, pats2), runs=3)}
+    attach_device_ms([matcher_row], lambda row: "matcher")
+    # Attention: layer 0's q, k, v at the prefill gate's S, widened to float32.
+    with torch.no_grad():
+        h = ll.apply_norm(cfg, layer0["ln1"], model._embed_inputs(cfg, params, batch))
+        pos = torch.arange(LM_PREFILL_S, device=dev)[None]
+        q, k, v = (x.to(torch.float32).contiguous() for x in transformer._qkv(
+            cfg, layer0, h, pos, model.make_matmul(cfg)))
+    bq, bkv = policy.last_decision("lm.attn_prefill").blocks
+    kw = dict(causal=True, block_q=bq, block_kv=bkv)
+    out = flash_attention_cuda(q, k, v, **kw)
+    pout, _ = _flash_fwd_impl(q, k, v, True, None, None, bq, bkv)
+    attn_err = float((out - pout).abs().max())
+    attn_tol = ATTN_ULPS * 2.0 ** -24 * float(v.abs().max())
+    if attn_err > attn_tol:
+        raise AssertionError(f"lm attention: kernel != plain, max |diff| {attn_err} > {attn_tol}")
+    B, S, H, D = q.shape
+    b_ms, o_ms = causal_attn_bound_ms(B, S, H, D)
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    attn_row = {"shape": [B, S, H, D], "blocks": [bq, bkv], "max_abs_err": attn_err,
+                "tol": attn_tol, "ms": cuda_time_ms(lambda: flash_attention_cuda(q, k, v, **kw)),
+                "_fn": lambda: flash_attention_cuda(q, k, v, **kw),
+                "plain_ms": cuda_time_ms(lambda: _flash_fwd_impl(q, k, v, True, None, None, bq,
+                                                                 bkv), runs=3),
+                "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                    qh, kh, vh, is_causal=True)),
+                "bytes_ms": b_ms, "ops_ms": o_ms, "bound_ms": max(b_ms, o_ms)}
+    attach_device_ms([attn_row], lambda row: "attn_kernel")
+
+    # ------------------------------------------------------------ timing ---
+    with torch.no_grad():
+        prefill_ms = cuda_time_ms(lambda: model.train_logits(cfg, params, batch), runs=3,
+                                  warmup=1)
+        dense_ms = cuda_time_ms(lambda: model.train_logits(
+            cfg, params, batch, matmul=model.spiking_dense_matmul(cfg)), runs=3, warmup=1)
+        prefill_profile = device_profile(lambda: model.train_logits(cfg, params, batch),
+                                         prefill_ms)
+        state = model.init_decode_state(cfg, LM_SLOTS, LM_MAX_CONTEXT, dev)
+        tok = torch.full((LM_SLOTS,), 7, dtype=torch.int32, device=dev)
+        dpos = torch.full((LM_SLOTS,), 100, dtype=torch.int32, device=dev)
+        decode_ms = cuda_time_ms(lambda: model.decode_step(cfg, params, tok, dpos, state),
+                                 runs=5, warmup=2)
+        decode_profile = device_profile(lambda: model.decode_step(cfg, params, tok, dpos, state),
+                                        decode_ms)
+    serve_rows = {}
+    for name, (eng, _) in runs.items():
+        hist = eng.metrics.get("token_latency_ms")
+        wall = times[f"engine_{name}"]
+        serve_rows[name] = {
+            "wall_s": wall, "ticks": eng.ticks, "decoded_tokens": eng.decoded_tokens,
+            "tokens": eng.decoded_tokens + LM_REQUESTS,
+            "tokens_per_s": (eng.decoded_tokens + LM_REQUESTS) / wall,
+            "decode_ms_per_tick": hist.sum() / max(eng.ticks, 1),
+            "scheduler": eng.scheduler.report(), "cache": eng.cache_report()}
+    pwp_bytes = sum(leaf.numel() * leaf.element_size()
+                    for leaf in tree_leaves(model.split_phi_state(params)[1])
+                    if leaf.dim() == 4)
+    weight_bytes = sum(leaf.numel() * leaf.element_size()
+                       for leaf in tree_leaves(model.split_phi_state(params)[0]))
+    emit({"phase": "lm_serve", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "config": {"arch": LM_ARCH, "smoke": LM_SMOKE, "n_layers": cfg.n_layers,
+                     "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": V,
+                     "timesteps": cfg.phi.timesteps, "q": cfg.phi.q, "k": cfg.phi.k,
+                     "calib": LM_CALIB, "prefill_s": LM_PREFILL_S, "requests": LM_REQUESTS,
+                     "slots": LM_SLOTS, "max_new": LM_MAX_NEW, "max_context": LM_MAX_CONTEXT,
+                     "page": LM_PAGE, "tight_pages": LM_TIGHT_PAGES},
+          "counted_s": counted_s, "stages_s": times, "launches": launches,
+          "decisions": decisions,
+          "gates": {"prefill_phi_bitwise_spiking_dense": True,
+                    "engines_token_and_logit_identical": sorted(runs),
+                    "preempted_rids": preempted["paged_tight"],
+                    "attention_launches": n_attn},
+          "drift": drift, "l2_density_max": maxd,
+          "l2_density": {key: st.l2_density for key, st in sorted(stats.items())},
+          "gemm_l2_entries_256_rows": checks, "gemms": gemm_rows,
+          "lif_sequence": lif_timing, "lif_max_abs_err": lif_err,
+          "matcher": matcher_row, "attention": attn_row,
+          "prefill_ms": prefill_ms, "prefill_spiking_dense_ms": dense_ms,
+          "prefill_profile": prefill_profile, "decode_step_ms": decode_ms,
+          "decode_profile": decode_profile, "serve": serve_rows,
+          "pwp_bytes": pwp_bytes, "weight_bytes": weight_bytes,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "seconds": time.perf_counter() - t_phase})
+    del params, state, runs
+    torch.cuda.empty_cache()
+    return {"launches": launches, "lif_err": lif_err, "attn_err": attn_err}
+
+
 def main() -> int:
     import torch
 
@@ -1795,8 +2152,12 @@ def main() -> int:
     trained = train_phase(dev, cfg, params, data, smi)
     paft_run = paft_phase(dev, cfg, trained["params"], images, data, smi)
     spk_train = spikformer_train_phase(dev, data, smi)
+
+    # ------------------------------------------------------ LM serving ---
+    lm = lm_serve_phase(dev, smi)
     later = {"accel_sim": accel["launches"], "train": trained["launches"],
-             "paft": paft_run["launches"], "spikformer_train": spk_train["launches"]}
+             "paft": paft_run["launches"], "spikformer_train": spk_train["launches"],
+             "lm": lm["launches"]}
 
     # ------------------------------------------------------------ summary ---
     # Times are per batch of the main paths: the sum over the calls one
@@ -1835,7 +2196,7 @@ def main() -> int:
          "launches": launches["lif_sequence_cuda"] + spk_launches["lif_sequence_cuda"],
          "launches_by_path": {"vgg": launches["lif_sequence_cuda"],
                               "spikformer": spk_launches["lif_sequence_cuda"]},
-         "max_abs_err": max(lif_err, spk["lif_err"]),
+         "max_abs_err": max(lif_err, spk["lif_err"], lm["lif_err"]),
          "ms": sum(r["ms"] for r in all_lif), "device_ms": device_sum(all_lif),
          "plain_ms": sum(r["plain_ms"] for r in all_lif),
          "bound_ms": lif_bound, "bound_by": lif_by, "library_ms": None},
@@ -1859,6 +2220,7 @@ def main() -> int:
     attn["lse_max_abs_err"] = spk_train["lse_err"]
     attn["dense_lse_launches"] = spk_train["launches"]["flash_attention_cuda_lse"]
     attn["dense_instantiation_launches"] += sum(c["flash_attention_cuda"] for c in later.values())
+    attn["lm_dense_max_abs_err"] = lm["attn_err"]
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -706,3 +706,33 @@ def usage_from_checkpoint_extra(extra: dict | None) -> dict:
     """Inverse of :func:`usage_checkpoint_extra`: name -> (T, q+1) int64."""
     raw = (extra or {}).get(_USAGE_KEY) or {}
     return {name: np.asarray(v, np.int64) for name, v in raw.items()}
+
+
+def register_usage_from_params(params: Any, prefix: str = "lm") -> int:
+    """Walk a calibrated LM params tree and (re-)register every ``phi_*``
+    usage histogram with the default policy under its dispatch site name
+    (``f"{prefix}.{weight}"``). Used after a restore, where the histograms
+    arrive as params-tree tensors but the policy registry (which the usage
+    gate reads) starts empty. Returns the number of sites registered."""
+    pol = get_policy()
+    count = 0
+
+    def _walk(node: Any) -> None:
+        nonlocal count
+        if not isinstance(node, dict):
+            return
+        for key, val in node.items():
+            if key.startswith("phi_") and isinstance(val, dict):
+                u = val.get("usage")
+                if u is not None:
+                    u = u.cpu().numpy() if isinstance(u, torch.Tensor) else np.asarray(u)
+                    if u.ndim == 3:     # layer-stacked: pooled histogram
+                        u = u[0]
+                    if u.size and u.sum() > 0:
+                        pol.register_usage(f"{prefix}.{key[4:]}", u)
+                        count += 1
+            elif isinstance(val, dict):
+                _walk(val)
+
+    _walk(params)
+    return count

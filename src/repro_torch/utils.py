@@ -41,3 +41,8 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "repro_torch: CUDA requested but torch.cuda.is_available() is False; "
             "pass device='cpu' to run the plain PyTorch versions")
     return dev
+
+
+def ceil_to(x: int, m: int) -> int:
+    """Round ``x`` up to a multiple of ``m``."""
+    return ((x + m - 1) // m) * m

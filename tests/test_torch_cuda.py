@@ -1036,3 +1036,97 @@ def test_capture_phi_traces_on_the_card_never_assigns_on_the_host(dev, monkeypat
         assert (g_.name, g_.m, g_.k_dim, g_.n) == (w_.name, w_.m, w_.k_dim, w_.n)
         for field in ("idx", "tile_pop", "tile_res", "usage"):
             np.testing.assert_array_equal(getattr(g_, field), getattr(w_, field))
+
+
+# ------------------------------------------------------------- LM stack ---
+def _lm_phi_setup(dev, timesteps=4, q=16):
+    """OLMo-1B's smoke cut in Phi mode on the card, weights on the 2^-10 grid."""
+    from repro_torch.configs import get_config, phi_variant
+    from repro_torch.distributed.sharding import init_params
+    from repro_torch.models import model
+
+    cfg = phi_variant(get_config("olmo_1b", smoke=True), timesteps=timesteps, q=q)
+    params = init_params(model.lm_specs(cfg), torch.Generator(device=dev).manual_seed(0), dev)
+    train, _ = model.split_phi_state(params)
+    stack = [train]
+    while stack:
+        for v in stack.pop().values():
+            if isinstance(v, dict):
+                stack.append(v)
+            else:
+                v.copy_(torch.round(v * 1024) / 1024)
+    batch = model.dummy_batch(cfg, 2, 24, False, torch.Generator().manual_seed(1), dev)
+    with torch.no_grad():
+        params, _ = model.calibrate_lm_phi(cfg, params, batch)
+    return cfg, params, batch
+
+
+def test_lm_smoke_phi_logits_bitwise_spiking_dense_on_the_card(dev):
+    from repro_torch.models import model
+
+    prev = dispatch.set_policy(dispatch.PhiExecutionPolicy())
+    try:
+        cfg, params, batch = _lm_phi_setup(dev)
+        fused, lif = phi_fused_cuda.launches, lif_sequence_cuda.launches
+        with torch.no_grad():
+            phi = model.train_logits(cfg, params, batch)
+            dense = model.train_logits(cfg, params, batch,
+                                       matmul=model.spiking_dense_matmul(cfg))
+        torch.cuda.synchronize()
+    finally:
+        dispatch.set_policy(prev)
+    # smoke widths: K = 64 or 128, T < 96, so the gate takes the first kernel
+    assert phi_fused_cuda.launches - fused == 7 * cfg.n_layers
+    assert lif_sequence_cuda.launches - lif >= 14 * cfg.n_layers
+    assert torch.isfinite(phi).all() and torch.equal(phi, dense)
+
+
+def test_lm_attention_kernel_at_head_dim_128_bf16_widened(dev):
+    """S > 1024 at head dim 128: the policy maps the reference's 512 x 1024
+    tiles onto the kernel's own, bf16 operands are widened around the
+    kernel. Against the plain version on the CPU (same tiles): the float32
+    results differ by the softmax's order (ATTN_ATOL_ULPS ulps of max|V|),
+    which bf16 rounding turns into at most one bf16 ulp of max|V|."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as ll
+
+    cfg = get_config("olmo_1b", smoke=True).with_(d_model=256, n_heads=2, n_kv_heads=2,
+                                                  compute_dtype=torch.bfloat16)
+    assert cfg.hd == 128
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((1, 1100, 2, 128), generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    before = flash_attention_cuda.launches
+    got = ll.attention_prefill(cfg, 0, q.to(dev), k.to(dev), v.to(dev), layer_global=True)
+    torch.cuda.synchronize()
+    assert flash_attention_cuda.launches == before + 1 and got.dtype == torch.bfloat16
+    want = ll.attention_prefill(cfg, 0, q, k, v, layer_global=True)
+    tol = 2.0 ** -8 * float(v.float().abs().max())
+    assert float((got.cpu().float() - want.float()).abs().max()) <= tol
+
+
+def test_lm_engine_paged_equals_contiguous_on_the_card(dev):
+    from repro_torch.serve.engine import Engine, Request
+
+    prev = dispatch.set_policy(dispatch.PhiExecutionPolicy())
+    try:
+        cfg, params, _ = _lm_phi_setup(dev, timesteps=2)
+        rng = np.random.default_rng(11)
+        lens = (5, 11, 7)
+
+        def run(**kw):
+            eng = Engine(cfg, params, batch_slots=2, max_context=64, record_logits=True, **kw)
+            for rid, n in enumerate(lens):
+                eng.submit(Request(rid=rid, tokens=rng.integers(3, cfg.vocab, n),
+                                   max_new_tokens=4))
+            return eng, {r.rid: r.tokens for r in eng.run()}
+
+        state = rng.bit_generator.state
+        contig, a = run()
+        rng.bit_generator.state = state
+        paged, b = run(paged=True, page_size=8)
+    finally:
+        dispatch.set_policy(prev)
+    assert a == b and all(len(t) == 4 for t in a.values())
+    for rid, rows in contig.logit_trace.items():
+        assert all(np.array_equal(x, y) for x, y in zip(rows, paged.logit_trace[rid]))
