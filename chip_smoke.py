@@ -43,22 +43,32 @@ phases, and the ``kernels`` summary:
   trained through the attention kernel's dense instantiation with its
   logsumexp and the flash backward; lse and one site's gradients against
   the plain versions);
-* LM serving — ``lm_serve`` (OLMo-1B at full width and depth in Phi spiking
-  mode, T = 4, q = 128, k = 16: params from a seeded generator on the card,
-  rounded onto the 2^-10 grid; ``calibrate_lm_phi`` on 2 x 128 tokens; the
-  prefill gate, ``train_logits`` at B = 1, S = 2048, Phi logits bitwise the
-  spiking-dense ones with the attention kernel at every layer; the serving
+* LM serving — ``lm_serve`` (OLMo-1B at full width in Phi spiking mode,
+  depth cut to ``LM_LAYERS`` = 4 of its 16 layers, T = 4, q = 128, k = 16:
+  params from a seeded generator on the card, rounded onto the 2^-10 grid;
+  ``calibrate_lm_phi`` on 2 x 128 tokens; the prefill gate,
+  ``train_logits`` at B = 1, S = 2048, Phi logits bitwise the spiking-dense
+  ones with the attention kernel at every layer; the serving
   engine over 8 requests and 4 slots as Phi, spiking-dense, paged and
   paged-with-preemption runs, token- and logit-identical; the policy's
   decisions at prefill and decode; each kernel the phase launched against
   its plain version at layer 0's operands; prefill, decode and GEMM timings
-  beside their bounds; PWP bytes and peak memory).
+  beside their bounds; PWP bytes and peak memory);
+* hybrid serving — ``hybrid_serve`` (Zamba2-1.2B at full width and depth in
+  Phi spiking mode: 36 Mamba-2 layers in 6 sites, each followed by the
+  shared attention + MLP block with the site's LoRA on Q, then 2 tail
+  layers; ``lm_serve``'s calibration batch, prefill gate and requests; the
+  engine as Phi and spiking-dense runs, token- and logit-identical, a
+  one-slot Phi engine over two requests, token-identical, and a
+  ``paged=True`` engine that keeps dense slots; each kernel against its
+  plain version at layer 0's operands; prefill, decode and GEMM timings at
+  the wz, wB (N = 64) and wo sites; calibration seconds and peak memory).
 
-Every ``*main_path`` phase and ``lm_serve`` print the policy's decisions
-(site, impl, reason, count). Each main path, ``accel_sim``'s captures and
-``phi_apply`` calls, each of the three training phases and ``lm_serve``'s
-counted run are driven with every kernel's launch count set to 0 just
-before and read just after. The card's
+Every ``*main_path`` phase, ``lm_serve`` and ``hybrid_serve`` print the
+policy's decisions (site, impl, reason, count). Each main path,
+``accel_sim``'s captures and ``phi_apply`` calls, each of the three training
+phases and the two serving phases' counted runs are driven with every
+kernel's launch count set to 0 just before and read just after. The card's
 ``nvidia-smi`` name and power limit sit on their own line before the
 summary; the last line is the result object.
 
@@ -1579,9 +1589,12 @@ def accel_sim_phase(dev, models, smi) -> dict:
 
 
 # The LM serving path: OLMo-1B (src/repro_torch/configs/olmo_1b.py) at full
-# width and depth in Phi spiking mode (phi_variant: T = 4, q = 128, k = 16).
+# width in Phi spiking mode (phi_variant: T = 4, q = 128, k = 16). Its depth
+# is cut to LM_LAYERS of 16 so that the script, which also runs
+# hybrid_serve at full depth, stays well inside its time limit (PERF.md §4).
 LM_ARCH = "olmo_1b"
 LM_SMOKE = False           # the smoke cut, for rehearsing the phase on the CPU
+LM_LAYERS = 4              # OLMo-1B's depth (None: all 16 layers)
 LM_CALIB = (2, 128)        # calibration batch, sequences x tokens
 LM_PREFILL_S = 2048        # prefill gate: S > 1024 takes the attention kernel
 LM_REQUESTS, LM_SLOTS, LM_MAX_NEW, LM_MAX_CONTEXT = 8, 4, 16, 256
@@ -1612,13 +1625,155 @@ def causal_attn_bound_ms(B, S, H, D) -> tuple[float, float]:
     return nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
 
 
+def lm_gemms(sites, captured, recs, decode_m, timed) -> tuple[dict, list]:
+    """Layer 0's Phi GEMMs of an LM path against their plain versions, and
+    timings. ``sites`` maps a label to (capture key, params node, weight
+    name): each site's first captured call (layer 0's calibration spikes)
+    goes through :func:`fused_checks` at 256 rows; the sites in ``timed``
+    through :func:`fused_timing` at the calibration's rows and at
+    ``decode_m`` rows, on the kernel the policy last chose for that site and
+    shape, beside the bound of what those rows need. Returns ({label: L2
+    entries at 256 rows}, timing rows)."""
+    import torch
+
+    from repro_torch.core.patterns import active_pattern_sets
+    from repro_torch.kernels.phi_fused import pack_patterns
+
+    checks, rows = {}, []
+    for label, (key, node, name) in sites.items():
+        spk = captured[key][0]
+        K = spk.shape[-1]
+        a = spk.reshape(-1, K).to(torch.float32).contiguous()
+        phi_p = node["phi_" + name]
+        pats, pwp = phi_p["patterns"], phi_p["pwp"].to(torch.float32)
+        if pats.dim() == 4:                      # a stacked site: layer 0's bank
+            pats, pwp = pats[0], pwp[0]
+        w = node[name].to(torch.float32)
+        w = (w[0] if w.dim() == 3 else w).contiguous()
+        args = [a[:256].contiguous(), pats, pwp, torch.ones(pwp.shape[:2], device=a.device), w]
+        route = [r["impl"] for r in recs
+                 if r["site"] == f"lm.{name}" and r["shape"][1:3] == [K, w.shape[1]]][-1]
+        usage = phi_p["usage"].cpu().numpy()
+        sets, _ = active_pattern_sets(usage[0] if usage.ndim == 3 else usage)
+        p_active = None if sets is None else int(sets.shape[-1])
+        packed = pack_patterns(pats)
+        checks[label] = fused_checks(f"lm {label}", args, packed, active_sets(args, p_active))
+        if label not in timed:
+            continue
+        for rows_label, m in (("calibration", a.shape[0]), ("decode", decode_m)):
+            targs = [a[:m].contiguous()] + args[1:]
+            row = fused_timing(label, targs, packed, route, active_sets(targs, p_active),
+                               plain_runs=1)
+            b_ms, o_ms = needed_bound_ms(targs[0], pats, w.shape[1])
+            row.update(rows=rows_label, bytes_ms=b_ms, ops_ms=o_ms, bound_ms=max(b_ms, o_ms),
+                       whole_bank_bound_ms=row["bound_ms"])
+            rows.append(row)
+    attach_device_ms(rows, lambda row: FUSED_KERNEL[row["route"]])
+    return checks, rows
+
+
+def lm_matcher_row(label, a, pats) -> dict:
+    """The matcher kernel against ``assign_patterns`` on one site's
+    calibration rows, bitwise, and its times."""
+    import torch
+
+    from repro_torch.kernels.matcher import matcher_cuda, matcher_plain
+
+    idx, res = matcher_cuda(a, pats)
+    pidx, pres = matcher_plain(a, pats)
+    if not (torch.equal(idx, pidx) and torch.equal(res, pres)):
+        raise AssertionError(f"{label}: matcher kernel != assign_patterns")
+    row = {"shape": list(a.shape), "T": pats.shape[0],
+           "ms": cuda_time_ms(lambda: matcher_cuda(a, pats)),
+           "_fn": lambda: matcher_cuda(a, pats),
+           "plain_ms": cuda_time_ms(lambda: matcher_plain(a, pats), runs=3)}
+    attach_device_ms([row], lambda row: "matcher")
+    return row
+
+
+def lm_attention_row(label, policy, q, k, v) -> dict:
+    """The attention kernel's dense instantiation on one prefill site's float32
+    q, k, v (causal, the policy's last blocks) against ``_flash_fwd_impl``,
+    within ATTN_ULPS ulps of max|V|, and its times beside SDPA's and the
+    bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.phi_attention import flash_attention_cuda
+    from repro_torch.models.flash import _flash_fwd_impl
+
+    bq, bkv = policy.last_decision("lm.attn_prefill").blocks
+    kw = dict(causal=True, block_q=bq, block_kv=bkv)
+    out = flash_attention_cuda(q, k, v, **kw)
+    pout, _ = _flash_fwd_impl(q, k, v, True, None, None, bq, bkv)
+    err = float((out - pout).abs().max())
+    tol = ATTN_ULPS * 2.0 ** -24 * float(v.abs().max())
+    if err > tol:
+        raise AssertionError(f"{label} attention: kernel != plain, max |diff| {err} > {tol}")
+    B, S, H, D = q.shape
+    b_ms, o_ms = causal_attn_bound_ms(B, S, H, D)
+    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+    row = {"shape": [B, S, H, D], "blocks": [bq, bkv], "max_abs_err": err, "tol": tol,
+           "ms": cuda_time_ms(lambda: flash_attention_cuda(q, k, v, **kw)),
+           "_fn": lambda: flash_attention_cuda(q, k, v, **kw),
+           "plain_ms": cuda_time_ms(lambda: _flash_fwd_impl(q, k, v, True, None, None, bq, bkv),
+                                    runs=3),
+           "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
+               qh, kh, vh, is_causal=True)),
+           "bytes_ms": b_ms, "ops_ms": o_ms, "bound_ms": max(b_ms, o_ms)}
+    attach_device_ms([row], lambda row: "attn_kernel")
+    return row
+
+
+def lm_timings(cfg, params, batch, dev) -> dict:
+    """CUDA-event ms of the prefill gate's ``train_logits`` in both arms and
+    of one ``decode_step`` at LM_SLOTS slots, with the profiler's device time,
+    busy share and launches of the Phi prefill and decode step."""
+    import torch
+
+    from repro_torch.models import model
+
+    out = {}
+    with torch.no_grad():
+        out["prefill_ms"] = cuda_time_ms(lambda: model.train_logits(cfg, params, batch),
+                                         runs=3, warmup=1)
+        out["prefill_spiking_dense_ms"] = cuda_time_ms(lambda: model.train_logits(
+            cfg, params, batch, matmul=model.spiking_dense_matmul(cfg)), runs=3, warmup=1)
+        out["prefill_profile"] = device_profile(lambda: model.train_logits(cfg, params, batch),
+                                                out["prefill_ms"])
+        state = model.init_decode_state(cfg, LM_SLOTS, LM_MAX_CONTEXT, dev)
+        tok = torch.full((LM_SLOTS,), 7, dtype=torch.int32, device=dev)
+        dpos = torch.full((LM_SLOTS,), 100, dtype=torch.int32, device=dev)
+        out["decode_step_ms"] = cuda_time_ms(
+            lambda: model.decode_step(cfg, params, tok, dpos, state), runs=5, warmup=2)
+        out["decode_profile"] = device_profile(
+            lambda: model.decode_step(cfg, params, tok, dpos, state), out["decode_step_ms"])
+    return out
+
+
+def lm_serve_rows(runs, times, requests) -> dict:
+    """Per engine run: wall s, ticks, tokens (the first token of each of its
+    ``requests[name]`` requests comes from its prefill), tokens/s, decode ms
+    a tick, scheduler decisions and cache bytes."""
+    rows = {}
+    for name, (eng, _) in runs.items():
+        hist = eng.metrics.get("token_latency_ms")
+        wall = times[f"engine_{name}"]
+        tokens = eng.decoded_tokens + requests[name]
+        rows[name] = {"wall_s": wall, "ticks": eng.ticks, "decoded_tokens": eng.decoded_tokens,
+                      "tokens": tokens, "tokens_per_s": tokens / wall,
+                      "decode_ms_per_tick": hist.sum() / max(eng.ticks, 1),
+                      "scheduler": eng.scheduler.report(), "cache": eng.cache_report()}
+    return rows
+
+
 def lm_serve_phase(dev, smi) -> dict:
-    """The ``lm_serve`` phase: OLMo-1B in Phi spiking mode, full width, on
-    the card. With every kernel's launch count set to 0 just before and read
-    just after: params from a seeded generator on the card, rounded onto the
-    2^-10 grid; ``calibrate_lm_phi`` on a 2 x 128 batch (the PWP banks written
-    in place); the prefill gate (``train_logits`` at B = 1, S = 2048, Phi
-    bitwise the spiking-dense oracle, the attention kernel at every layer);
+    """The ``lm_serve`` phase: OLMo-1B in Phi spiking mode, full width and
+    LM_LAYERS of its 16 layers, on the card. With every kernel's launch count
+    set to 0 just before and read just after: params from a seeded generator
+    on the card, rounded onto the 2^-10 grid; ``calibrate_lm_phi`` on a 2 x
+    128 batch (the PWP banks written in place); the prefill gate
+    (``train_logits`` at B = 1, S = 2048, Phi bitwise the spiking-dense
+    oracle, the attention kernel at every layer);
     the engine over 8 requests and 4 slots four times — Phi, spiking-dense,
     paged, and paged from an undersized pool that forces preemption — each
     token- and logit-identical to the first; the drift monitor. Then, outside
@@ -1629,18 +1784,12 @@ def lm_serve_phase(dev, smi) -> dict:
 
     import numpy as np
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.configs import get_config, phi_variant
-    from repro_torch.core.patterns import active_pattern_sets
     from repro_torch.distributed.sharding import init_params
     from repro_torch.kernels import dispatch
-    from repro_torch.kernels.matcher import matcher_cuda, matcher_plain
-    from repro_torch.kernels.phi_fused import pack_patterns
-    from repro_torch.kernels.phi_attention import flash_attention_cuda
     from repro_torch.models import layers as ll
     from repro_torch.models import model, transformer
-    from repro_torch.models.flash import _flash_fwd_impl
     from repro_torch.obs import DriftMonitor, ListSink, Tracer, set_tracer
     from repro_torch.serve.engine import Engine, Request
 
@@ -1648,6 +1797,8 @@ def lm_serve_phase(dev, smi) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cfg = phi_variant(get_config(LM_ARCH, smoke=LM_SMOKE))
+    if LM_LAYERS is not None:
+        cfg = cfg.with_(n_layers=LM_LAYERS)
     policy = dispatch.PhiExecutionPolicy()
     prev_policy = dispatch.set_policy(policy)
     sink = ListSink()
@@ -1772,100 +1923,28 @@ def lm_serve_phase(dev, smi) -> dict:
     layer0 = transformer.layer_slice(params["decoder"]["stack"], 0)["p0"]
     with torch.no_grad():
         captured = model._capture_phi_spikes(cfg, params, calib)
-    sites = {"wq": layer0, "wk": layer0, "wv": layer0, "wo": layer0,
-             "w1": layer0["mlp"], "w3": layer0["mlp"], "w2": layer0["mlp"]}
-    last = {r["site"]: r["impl"] for r in recs}
-    gemm_rows, checks = [], {}
-    for name, node in sites.items():
-        spk = captured[f"{name}#0"][0]
-        K = spk.shape[-1]
-        a = spk.reshape(-1, K).to(torch.float32).contiguous()
-        phi_p = node["phi_" + name]
-        pats, pwp = phi_p["patterns"], phi_p["pwp"].to(torch.float32)
-        w = node[name].to(torch.float32).contiguous()
-        args = [a[:256].contiguous(), pats, pwp, torch.ones(pwp.shape[:2], device=dev), w]
-        route = last[f"lm.{name}"]
-        sets, _ = active_pattern_sets(phi_p["usage"].cpu().numpy())
-        p_active = None if sets is None else int(sets.shape[-1])
-        packed = pack_patterns(pats)
-        checks[name] = fused_checks(f"lm {name}", args, packed, active_sets(args, p_active))
-        for rows_label, m in (("calibration", a.shape[0]), ("decode", decode_m)):
-            targs = [a[:m].contiguous()] + args[1:]
-            row = fused_timing(name, targs, packed, route, active_sets(targs, p_active),
-                               plain_runs=1)
-            b_ms, o_ms = needed_bound_ms(targs[0], pats, w.shape[1])
-            row.update(rows=rows_label, bytes_ms=b_ms, ops_ms=o_ms, bound_ms=max(b_ms, o_ms),
-                       whole_bank_bound_ms=row["bound_ms"])
-            gemm_rows.append(row)
-    attach_device_ms(gemm_rows, lambda row: FUSED_KERNEL[row["route"]])
+    sites = {name: (f"{name}#0", layer0, name) for name in ("wq", "wk", "wv", "wo")}
+    sites.update({name: (f"{name}#0", layer0["mlp"], name) for name in ("w1", "w3", "w2")})
+    checks, gemm_rows = lm_gemms(sites, captured, recs, decode_m, timed=sites)
     # LIF: the rate coding of layer 0's wq operand (the calibration batch).
     x0 = ll.apply_norm(cfg, layer0["ln1"], model._embed_inputs(cfg, params, calib))
     x_seq = x0.to(torch.float32).unsqueeze(0).expand(cfg.phi.timesteps, *x0.shape).contiguous()
     lif_timing, lif_err = lif_rows([x_seq])
     # Matcher: the calibration's assignment at w2 (K = 8192).
-    a2 = captured["w2#0"][0].reshape(-1, cfg.d_ff).to(torch.float32).contiguous()
-    pats2 = layer0["mlp"]["phi_w2"]["patterns"]
-    idx, res = matcher_cuda(a2, pats2)
-    pidx, pres = matcher_plain(a2, pats2)
-    if not (torch.equal(idx, pidx) and torch.equal(res, pres)):
-        raise AssertionError("lm w2: matcher kernel != assign_patterns")
-    matcher_row = {"shape": list(a2.shape), "T": pats2.shape[0],
-                   "ms": cuda_time_ms(lambda: matcher_cuda(a2, pats2)),
-                   "_fn": lambda: matcher_cuda(a2, pats2),
-                   "plain_ms": cuda_time_ms(lambda: matcher_plain(a2, pats2), runs=3)}
-    attach_device_ms([matcher_row], lambda row: "matcher")
+    matcher_row = lm_matcher_row(
+        "lm w2", captured["w2#0"][0].reshape(-1, cfg.d_ff).to(torch.float32).contiguous(),
+        layer0["mlp"]["phi_w2"]["patterns"])
     # Attention: layer 0's q, k, v at the prefill gate's S, widened to float32.
     with torch.no_grad():
         h = ll.apply_norm(cfg, layer0["ln1"], model._embed_inputs(cfg, params, batch))
         pos = torch.arange(LM_PREFILL_S, device=dev)[None]
         q, k, v = (x.to(torch.float32).contiguous() for x in transformer._qkv(
             cfg, layer0, h, pos, model.make_matmul(cfg)))
-    bq, bkv = policy.last_decision("lm.attn_prefill").blocks
-    kw = dict(causal=True, block_q=bq, block_kv=bkv)
-    out = flash_attention_cuda(q, k, v, **kw)
-    pout, _ = _flash_fwd_impl(q, k, v, True, None, None, bq, bkv)
-    attn_err = float((out - pout).abs().max())
-    attn_tol = ATTN_ULPS * 2.0 ** -24 * float(v.abs().max())
-    if attn_err > attn_tol:
-        raise AssertionError(f"lm attention: kernel != plain, max |diff| {attn_err} > {attn_tol}")
-    B, S, H, D = q.shape
-    b_ms, o_ms = causal_attn_bound_ms(B, S, H, D)
-    qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-    attn_row = {"shape": [B, S, H, D], "blocks": [bq, bkv], "max_abs_err": attn_err,
-                "tol": attn_tol, "ms": cuda_time_ms(lambda: flash_attention_cuda(q, k, v, **kw)),
-                "_fn": lambda: flash_attention_cuda(q, k, v, **kw),
-                "plain_ms": cuda_time_ms(lambda: _flash_fwd_impl(q, k, v, True, None, None, bq,
-                                                                 bkv), runs=3),
-                "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
-                    qh, kh, vh, is_causal=True)),
-                "bytes_ms": b_ms, "ops_ms": o_ms, "bound_ms": max(b_ms, o_ms)}
-    attach_device_ms([attn_row], lambda row: "attn_kernel")
+    attn_row = lm_attention_row("lm", policy, q, k, v)
 
     # ------------------------------------------------------------ timing ---
-    with torch.no_grad():
-        prefill_ms = cuda_time_ms(lambda: model.train_logits(cfg, params, batch), runs=3,
-                                  warmup=1)
-        dense_ms = cuda_time_ms(lambda: model.train_logits(
-            cfg, params, batch, matmul=model.spiking_dense_matmul(cfg)), runs=3, warmup=1)
-        prefill_profile = device_profile(lambda: model.train_logits(cfg, params, batch),
-                                         prefill_ms)
-        state = model.init_decode_state(cfg, LM_SLOTS, LM_MAX_CONTEXT, dev)
-        tok = torch.full((LM_SLOTS,), 7, dtype=torch.int32, device=dev)
-        dpos = torch.full((LM_SLOTS,), 100, dtype=torch.int32, device=dev)
-        decode_ms = cuda_time_ms(lambda: model.decode_step(cfg, params, tok, dpos, state),
-                                 runs=5, warmup=2)
-        decode_profile = device_profile(lambda: model.decode_step(cfg, params, tok, dpos, state),
-                                        decode_ms)
-    serve_rows = {}
-    for name, (eng, _) in runs.items():
-        hist = eng.metrics.get("token_latency_ms")
-        wall = times[f"engine_{name}"]
-        serve_rows[name] = {
-            "wall_s": wall, "ticks": eng.ticks, "decoded_tokens": eng.decoded_tokens,
-            "tokens": eng.decoded_tokens + LM_REQUESTS,
-            "tokens_per_s": (eng.decoded_tokens + LM_REQUESTS) / wall,
-            "decode_ms_per_tick": hist.sum() / max(eng.ticks, 1),
-            "scheduler": eng.scheduler.report(), "cache": eng.cache_report()}
+    timing = lm_timings(cfg, params, batch, dev)
+    serve_rows = lm_serve_rows(runs, times, dict.fromkeys(runs, LM_REQUESTS))
     pwp_bytes = sum(leaf.numel() * leaf.element_size()
                     for leaf in tree_leaves(model.split_phi_state(params)[1])
                     if leaf.dim() == 4)
@@ -1888,16 +1967,271 @@ def lm_serve_phase(dev, smi) -> dict:
           "l2_density": {key: st.l2_density for key, st in sorted(stats.items())},
           "gemm_l2_entries_256_rows": checks, "gemms": gemm_rows,
           "lif_sequence": lif_timing, "lif_max_abs_err": lif_err,
-          "matcher": matcher_row, "attention": attn_row,
-          "prefill_ms": prefill_ms, "prefill_spiking_dense_ms": dense_ms,
-          "prefill_profile": prefill_profile, "decode_step_ms": decode_ms,
-          "decode_profile": decode_profile, "serve": serve_rows,
+          "matcher": matcher_row, "attention": attn_row, **timing, "serve": serve_rows,
           "pwp_bytes": pwp_bytes, "weight_bytes": weight_bytes,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "seconds": time.perf_counter() - t_phase})
-    del params, state, runs
+    del params, runs
     torch.cuda.empty_cache()
-    return {"launches": launches, "lif_err": lif_err, "attn_err": attn_err}
+    return {"launches": launches, "lif_err": lif_err, "attn_err": attn_row["max_abs_err"]}
+
+
+# The hybrid serving path: Zamba2-1.2B (src/repro_torch/configs/zamba2_1p2b.py)
+# at full width and depth in Phi spiking mode, with lm_serve's calibration,
+# prefill gate, requests and engine sizes.
+HYB_ARCH = "zamba2_1p2b"
+HYB_SMOKE = False          # the smoke cut, for rehearsing the phase on the CPU
+HYB_SOLO = 2               # requests the one-slot engine serves again
+MAMBA_GEMMS = ("wz", "wx", "wB", "wC", "wdt", "wo")
+SHARED_GEMMS = {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("w1", "w3", "w2")}
+
+
+def hybrid_sites(decoder) -> dict:
+    """{capture key: (label, params node, weight name)} of every Phi GEMM site
+    of a Zamba2 decoder, keyed as the forward first reaches them: the main
+    Mamba-2 layers' (#0), the shared block's (``wo`` #1) and the tail's (#1,
+    ``wo`` #2)."""
+    sites = {f"{n}#0": (n, decoder["mamba"], n) for n in MAMBA_GEMMS}
+    for part, names in SHARED_GEMMS.items():
+        for n in names:
+            sites[f"{n}#{int(n == 'wo')}"] = (f"shared.{n}", decoder["shared"][part], n)
+    if "mamba_tail" in decoder:
+        sites.update({f"{n}#{1 + int(n == 'wo')}": (f"tail.{n}", decoder["mamba_tail"], n)
+                      for n in MAMBA_GEMMS})
+    return sites
+
+
+def hybrid_serve_phase(dev, smi) -> dict:
+    """The ``hybrid_serve`` phase: Zamba2-1.2B in Phi spiking mode, full width
+    and depth (36 Mamba-2 layers in 6 sites, each followed by the shared
+    attention + MLP block with the site's LoRA on Q, then 2 tail layers), on
+    the card. With every kernel's launch count set to 0 just before and read
+    just after: params from a seeded generator on the card, rounded onto the
+    2^-10 grid; ``calibrate_lm_phi`` on 2 x 128 tokens; the prefill gate
+    (``train_logits`` at B = 1, S = 2048, Phi bitwise the spiking-dense arm,
+    the attention kernel at all 6 sites); the engine over 8 requests and 4
+    slots as Phi and spiking-dense, token- and logit-identical; a one-slot
+    Phi engine over two of them, token-identical (each admission writes its
+    slot's states at their own batch axis); a ``paged=True`` engine keeping
+    dense slots. Then, outside the counted run: every kernel the phase
+    launched against its plain version at layer 0's operands; prefill,
+    decode-step and GEMM timings beside their bounds; peak memory."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, phi_variant
+    from repro_torch.distributed.sharding import init_params
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import layers as ll
+    from repro_torch.models import model, transformer
+    from repro_torch.obs import ListSink, Tracer, set_tracer
+    from repro_torch.serve.engine import Engine, Request
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = phi_variant(get_config(HYB_ARCH, smoke=HYB_SMOKE))
+    n_sites = cfg.n_layers // cfg.hybrid_attn_every
+    policy = dispatch.PhiExecutionPolicy()
+    prev_policy = dispatch.set_policy(policy)
+    sink = ListSink()
+    tracer = Tracer(sink)
+    prev_tracer = set_tracer(tracer)
+    times, marks = {}, {}
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    rng = np.random.default_rng(LM_PROMPT_SEED)
+    prompts = [rng.integers(3, cfg.vocab, int(n))
+               for n in rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)]
+    engines = {"phi": dict(batch_slots=LM_SLOTS), "spiking_dense": dict(batch_slots=LM_SLOTS),
+               "one_slot": dict(batch_slots=1)}
+
+    def serve(name, kw):
+        eng = Engine(cfg, params, max_context=LM_MAX_CONTEXT, record_logits=True,
+                     wall_time=True, tracer=tracer,
+                     matmul=model.spiking_dense_matmul(cfg) if name == "spiking_dense" else None,
+                     **kw)
+        for rid, toks in enumerate(prompts[:HYB_SOLO] if name == "one_slot" else prompts):
+            eng.submit(Request(rid=rid, tokens=toks, max_new_tokens=LM_MAX_NEW))
+        first = len(sink.records)
+        res = stage(f"engine_{name}", eng.run)
+        marks[name] = (first, len(sink.records))
+        return eng, {r.rid: r.tokens for r in res}
+
+    zero_launches()
+    try:
+        with torch.no_grad():
+            def build():
+                p = init_params(model.lm_specs(cfg), torch.Generator(device=dev).manual_seed(SEED),
+                                dev)
+                for leaf in tree_leaves(model.split_phi_state(p)[0]):
+                    leaf.copy_(dyadic(leaf))
+                return p
+
+            params = stage("init_params", build)
+            calib = model.dummy_batch(cfg, *LM_CALIB, False, torch.Generator().manual_seed(SEED),
+                                      dev)
+            params, stats = stage("calibrate", lambda: model.calibrate_lm_phi(cfg, params, calib))
+            calib_peak = torch.cuda.max_memory_allocated()
+            maxd = max(st.l2_density for st in stats.values())
+            cfg = cfg.with_(phi=dataclasses.replace(cfg.phi, nnz_budget=min(0.9, 2 * maxd + 0.05)))
+            batch = model.dummy_batch(cfg, 1, LM_PREFILL_S, False,
+                                      torch.Generator().manual_seed(SEED + 1), dev)
+            first = len(sink.records)
+            phi_logits = stage("prefill_phi", lambda: model.train_logits(cfg, params, batch))
+            marks["prefill"] = (first, len(sink.records))
+            dense_logits = stage("prefill_spiking_dense", lambda: model.train_logits(
+                cfg, params, batch, matmul=model.spiking_dense_matmul(cfg)))
+            runs = {name: serve(name, kw) for name, kw in engines.items()}
+            paged = Engine(cfg, params, batch_slots=LM_SLOTS, max_context=LM_MAX_CONTEXT,
+                           paged=True)
+        launches = read_launches()
+    finally:
+        set_tracer(prev_tracer)
+        dispatch.set_policy(prev_policy)
+    counted_s = time.perf_counter() - t_phase
+
+    # ------------------------------------------------------------ gates ---
+    V = cfg.vocab
+    if phi_logits.shape != (1, LM_PREFILL_S, V) or not torch.isfinite(phi_logits).all():
+        raise AssertionError(f"hybrid prefill logits {tuple(phi_logits.shape)} not "
+                             "finite/(1, S, V)")
+    if not torch.equal(phi_logits, dense_logits):
+        raise AssertionError(f"hybrid prefill: Phi logits differ from spiking-dense, max |diff| "
+                             f"{float((phi_logits - dense_logits).abs().max())}")
+    if float(phi_logits.std()) == 0:
+        raise AssertionError("hybrid prefill: constant logits")
+    want_eng, want = runs["phi"]
+    if sorted(want) != list(range(LM_REQUESTS)) or \
+            any(len(t) != LM_MAX_NEW for t in want.values()):
+        raise AssertionError(f"hybrid phi engine: results {[len(t) for t in want.values()]}")
+    dense_eng, dense_res = runs["spiking_dense"]
+    if dense_res != want:
+        raise AssertionError("hybrid engine spiking_dense: tokens differ from the Phi engine's")
+    for rid, rows in want_eng.logit_trace.items():
+        if len(rows) != len(dense_eng.logit_trace[rid]) or not all(
+                np.array_equal(a, b) for a, b in zip(rows, dense_eng.logit_trace[rid])):
+            raise AssertionError(f"hybrid engine spiking_dense: request {rid}'s logits not bitwise")
+    solo = runs["one_slot"][1]
+    if solo != {rid: want[rid] for rid in range(HYB_SOLO)}:
+        raise AssertionError(f"hybrid one-slot engine: tokens {solo} differ from the four-slot "
+                             f"run's {[want[r] for r in range(HYB_SOLO)]}")
+    if paged.paged or paged.scheduler.report().get("paged_gate_dense") != 1:
+        raise AssertionError(f"hybrid paged engine did not keep dense slots: "
+                             f"{paged.scheduler.report()}")
+    recs = [r for r in sink.records if r["kind"] == "dispatch"]
+    n_attn = sum(r["site"] == "lm.attn_prefill" for r in recs)
+    if launches["flash_attention_cuda"] != n_attn or n_attn != 2 * n_sites:
+        raise AssertionError(f"hybrid attention kernel launches {launches['flash_attention_cuda']},"
+                             f" decisions {n_attn}, want 2 x {n_sites} sites")
+    for impl in ("fused", "fused_stream", "fused_prefetch"):
+        n = sum(r["impl"] == impl for r in recs)
+        if launches[f"phi_{impl}_cuda"] != n:
+            raise AssertionError(f"hybrid phi_{impl} launched {launches[f'phi_{impl}_cuda']} "
+                                 f"times for {n} decisions")
+    if launches["lif_sequence_cuda"] <= 0 or launches["matcher_cuda"] <= 0:
+        raise AssertionError(f"hybrid: LIF or matcher kernel never launched: {launches}")
+
+    def tally(lo, hi, keep=lambda r: True):
+        out = {}
+        for r in sink.records[lo:hi]:
+            if r["kind"] == "dispatch" and keep(r):
+                key = (r["site"], r["impl"], r["reason"], *r["shape"][1:3])
+                out[key] = out.get(key, 0) + 1
+        return [[*key, n] for key, n in sorted(out.items())]
+
+    decode_m = cfg.phi.timesteps * LM_SLOTS
+    decisions = {"prefill": tally(*marks["prefill"]),
+                 "engine_decode": tally(*marks["phi"], lambda r: r["shape"][0] == decode_m),
+                 "engine_prefill": tally(*marks["phi"], lambda r: r["shape"][0] != decode_m)}
+
+    # ------------------------------------ kernels against plain versions ---
+    dec = params["decoder"]
+    with torch.no_grad():
+        captured = model._capture_phi_spikes(cfg, params, calib)
+    sites = hybrid_sites(dec)
+    if sorted(sites) != sorted(stats) or sorted(captured) != sorted(stats):
+        raise AssertionError(f"hybrid sites {sorted(sites)} != calibrated {sorted(stats)}")
+    site_table = []
+    for key, (label, node, name) in sites.items():
+        w, pwp = node[name], node["phi_" + name]["pwp"]
+        layers = w.shape[0] if w.dim() == 3 else 1
+        site_table.append({"site": label, "key": key, "K": w.shape[-2], "N": w.shape[-1],
+                           "T": w.shape[-2] // cfg.phi.k, "layers": layers,
+                           "calls": len(captured[key]),
+                           "bank_bytes_per_layer": pwp.numel() * pwp.element_size() // layers,
+                           "l2_density": stats[key].l2_density})
+    layer0 = {key: site for key, site in sites.items() if not site[0].startswith("tail.")}
+    checks, gemm_rows = lm_gemms({label: (key, node, name)
+                                  for key, (label, node, name) in layer0.items()},
+                                 captured, recs, decode_m, timed=("wz", "wB", "wo"))
+    # LIF: the rate coding of layer 0's wz operand (the calibration batch).
+    x0 = ll.apply_norm(cfg, transformer.layer_slice(dec["ln"], 0),
+                       model._embed_inputs(cfg, params, calib))
+    x_seq = x0.to(torch.float32).unsqueeze(0).expand(cfg.phi.timesteps, *x0.shape).contiguous()
+    lif_timing, lif_err = lif_rows([x_seq])
+    # Matcher: the calibration's assignment at layer 0's wo (K = d_inner).
+    matcher_row = lm_matcher_row(
+        "hybrid wo", captured["wo#0"][0].reshape(-1, cfg.d_inner).to(torch.float32).contiguous(),
+        dec["mamba"]["phi_wo"]["patterns"][0])
+    # Attention: the shared block's q, k, v at site 0 of the prefill gate
+    # (the residual stream after the first six Mamba-2 layers), widened to
+    # float32.
+    with torch.no_grad():
+        mm = model.make_matmul(cfg)
+        x = model._embed_inputs(cfg, params, batch)
+        for li in range(cfg.hybrid_attn_every):
+            x, _ = transformer._mamba_layer_prefill(cfg, transformer.layer_slice(dec["mamba"], li),
+                                                    transformer.layer_slice(dec["ln"], li), x, mm)
+        _, merged, lora = transformer._shared_block(dec, 0)
+        h = ll.apply_norm(cfg, merged["ln1"], x)
+        pos = torch.arange(LM_PREFILL_S, device=dev)[None]
+        q, k, v = (t.to(torch.float32).contiguous() for t in transformer._qkv(
+            cfg, merged, h, pos, mm, lora))
+    attn_row = lm_attention_row("hybrid", policy, q, k, v)
+
+    # ------------------------------------------------------------ timing ---
+    timing = lm_timings(cfg, params, batch, dev)
+    serve_rows = lm_serve_rows(runs, times, {"phi": LM_REQUESTS, "spiking_dense": LM_REQUESTS,
+                                             "one_slot": HYB_SOLO})
+    split = model.split_phi_state(params)
+    pwp_bytes = sum(leaf.numel() * leaf.element_size() for leaf in tree_leaves(split[1])
+                    if leaf.dim() >= 3 and leaf.dtype == cfg.param_dtype)
+    weight_bytes = sum(leaf.numel() * leaf.element_size() for leaf in tree_leaves(split[0]))
+    emit({"phase": "hybrid_serve", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "config": {"arch": HYB_ARCH, "smoke": HYB_SMOKE, "n_layers": cfg.n_layers,
+                     "sites": n_sites, "layers_a_site": cfg.hybrid_attn_every,
+                     "d_model": cfg.d_model, "d_inner": cfg.d_inner, "d_ff": cfg.d_ff,
+                     "ssm_state": cfg.ssm_state, "ssm_heads": cfg.ssm_heads, "vocab": V,
+                     "timesteps": cfg.phi.timesteps, "q": cfg.phi.q, "k": cfg.phi.k,
+                     "calib": LM_CALIB, "prefill_s": LM_PREFILL_S, "requests": LM_REQUESTS,
+                     "slots": LM_SLOTS, "max_new": LM_MAX_NEW, "max_context": LM_MAX_CONTEXT,
+                     "one_slot_requests": HYB_SOLO},
+          "counted_s": counted_s, "stages_s": times, "launches": launches,
+          "decisions": decisions,
+          "gates": {"prefill_phi_bitwise_spiking_dense": True,
+                    "engines_token_and_logit_identical": ["phi", "spiking_dense"],
+                    "one_slot_tokens_equal": True, "paged_gate_dense": True,
+                    "attention_launches": n_attn},
+          "l2_density_max": maxd, "sites": site_table,
+          "gemm_l2_entries_256_rows": checks, "gemms": gemm_rows,
+          "lif_sequence": lif_timing, "lif_max_abs_err": lif_err,
+          "matcher": matcher_row, "attention": attn_row,
+          "calibrate_s": times["calibrate"], "calibrate_peak_memory": calib_peak,
+          **timing, "serve": serve_rows, "pwp_bytes": pwp_bytes, "weight_bytes": weight_bytes,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "seconds": time.perf_counter() - t_phase})
+    del params, runs, paged
+    torch.cuda.empty_cache()
+    return {"launches": launches, "lif_err": lif_err, "attn_err": attn_row["max_abs_err"]}
 
 
 def main() -> int:
@@ -2155,9 +2489,10 @@ def main() -> int:
 
     # ------------------------------------------------------ LM serving ---
     lm = lm_serve_phase(dev, smi)
+    hyb = hybrid_serve_phase(dev, smi)
     later = {"accel_sim": accel["launches"], "train": trained["launches"],
              "paft": paft_run["launches"], "spikformer_train": spk_train["launches"],
-             "lm": lm["launches"]}
+             "lm": lm["launches"], "hybrid": hyb["launches"]}
 
     # ------------------------------------------------------------ summary ---
     # Times are per batch of the main paths: the sum over the calls one
@@ -2196,7 +2531,7 @@ def main() -> int:
          "launches": launches["lif_sequence_cuda"] + spk_launches["lif_sequence_cuda"],
          "launches_by_path": {"vgg": launches["lif_sequence_cuda"],
                               "spikformer": spk_launches["lif_sequence_cuda"]},
-         "max_abs_err": max(lif_err, spk["lif_err"], lm["lif_err"]),
+         "max_abs_err": max(lif_err, spk["lif_err"], lm["lif_err"], hyb["lif_err"]),
          "ms": sum(r["ms"] for r in all_lif), "device_ms": device_sum(all_lif),
          "plain_ms": sum(r["plain_ms"] for r in all_lif),
          "bound_ms": lif_bound, "bound_by": lif_by, "library_ms": None},
@@ -2221,6 +2556,7 @@ def main() -> int:
     attn["dense_lse_launches"] = spk_train["launches"]["flash_attention_cuda_lse"]
     attn["dense_instantiation_launches"] += sum(c["flash_attention_cuda"] for c in later.values())
     attn["lm_dense_max_abs_err"] = lm["attn_err"]
+    attn["hybrid_dense_max_abs_err"] = hyb["attn_err"]
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

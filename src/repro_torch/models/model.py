@@ -4,11 +4,12 @@ Entry points (plain functions of (cfg, params, batch); tensors on any
 device, and they run where the params lie):
   * ``train_logits``  — full-sequence forward for training / evaluation.
   * ``train_loss``    — masked token cross-entropy (f32).
-  * ``prefill``       — forward that also returns decode state (KV caches)
-                        and last-position logits.
+  * ``prefill``       — forward that also returns decode state (KV caches;
+                        SSM states and conv rings for Mamba-2; both for the
+                        hybrid) and last-position logits.
   * ``decode_step``   — one-token step against the decode state, which it
-                        updates in place (the reference returns new caches;
-                        the port writes the preallocated ones).
+                        updates in place (the reference returns new state;
+                        the port writes the preallocated one).
 
 Phi spiking mode (``cfg.spiking`` + ``cfg.phi``): every decoder GEMM operand
 is rate-coded into ``phi.timesteps`` binary spike trains by a local LIF
@@ -23,10 +24,12 @@ Every entry point takes an optional ``matmul`` (the reference's
 ``_forward`` hook, here also on ``prefill`` and the decode steps), so the
 spiking-dense arm can run the same serving path.
 
-Single device: ``_phi_sharded_matmul`` keeps only its single-device branch
-(the mesh half waits for ``ROADMAP.md`` queue 1's multi-device item). The
-MoE, Mamba-2 and hybrid families and the patch/frame frontends are specs
-only (``transformer`` refuses their forward).
+Every family of the ten configs runs: the attention families (dense,
+sliding-window, chunked-local/global), the patch and frame frontends (stub
+embeddings, as in the reference), Mamba-2 (``ssm``), the Zamba2 hybrid and
+MoE layers. Single device: ``_phi_sharded_matmul`` keeps only its
+single-device branch and MoE only its dense branch; ``moe_impl="ep"`` raises
+(both wait for ``ROADMAP.md`` queue 1's multi-device item).
 """
 from __future__ import annotations
 
@@ -226,43 +229,57 @@ def _capture_phi_spikes(cfg: ModelConfig, params: dict,
     Runs the forward with dense math and an instrumented matmul that
     rate-codes every Phi-eligible GEMM operand and keeps the spike trains
     (uint8, on the params' device). Returns {call-site key: [spikes, one per
-    layer]} with keys ``f"{weight_name}#{occurrence}"``, the occurrence
-    counted within one layer group as the reference counts it in its scan
-    body — the scheme the params-tree walks of ``calibrate_lm_phi`` and
-    ``capture_lm_phi_traces`` mirror.
+    call]} with keys ``f"{weight_name}#{occurrence}"``.
     """
-    calls: dict[str, list] = {}
+    return _capture(cfg, params, sample_batch)[0]
+
+
+def _capture(cfg: ModelConfig, params: dict, sample_batch: dict):
+    """``_capture_phi_spikes`` and {weight address: its site key}.
+
+    The reference keys a call by its place in the traced scan bodies: the
+    n-th distinct site of a weight name in forward order is ``name#n``, and
+    its list holds one spike array per scan iteration. The port loops, so a
+    site fires once per layer of its stack (a shared 2-D weight once per
+    call), and it reads a layer's view of its stacked weight: each view's
+    address names its site, and a site takes its key the first time the
+    forward reaches it. Keys therefore follow the forward, whatever order the
+    params dicts hold their keys in, as the walks that consume them need.
+    """
+    view_site: dict[int, int] = {}      # address of each view -> its weight's
+
+    def views(node, name):
+        w = node[name]
+        for v in (w,) if w.ndim == 2 else w.unbind(0):
+            view_site[v.data_ptr()] = w.data_ptr()
+
+    _phi_sites(params, views)
+    site_key: dict[int, str] = {}
+    count: dict[str, int] = {}
+    captured: dict[str, list] = {}
     lif = LIFConfig()
     phi = cfg.phi
 
     def capture_mm(x, p, name):
         w = p[name]
         if "phi_" + name in p:
+            site = view_site[w.data_ptr()]
+            if site not in site_key:
+                site_key[site] = f"{name}#{count.get(name, 0)}"
+                count[name] = count.get(name, 0) + 1
             spikes = rate_code(x, phi.timesteps, lif)
-            calls.setdefault(name, []).append(spikes.to(torch.uint8))
+            captured.setdefault(site_key[site], []).append(spikes.to(torch.uint8))
         return x @ w.to(x.dtype)
 
     with torch.no_grad():
         _forward(cfg.with_(spiking=False), params, sample_batch, matmul=capture_mm)
-    # The port loops over the stacked layers, so each call site fires once
-    # per group: fold the global call index back to its place in the group.
-    n = transformer._n_groups(params["decoder"])
-    captured: dict[str, list] = {}
-    for name, spk in calls.items():
-        per_group = len(spk) // n
-        for j, s in enumerate(spk):
-            captured.setdefault(f"{name}#{j % per_group}", []).append(s)
-    return captured
+    return captured, site_key
 
 
 def _phi_sites(node: dict, visit) -> dict:
-    """Walk a params tree as the reference's calibration does (dict order;
-    every weight with a ``phi_`` sibling keyed ``f"{name}#{occurrence}"``)
-    and call ``visit(node, name, key)`` at each site; returns the tree with
-    each site's ``phi_`` entry replaced by what ``visit`` returns (or kept
-    where it returns None)."""
-    walk_counter: dict[str, int] = {}
-
+    """Walk a params tree (dict order) and call ``visit(node, name)`` at each
+    weight with a ``phi_`` sibling; returns the tree with each site's ``phi_``
+    entry replaced by what ``visit`` returns (or kept where it returns None)."""
     def walk(node):
         if not isinstance(node, dict):
             return node
@@ -271,9 +288,7 @@ def _phi_sites(node: dict, visit) -> dict:
             if isinstance(v, dict) and not k.startswith("phi_"):
                 out[k] = walk(v)
             if "phi_" + k in node:
-                key = f"{k}#{walk_counter.get(k, 0)}"
-                walk_counter[k] = walk_counter.get(k, 0) + 1
-                new = visit(node, k, key)
+                new = visit(node, k)
                 if new is not None:
                     out["phi_" + k] = new
         return out
@@ -330,11 +345,12 @@ def capture_lm_phi_traces(cfg: ModelConfig, params: dict, sample_batch: dict) ->
     """
     from repro_torch.sim.trace import trace_from_acts
 
-    captured = _capture_phi_spikes(cfg, params, sample_batch)
+    captured, site_key = _capture(cfg, params, sample_batch)
     traces = []
 
-    def visit(node, name, key):
-        if key in captured:
+    def visit(node, name):
+        key = site_key.get(node[name].data_ptr())
+        if key is not None:
             pats = node["phi_" + name]["patterns"]
             if pats.ndim == 4:      # stacked layers: pooled patterns
                 pats = pats[0]
@@ -353,9 +369,10 @@ def calibrate_lm_phi(cfg: ModelConfig, params: dict, sample_batch: dict,
 
     The capture pass runs the forward with an instrumented matmul that keeps
     each GEMM's spike trains. Patterns are calibrated on each call site's
-    pooled spikes (shared across a stack's layers) and PWPs are per layer,
-    against each layer's weight. Call sites are keyed by (weight name,
-    occurrence), matching the parameter-tree walk.
+    pooled spikes (shared across a stack's layers, and across the calls of a
+    shared weight) and PWPs are per layer, against each layer's weight. Call
+    sites are keyed by (weight name, occurrence in the forward), as the
+    reference's capture keys them.
 
     The banks of ``params`` are written in place where their shape and dtype
     fit (the full configs' banks are tens of GB: a second copy would not fit
@@ -368,15 +385,16 @@ def calibrate_lm_phi(cfg: ModelConfig, params: dict, sample_batch: dict,
 
     stats: dict[str, PhiStats] = {}
     phi = cfg.phi
-    captured = _capture_phi_spikes(cfg, params, sample_batch)
+    captured, site_key = _capture(cfg, params, sample_batch)
 
     def into(old: torch.Tensor | None, new: torch.Tensor) -> torch.Tensor:
         if old is not None and old.shape == new.shape and old.dtype == new.dtype:
             return old.copy_(new)
         return new.clone()
 
-    def visit(node, name, key):
-        if key not in captured:
+    def visit(node, name):
+        key = site_key.get(node[name].data_ptr())
+        if key is None:
             return None
         w = node[name]
         old = node["phi_" + name]
@@ -573,10 +591,10 @@ def extend_caches(cfg: ModelConfig, caches: Any, new_len: int) -> Any:
     """Grow linear KV caches to ``new_len`` slots (ring caches stay fixed).
 
     Prefill returns caches sized to the prompt; the serving engine extends
-    them to the generation budget before decoding.
+    them to the generation budget before decoding. SSM states and conv rings
+    have no sequence axis: they pass through; the hybrid pads only its
+    shared block's ``"kv"``.
     """
-    transformer._check_family(cfg)
-
     def pad_kv(kv, win):
         k, v = kv
         cur = k.shape[-3]
@@ -586,6 +604,10 @@ def extend_caches(cfg: ModelConfig, caches: Any, new_len: int) -> Any:
         pad = [0, 0, 0, 0, 0, target - cur]
         return (F.pad(k, pad), F.pad(v, pad))
 
+    if cfg.family == "ssm":
+        return caches
+    if cfg.family == "hybrid":
+        return {**caches, "kv": pad_kv(caches["kv"], None)}
     g = transformer.group_size(cfg)
     return tuple(
         pad_kv(caches[i], transformer._cache_window(cfg, cfg.is_global_layer(i)))
@@ -594,28 +616,79 @@ def extend_caches(cfg: ModelConfig, caches: Any, new_len: int) -> Any:
 
 
 # ------------------------------------------------------------ cache specs ---
+def _ssm_state_specs(cfg: ModelConfig, lead: tuple, batch: int) -> tuple:
+    """(ssm, {"x", "B", "C"}) specs of Mamba-2 layers stacked on ``lead``."""
+    from repro_torch.models import mamba2
+
+    sp = mamba2.mamba_state_specs(cfg, batch, 1)
+
+    def mk(s):
+        return TensorSpec(lead + s.shape[1:], s.dtype)
+
+    return mk(sp["ssm"]), {k: mk(sp["conv_" + k]) for k in ("x", "B", "C")}
+
+
 def decode_state_specs(cfg: ModelConfig, batch: int, context: int) -> Any:
-    """Specs of what ``prefill`` returns for a (batch, context) prompt: per
-    group position, (k, v) of (n_groups, batch, cache_len, kv_heads_padded,
-    hd) in the compute dtype, cache_len = min(context, window) for ring
-    caches. The reference derives this with ``jax.eval_shape`` on prefill;
+    """Specs of what ``prefill`` returns for a (batch, context) prompt.
+
+    Attention families: per group position, (k, v) of (n_groups, batch,
+    cache_len, kv_heads_padded, hd) in the compute dtype, cache_len =
+    min(context, window) for ring caches. ``ssm``: (ssm (L, batch, H, P, N)
+    float32, {"x", "B", "C"} conv rings (L, batch, kc - 1, C) in the compute
+    dtype). ``hybrid``: {"mamba": the main layers' state on (n_sites, g),
+    "kv": the shared block's (k, v) on n_sites, "tail": the tail's, or
+    None}. The reference derives this with ``jax.eval_shape`` on prefill;
     the port derives it from the config (held against the reference's in a
     test)."""
-    transformer._check_family(cfg)
     g = transformer.group_size(cfg)
+    if cfg.family == "ssm":
+        return _ssm_state_specs(cfg, (cfg.n_layers,), batch)
+    kv_shape = (batch, context, cfg.kv_heads_padded, cfg.hd)
+    if cfg.family == "hybrid":
+        n_sites = cfg.n_layers // g
+        tail = cfg.n_layers - n_sites * g
+        kv = TensorSpec((n_sites,) + kv_shape, cfg.compute_dtype)
+        return {"mamba": _ssm_state_specs(cfg, (n_sites, g), batch), "kv": (kv, kv),
+                "tail": _ssm_state_specs(cfg, (tail,), batch) if tail else None}
     out = []
     for i in range(g):
         win = transformer._cache_window(cfg, cfg.is_global_layer(i))
         length = min(context, win) if win is not None else context
-        s = TensorSpec((cfg.n_layers // g, batch, length, cfg.kv_heads_padded, cfg.hd),
-                       cfg.compute_dtype)
+        s = TensorSpec((cfg.n_layers // g, batch, length) + kv_shape[2:], cfg.compute_dtype)
         out.append((s, s))
     return tuple(out)
 
 
+def map_state(fn, tree: Any) -> Any:
+    """``fn`` applied to every leaf of a decode-state tree (tuples, dicts,
+    None), keeping its structure; dict keys in sorted order, as
+    ``jax.tree`` visits them."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: map_state(fn, tree[k]) for k in sorted(tree)}
+    if isinstance(tree, (tuple, list)):
+        return tuple(map_state(fn, v) for v in tree)
+    return fn(tree)
+
+
+def state_leaves(tree: Any) -> list:
+    """The leaves of a decode-state tree, in its order."""
+    out: list = []
+    map_state(out.append, tree)
+    return out
+
+
+def state_batch_axes(cfg: ModelConfig, tree: Any) -> Any:
+    """The batch axis of every leaf of a decode-state tree: 2 for the
+    hybrid's main Mamba-2 states (n_sites, g, B, ...), 1 everywhere else."""
+    if cfg.family == "hybrid":
+        return {k: map_state(lambda _: 2 if k == "mamba" else 1, v) for k, v in tree.items()}
+    return map_state(lambda _: 1, tree)
+
+
 def _zeros(specs: Any, device) -> Any:
-    return tuple((torch.zeros(k.shape, dtype=k.dtype, device=device),
-                  torch.zeros(v.shape, dtype=v.dtype, device=device)) for k, v in specs)
+    return map_state(lambda s: torch.zeros(s.shape, dtype=s.dtype, device=device), specs)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, context: int,
@@ -637,7 +710,7 @@ def paged_state_specs(cfg: ModelConfig, num_pages: int, page_size: int) -> Any:
     def mk(s):
         return TensorSpec((s.shape[0], num_pages + 1) + s.shape[2:], s.dtype)
 
-    return tuple((mk(k), mk(v)) for k, v in specs)
+    return map_state(mk, specs)
 
 
 def init_paged_state(cfg: ModelConfig, num_pages: int, page_size: int,

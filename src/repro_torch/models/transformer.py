@@ -1,20 +1,24 @@
-"""Decoder stack of the attention families (port of ``repro/models/transformer.py``).
+"""Decoder stacks of every family (port of ``repro/models/transformer.py``).
 
 Parameters keep the reference's layout: each position ``p{i}`` of a layer
 group holds its weights stacked over the groups on a leading axis, so a
 reference params tree carries across leaf by leaf (``interop``). Where the
 reference scans over that axis, the port loops over it, slicing each
 layer's views; ``_maybe_remat`` has nothing to do in inference and is not
-ported. Heterogeneous interleavings (chunked-local/global attention) loop
-over groups whose size is the LCM of the interleave periods, as there.
+ported. Heterogeneous interleavings (dense/MoE layers, chunked-local/global
+attention) loop over groups whose size is the LCM of the interleave periods,
+as there.
+
+The Mamba-2 stack (``ssm``) loops over its layers; the hybrid (Zamba2) runs
+``n_layers // hybrid_attn_every`` sites of that many Mamba-2 layers, each
+followed by the one shared attention + MLP block with the site's LoRA on Q,
+then the tail layers. Decode writes every state it is given in place: KV
+caches, SSM states and conv rings. MoE layers take ``moe.moe_apply`` (the
+single-device dense branch; ``moe_impl="ep"`` raises).
 
 GQA under TP with awkward head counts keeps the reference's exact math:
 padded Q heads are zero-masked before the out-projection, and logical KV
 heads are repeated up to the padded head count.
-
-The MoE, Mamba-2 and hybrid families are specs only here: their forward
-raises ``NotImplementedError`` (``ROADMAP.md`` queue 1) and never runs
-another layer in their place.
 """
 from __future__ import annotations
 
@@ -24,21 +28,8 @@ import torch
 
 from repro_torch.distributed.sharding import ParamSpec, shard
 from repro_torch.models import layers as ll
+from repro_torch.models import mamba2, moe
 from repro_torch.models.config import ModelConfig
-
-
-def _not_ported(cfg: ModelConfig, what: str):
-    return NotImplementedError(
-        f"{cfg.name}: {what} is not ported yet (ROADMAP.md queue 1: MoE, Mamba-2 and the "
-        "hybrid stack come in a later slice)")
-
-
-def _check_family(cfg: ModelConfig) -> None:
-    """Refuse the layers the port does not run yet."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise _not_ported(cfg, f"the {cfg.family} decoder stack")
-    if cfg.n_experts:
-        raise _not_ported(cfg, "the MoE feed-forward")
 
 
 # ------------------------------------------------------------------ specs ---
@@ -78,58 +69,13 @@ def _attn_specs(cfg: ModelConfig, n: int) -> dict:
     return sp
 
 
-def _moe_specs(cfg: ModelConfig, layers: int | None = None) -> dict:
-    """Specs of ``repro/models/moe.py::moe_specs`` (the forward is not ported)."""
-    E, d, ff = cfg.n_experts, cfg.d_model, cfg.d_ff
-    L = () if layers is None else (layers,)
-    A = () if layers is None else ("layers",)
-    dt = cfg.param_dtype
-    sp = {
-        "router": ParamSpec(L + (d, E), A + ("embed", None), dt, scale=0.02),
-        "w1": ParamSpec(L + (E, d, ff), A + ("experts", "embed", "expert_mlp"), dt),
-        "w2": ParamSpec(L + (E, ff, d), A + ("experts", "expert_mlp", "embed"), dt),
-    }
-    if cfg.mlp_type == "swiglu":
-        sp["w3"] = ParamSpec(L + (E, d, ff), A + ("experts", "embed", "expert_mlp"), dt)
-    if cfg.shared_expert:
-        sp["sw1"] = ParamSpec(L + (d, ff), A + ("fsdp", "mlp"), dt)
-        sp["sw2"] = ParamSpec(L + (ff, d), A + ("mlp", "fsdp"), dt)
-        if cfg.mlp_type == "swiglu":
-            sp["sw3"] = ParamSpec(L + (d, ff), A + ("fsdp", "mlp"), dt)
-    return sp
-
-
-def _mamba_specs(cfg: ModelConfig, layers: int | None = None) -> dict:
-    """Specs of ``repro/models/mamba2.py::mamba_specs`` (the forward is not ported)."""
-    d, inner, N, H = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    kc = cfg.conv_kernel
-    L = () if layers is None else (layers,)
-    A = () if layers is None else ("layers",)
-    dt = cfg.param_dtype
-    return {
-        "wz": ParamSpec(L + (d, inner), A + ("fsdp", "heads"), dt),
-        "wx": ParamSpec(L + (d, inner), A + ("fsdp", "heads"), dt),
-        "wB": ParamSpec(L + (d, N), A + ("fsdp", "state"), dt),
-        "wC": ParamSpec(L + (d, N), A + ("fsdp", "state"), dt),
-        "wdt": ParamSpec(L + (d, H), A + ("fsdp", "heads"), dt),
-        "conv_x": ParamSpec(L + (kc, inner), A + ("conv", "heads"), dt, scale=0.5),
-        "conv_B": ParamSpec(L + (kc, N), A + ("conv", "state"), dt, scale=0.5),
-        "conv_C": ParamSpec(L + (kc, N), A + ("conv", "state"), dt, scale=0.5),
-        "A_log": ParamSpec(L + (H,), A + ("heads",), torch.float32, init="zeros"),
-        "D": ParamSpec(L + (H,), A + ("heads",), torch.float32, init="ones"),
-        "dt_bias": ParamSpec(L + (H,), A + ("heads",), torch.float32, init="zeros"),
-        "norm_w": ParamSpec(L + (inner,), A + ("heads",), dt, init="ones"),
-        "wo": ParamSpec(L + (inner, d), A + ("heads", "fsdp"), dt),
-    }
-
-
 def _position_specs(cfg: ModelConfig, pos: int, n_groups: int) -> dict:
     """Specs of group-position ``pos`` (stacked over n_groups)."""
     sp: dict = dict(_attn_specs(cfg, n_groups))
     sp["ln1"] = ll.norm_spec(cfg, n_groups)
     sp["ln2"] = ll.norm_spec(cfg, n_groups)
     if cfg.is_moe_layer(pos):
-        sp["moe"] = _moe_specs(cfg, n_groups)
+        sp["moe"] = moe.moe_specs(cfg, n_groups)
         if cfg.dense_residual_ff:
             sp["dres"] = ll.mlp_specs(cfg, n_groups, d_ff=cfg.dense_residual_ff)
     else:
@@ -143,7 +89,7 @@ def decoder_specs(cfg: ModelConfig) -> dict:
     g = group_size(cfg)
     if cfg.family == "ssm":
         return {
-            "mamba": _mamba_specs(cfg, cfg.n_layers),
+            "mamba": mamba2.mamba_specs(cfg, cfg.n_layers),
             "ln": ll.norm_spec(cfg, cfg.n_layers),
         }
     if cfg.family == "hybrid":
@@ -154,7 +100,7 @@ def decoder_specs(cfg: ModelConfig) -> dict:
         d, hd = cfg.d_model, cfg.hd
         hq = cfg.q_heads_padded
         sp = {
-            "mamba": _mamba_specs(cfg, n_main),
+            "mamba": mamba2.mamba_specs(cfg, n_main),
             "ln": ll.norm_spec(cfg, n_main),
             "shared": {
                 "attn": _attn_specs(cfg, 0),
@@ -168,7 +114,7 @@ def decoder_specs(cfg: ModelConfig) -> dict:
                                 cfg.param_dtype, init="zeros"),
         }
         if tail:
-            sp["mamba_tail"] = _mamba_specs(cfg, tail)
+            sp["mamba_tail"] = mamba2.mamba_specs(cfg, tail)
             sp["ln_tail"] = ll.norm_spec(cfg, tail)
         return sp
     # attention families
@@ -183,10 +129,14 @@ def _head_mask(cfg: ModelConfig, device) -> torch.Tensor:
     return m
 
 
-def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, matmul=None):
+def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, matmul=None,
+         lora: tuple[torch.Tensor, torch.Tensor] | None = None):
     B, S, _ = x.shape
     mm = matmul or ll.default_mm
     q = mm(x, p, "wq")
+    if lora is not None:  # zamba2 per-site adaptation of the shared block
+        a, b = lora
+        q = q + (x @ a.to(x.dtype)) @ b.to(x.dtype)
     k = mm(x, p, "wk")
     v = mm(x, p, "wv")
     if cfg.qkv_bias:
@@ -214,10 +164,10 @@ def _out_proj(cfg: ModelConfig, p: dict, x: torch.Tensor, o: torch.Tensor, mm) -
 
 
 def attn_block_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor,
-                       layer_global: bool, matmul=None, want_cache=False):
+                       layer_global: bool, matmul=None, lora=None, want_cache=False):
     mm = matmul or ll.default_mm
     h = ll.apply_norm(cfg, p["ln1"], x)
-    q, k, v = _qkv(cfg, p, h, positions, matmul)
+    q, k, v = _qkv(cfg, p, h, positions, matmul, lora)
     o = ll.attention_prefill(cfg, 0, q, k, v, layer_global=layer_global)
     x = shard(_out_proj(cfg, p, x, o, mm), "batch", "saved_seq", "act_embed")
     cache = None
@@ -242,11 +192,11 @@ def _cache_window(cfg: ModelConfig, layer_global: bool) -> int | None:
 
 def attn_block_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, pos: torch.Tensor,
                       kv: tuple[torch.Tensor, torch.Tensor], layer_global: bool,
-                      matmul=None):
+                      matmul=None, lora=None):
     """x (B,1,D); pos (B,) int; kv caches (B,Smax,Hkv,hd), written in place."""
     mm = matmul or ll.default_mm
     h = ll.apply_norm(cfg, p["ln1"], x)
-    q, k, v = _qkv(cfg, p, h, pos[:, None], matmul)
+    q, k, v = _qkv(cfg, p, h, pos[:, None], matmul, lora)
     k_cache, v_cache = kv
     smax = k_cache.shape[1]
     win = _cache_window(cfg, layer_global)
@@ -307,8 +257,9 @@ def attn_block_decode_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,
 def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, matmul=None):
     h = ll.apply_norm(cfg, p["ln2"], x)
     if "moe" in p:
-        raise _not_ported(cfg, "the MoE feed-forward")
-    out = ll.mlp_apply(cfg, p["mlp"], h, matmul)
+        out = moe.moe_apply(cfg, p["moe"], h)
+    else:
+        out = ll.mlp_apply(cfg, p["mlp"], h, matmul)
     if "dres" in p:  # arctic parallel dense residual
         out = out + ll.mlp_apply(cfg, p["dres"], h, matmul)
     return shard(x + out.to(x.dtype), "batch", "saved_seq", "act_embed")
@@ -322,7 +273,8 @@ def layer_slice(tree, i: int):
 
 
 def _n_groups(params: dict) -> int:
-    """Groups of a decoder's stack: the leading extent of its stacked weights."""
+    """Groups of an attention family's stack: the leading extent of its
+    stacked weights."""
     return params["stack"]["p0"]["wq"].shape[0]
 
 
@@ -375,16 +327,157 @@ def _attn_stack_decode_paged(cfg: ModelConfig, params: dict, x: torch.Tensor,
     return x, pools
 
 
+# ------------------------------------------------------------ ssm families --
+def _stack_states(states: list) -> tuple:
+    """Per-layer (ssm, conv dict) states stacked on a leading layer axis, as
+    the reference's scan stacks them."""
+    return (torch.stack([s for s, _ in states]),
+            {k: torch.stack([c[k] for _, c in states]) for k in ("x", "B", "C")})
+
+
+def _layer_state(states: tuple, i) -> tuple:
+    """Layer ``i``'s (ssm, conv dict) views of a stacked decode state."""
+    ssm, conv = states
+    return ssm[i], {k: v[i] for k, v in conv.items()}
+
+
+def _write_state(dst: tuple, new: tuple) -> None:
+    """Write a layer's new (ssm, conv dict) state into its views, in place."""
+    dst[0].copy_(new[0])
+    for k, v in dst[1].items():
+        v.copy_(new[1][k])
+
+
+def _mamba_layer_prefill(cfg: ModelConfig, p: dict, ln: dict, x: torch.Tensor, matmul):
+    out, state = mamba2.mamba_prefill(cfg, p, ll.apply_norm(cfg, ln, x), matmul)
+    return shard(x + out.to(x.dtype), "batch", "saved_seq", "act_embed"), state
+
+
+def _mamba_layer_decode(cfg: ModelConfig, p: dict, ln: dict, x: torch.Tensor, state,
+                        matmul):
+    """x (B,1,D); ``state`` (views of one layer's state) is written in place."""
+    out, new = mamba2.mamba_decode(cfg, p, ll.apply_norm(cfg, ln, x[:, 0]), state, matmul)
+    _write_state(state, new)
+    return x + out[:, None].to(x.dtype)
+
+
+def _mamba_stack_prefill(cfg, mamba_p: dict, lns: dict, x, matmul, want_state):
+    states = []
+    for li in range(mamba_p["wz"].shape[0]):
+        x, st = _mamba_layer_prefill(cfg, layer_slice(mamba_p, li), layer_slice(lns, li), x,
+                                     matmul)
+        if want_state:      # a conv ring is a view: keeping it keeps its whole input
+            states.append(st)
+    return x, (_stack_states(states) if want_state else None)
+
+
+def _mamba_stack_decode(cfg, mamba_p: dict, lns: dict, x, states, matmul):
+    for li in range(mamba_p["wz"].shape[0]):
+        x = _mamba_layer_decode(cfg, layer_slice(mamba_p, li), layer_slice(lns, li), x,
+                                _layer_state(states, li), matmul)
+    return x
+
+
+def _ssm_stack_prefill(cfg: ModelConfig, params: dict, x: torch.Tensor, matmul=None,
+                       want_state=False):
+    return _mamba_stack_prefill(cfg, params["mamba"], params["ln"], x, matmul, want_state)
+
+
+def _ssm_stack_decode(cfg: ModelConfig, params: dict, x: torch.Tensor, states,
+                      matmul=None):
+    """``states`` = (ssm (L,B,H,P,N), {"x","B","C"} conv rings), written in place."""
+    return _mamba_stack_decode(cfg, params["mamba"], params["ln"], x, states, matmul), states
+
+
+# --------------------------------------------------------- hybrid (zamba2) --
+def _shared_block(params: dict, site: int):
+    """The shared attention + MLP block's params (attention and ln1 merged, as
+    the reference merges them) and site ``site``'s LoRA on Q."""
+    sp = params["shared"]
+    merged = dict(sp["attn"])
+    merged["ln1"] = sp["ln1"]
+    return sp, merged, (params["lora_a"][site], params["lora_b"][site])
+
+
+def _shared_mlp(cfg: ModelConfig, sp: dict, x: torch.Tensor, matmul) -> torch.Tensor:
+    h = ll.apply_norm(cfg, sp["ln2"], x)
+    return x + ll.mlp_apply(cfg, sp["mlp"], h, matmul).to(x.dtype)
+
+
+def _hybrid_prefill(cfg: ModelConfig, params: dict, x: torch.Tensor, positions: torch.Tensor,
+                    matmul=None, want_cache=False):
+    """Sites of ``g`` main Mamba-2 layers (``params["mamba"][site * g + j]``),
+    each followed by the shared block; then the tail. With ``want_cache`` it
+    also returns the decode state {"mamba": main states (n_sites, g, B, ...),
+    "kv": the shared block's caches (n_sites, B, S, Hkv, hd), "tail"}."""
+    g = group_size(cfg)
+    n_sites = cfg.n_layers // g
+    main_states, caches = [], []
+    for site in range(n_sites):
+        for j in range(g):
+            li = site * g + j
+            x, st = _mamba_layer_prefill(cfg, layer_slice(params["mamba"], li),
+                                         layer_slice(params["ln"], li), x, matmul)
+            if want_cache:
+                main_states.append(st)
+        sp, merged, lora = _shared_block(params, site)
+        x, cache = attn_block_prefill(cfg, merged, x, positions, True, matmul, lora=lora,
+                                      want_cache=want_cache)
+        x = _shared_mlp(cfg, sp, x, matmul)
+        caches.append(cache)
+    tail = None
+    if "mamba_tail" in params:
+        x, tail = _mamba_stack_prefill(cfg, params["mamba_tail"], params["ln_tail"], x,
+                                       matmul, want_cache)
+    if not want_cache:
+        return x, None
+    ssm, conv = _stack_states(main_states)
+
+    def site_major(t):
+        return t.reshape((n_sites, g) + t.shape[1:])
+
+    kv = (torch.stack([c[0] for c in caches]), torch.stack([c[1] for c in caches]))
+    return x, {"mamba": (site_major(ssm), {k: site_major(v) for k, v in conv.items()}),
+               "kv": kv, "tail": tail}
+
+
+def _hybrid_decode(cfg: ModelConfig, params: dict, x: torch.Tensor, pos: torch.Tensor,
+                   states, matmul=None):
+    """``states`` as ``_hybrid_prefill`` returns it; every leaf is written in place."""
+    g = group_size(cfg)
+    n_sites = cfg.n_layers // g
+    for site in range(n_sites):
+        for j in range(g):
+            li = site * g + j
+            main = _layer_state(_layer_state(states["mamba"], site), j)
+            x = _mamba_layer_decode(cfg, layer_slice(params["mamba"], li),
+                                    layer_slice(params["ln"], li), x, main, matmul)
+        sp, merged, lora = _shared_block(params, site)
+        kv = (states["kv"][0][site], states["kv"][1][site])
+        x, _ = attn_block_decode(cfg, merged, x, pos, kv, True, matmul, lora=lora)
+        x = _shared_mlp(cfg, sp, x, matmul)
+    if "mamba_tail" in params:
+        x = _mamba_stack_decode(cfg, params["mamba_tail"], params["ln_tail"], x,
+                                states["tail"], matmul)
+    return x, states
+
+
 # ------------------------------------------------------------------ facade --
 def stack_prefill(cfg: ModelConfig, params: dict, x: torch.Tensor, positions: torch.Tensor,
                   matmul=None, want_cache=False):
-    _check_family(cfg)
+    if cfg.family == "ssm":
+        return _ssm_stack_prefill(cfg, params, x, matmul, want_state=want_cache)
+    if cfg.family == "hybrid":
+        return _hybrid_prefill(cfg, params, x, positions, matmul, want_cache)
     return _attn_stack_prefill(cfg, params, x, positions, matmul, want_cache)
 
 
 def stack_decode(cfg: ModelConfig, params: dict, x: torch.Tensor, pos: torch.Tensor,
                  caches, matmul=None):
-    _check_family(cfg)
+    if cfg.family == "ssm":
+        return _ssm_stack_decode(cfg, params, x, caches, matmul)
+    if cfg.family == "hybrid":
+        return _hybrid_decode(cfg, params, x, pos, caches, matmul)
     return _attn_stack_decode(cfg, params, x, pos, caches, matmul)
 
 
@@ -399,5 +492,4 @@ def stack_decode_paged(cfg: ModelConfig, params: dict, x: torch.Tensor,
         raise ValueError(
             f"paged decode supports full-attention families only, not "
             f"family={cfg.family!r} attn_type={cfg.attn_type!r}")
-    _check_family(cfg)
     return _attn_stack_decode_paged(cfg, params, x, pos, pools, page_table, matmul)

@@ -15,8 +15,8 @@ page pool (``serve/page_manager.py``) and each slot holds a page *table*;
 slot memory is O(tokens generated) and decode is bitwise identical to the
 contiguous engine. When the pool runs dry the scheduler picks a victim to
 preempt — it re-queues with its generated prefix and resumes
-token-identically. Ring caches (swa/chunked) and recurrent state keep dense
-slots — the same capability gate as ``bucketed``.
+token-identically. Ring caches (swa/chunked) and recurrent state (Mamba-2,
+the hybrid) keep dense slots — the same capability gate as ``bucketed``.
 
 Prompt bucketing: admissions pad the prompt to the next power-of-two length
 (capped at ``max_context``) and read the logits at the true last position,
@@ -204,11 +204,15 @@ class Engine:
 
     # ------------------------------------------------------------- plumbing
     def _insert(self, new_state, slot: int) -> None:
-        """Write a prefill's caches (extended to ``max_context``) into the
-        batched state at ``slot``, in place."""
-        for (sk, sv), (nk, nv) in zip(self.state, new_state):
-            sk[:, slot].copy_(nk[:, 0])
-            sv[:, slot].copy_(nv[:, 0])
+        """Write a prefill's state (caches extended to ``max_context``) into
+        the batched state at ``slot``, in place: each leaf at its own batch
+        axis (the hybrid's main Mamba-2 states carry it on axis 2, behind
+        (n_sites, g); the reference writes every leaf at axis 1, which there
+        clamps onto slot 0)."""
+        axes = model.state_leaves(model.state_batch_axes(self.cfg, self.state))
+        for dst, src, axis in zip(model.state_leaves(self.state),
+                                  model.state_leaves(new_state), axes):
+            dst.select(axis, slot).copy_(src.select(axis, 0))
 
     def _splice(self, new_state, pages: np.ndarray) -> None:
         """Scatter a prefill's caches, (n_groups, 1, bl, H, hd), into this
@@ -473,10 +477,10 @@ class Engine:
         configuration would need, and (paged mode) the pool size and the
         high-water mark actually touched."""
         specs = model.decode_state_specs(self.cfg, self.B, self.max_context)
-        contig = sum(math.prod(s.shape) * s.dtype.itemsize for kv in specs for s in kv)
+        contig = sum(math.prod(s.shape) * s.dtype.itemsize for s in model.state_leaves(specs))
         out: dict[str, Any] = {"contig_cache_bytes": int(contig)}
         if self.paged:
-            pool_bytes = sum(t.numel() * t.element_size() for kv in self.pools for t in kv)
+            pool_bytes = sum(t.numel() * t.element_size() for t in model.state_leaves(self.pools))
             per_page = pool_bytes // (self.pm.num_pages + 1)
             out.update(self.pm.report())
             out["pool_bytes"] = int(pool_bytes)

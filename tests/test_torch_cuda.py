@@ -1039,13 +1039,14 @@ def test_capture_phi_traces_on_the_card_never_assigns_on_the_host(dev, monkeypat
 
 
 # ------------------------------------------------------------- LM stack ---
-def _lm_phi_setup(dev, timesteps=4, q=16):
-    """OLMo-1B's smoke cut in Phi mode on the card, weights on the 2^-10 grid."""
+def _lm_phi_setup(dev, timesteps=4, q=16, arch="olmo_1b"):
+    """An LM's smoke cut (OLMo-1B's by default) in Phi mode on the card,
+    weights on the 2^-10 grid."""
     from repro_torch.configs import get_config, phi_variant
     from repro_torch.distributed.sharding import init_params
     from repro_torch.models import model
 
-    cfg = phi_variant(get_config("olmo_1b", smoke=True), timesteps=timesteps, q=q)
+    cfg = phi_variant(get_config(arch, smoke=True), timesteps=timesteps, q=q)
     params = init_params(model.lm_specs(cfg), torch.Generator(device=dev).manual_seed(0), dev)
     train, _ = model.split_phi_state(params)
     stack = [train]
@@ -1130,3 +1131,98 @@ def test_lm_engine_paged_equals_contiguous_on_the_card(dev):
     assert a == b and all(len(t) == 4 for t in a.values())
     for rid, rows in contig.logit_trace.items():
         assert all(np.array_equal(x, y) for x, y in zip(rows, paged.logit_trace[rid]))
+
+
+# ----------------------------------------- Mamba-2, the hybrid and MoE ---
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("M_", [16, 293, 1024])
+def test_stream_kernel_at_n64_matches_plain(dev, kind, M_):
+    """Zamba2's wB, wC and wdt: K 2048, N 64 (half of one 128-column tile),
+    T 128, q 128, at decode, ragged and calibration rows."""
+    a, w, pats, pwp = _setup(M_, 2048, 64, 128, dev, seed=M_)
+    pwp, scale = _banks(pwp, kind, dev)
+    before = phi_fused_stream_cuda.launches
+    out, nnz = phi_fused_stream_cuda(a, pats, pwp, scale, w, block_m=256)
+    assert phi_fused_stream_cuda.launches == before + 1
+    pout, pnnz = phi_fused_plain(a, pats, pwp, scale, w, block_m=256)
+    torch.cuda.synchronize()
+    assert out.shape == (M_, 64)
+    assert torch.equal(out, pout) and torch.equal(nnz, pnnz) and int(nnz.sum()) > 0
+
+
+@pytest.mark.parametrize("arch", ["zamba2_1p2b", "mamba2_2p7b", "arctic_480b"])
+def test_recurrent_and_moe_smoke_phi_bitwise_spiking_dense_on_the_card(dev, arch):
+    """Zamba2, Mamba-2 and Arctic smoke cuts in Phi mode on the card: logits
+    at prefill and at two decode steps bitwise the spiking-dense arm's, every
+    Phi GEMM on a fused kernel."""
+    from repro_torch.models import model
+
+    prev = dispatch.set_policy(dispatch.PhiExecutionPolicy())
+    try:
+        cfg, params, batch = _lm_phi_setup(dev, arch=arch)
+        dense = model.spiking_dense_matmul(cfg)
+        before = sum(fn.launches for fn in _FUSED.values())
+        with torch.no_grad():
+            phi = model.train_logits(cfg, params, batch)
+            assert torch.equal(phi, model.train_logits(cfg, params, batch, matmul=dense))
+            lp, sp = model.prefill(cfg, params, batch)
+            ld, sd = model.prefill(cfg, params, batch, matmul=dense)
+            assert torch.equal(lp, ld)
+            S = batch["tokens"].shape[1]
+            sp, sd = model.extend_caches(cfg, sp, S + 2), model.extend_caches(cfg, sd, S + 2)
+            for i in range(2):
+                tok = torch.full((2,), 5 + i, dtype=torch.int32, device=dev)
+                pos = torch.full((2,), S + i, dtype=torch.int32, device=dev)
+                lp, _ = model.decode_step(cfg, params, tok, pos, sp)
+                ld, _ = model.decode_step(cfg, params, tok, pos, sd, matmul=dense)
+                assert torch.equal(lp, ld), i
+        torch.cuda.synchronize()
+    finally:
+        dispatch.set_policy(prev)
+    assert torch.isfinite(phi).all() and float(phi.std()) > 0
+    assert sum(fn.launches for fn in _FUSED.values()) > before
+
+
+def test_ssd_chunked_on_the_card_matches_the_cpu(dev):
+    """The SSD's einsums and chunk recurrence on the card against the same
+    call on the CPU: another order of float32 sums, held to 1e-5 of the
+    largest magnitude (states sum a whole chunk of inputs)."""
+    from repro_torch.models import mamba2
+
+    g = torch.Generator().manual_seed(0)
+    B, S, H, P, N = 2, 512, 8, 64, 64
+    x = torch.randn((B, S, H, P), generator=g)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=g))
+    A = -torch.exp(torch.randn((H,), generator=g) * 0.5)
+    Bm, Cm = torch.randn((B, S, N), generator=g), torch.randn((B, S, N), generator=g)
+    for chunk in (128, 64):
+        y, st = mamba2.ssd_chunked(*(t.to(dev) for t in (x, dt, A, Bm, Cm)), chunk)
+        wy, wst = mamba2.ssd_chunked(x, dt, A, Bm, Cm, chunk)
+        for got, want in ((y, wy), (st, wst)):
+            tol = 1e-5 * max(1.0, float(want.abs().max()))
+            assert float((got.cpu() - want).abs().max()) <= tol, chunk
+
+
+def test_hybrid_engine_two_slots_equal_one_slot_on_the_card(dev):
+    """Zamba2 smoke in Phi mode: a two-slot engine gives each request the
+    tokens of a one-slot engine serving them in turn (each admission writes
+    its slot's Mamba-2 states at their own batch axis)."""
+    from repro_torch.serve.engine import Engine, Request
+
+    prev = dispatch.set_policy(dispatch.PhiExecutionPolicy())
+    try:
+        cfg, params, _ = _lm_phi_setup(dev, timesteps=2, arch="zamba2_1p2b")
+        lens = (5, 11, 7)
+
+        def run(slots):
+            rng = np.random.default_rng(11)
+            eng = Engine(cfg, params, batch_slots=slots, max_context=64)
+            for rid, n in enumerate(lens):
+                eng.submit(Request(rid=rid, tokens=rng.integers(3, cfg.vocab, n),
+                                   max_new_tokens=4))
+            return {r.rid: r.tokens for r in eng.run()}
+
+        two, one = run(2), run(1)
+    finally:
+        dispatch.set_policy(prev)
+    assert two == one and all(len(t) == 4 for t in two.values())

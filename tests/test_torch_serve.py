@@ -167,7 +167,9 @@ def test_pool_exhaustion_blocks_admission_then_drains():
 
 def test_paged_gate_and_unported_families():
     """A sliding-window arch keeps dense slots (ring caches are already
-    O(window)); recurrent families are not ported and raise."""
+    O(window)), and so does Mamba-2 (recurrent state has no sequence axis to
+    page): paged=True is gated off, counted, and the engine serves with
+    raw-length prefill (``tests/test_serve_paged.py``'s ssm case)."""
     cfg, params = _dense_setup("h2o_danube3_4b")
     eng = Engine(cfg, params, batch_slots=2, max_context=32, paged=True, page_size=8)
     assert not eng.paged and not eng.bucketed
@@ -176,8 +178,82 @@ def test_paged_gate_and_unported_families():
     assert {rid: len(t) for rid, t in res.items()} == {0: 3, 1: 3}
     with pytest.raises(ValueError):
         model.paged_state_specs(get_config("mamba2_2p7b", smoke=True), 4, 8)
-    with pytest.raises(NotImplementedError):
-        Engine(get_config("mamba2_2p7b", smoke=True), params, batch_slots=2, max_context=32)
+    cfg, params = _dense_setup("mamba2_2p7b")
+    eng = Engine(cfg, params, batch_slots=2, max_context=32, paged=True, page_size=8)
+    assert not eng.paged and not eng.bucketed
+    assert eng.scheduler.report().get("paged_gate_dense") == 1
+    res = _run(eng, _requests(cfg, (5, 8), 3))
+    assert {rid: len(t) for rid, t in res.items()} == {0: 3, 1: 3}
+    assert eng.cache_report()["contig_cache_bytes"] == sum(
+        t.numel() * t.element_size() for t in model.state_leaves(eng.state))
+
+
+# ---------------------------------------------------------------- hybrid ---
+def test_hybrid_engine_matches_the_references_solo_runs():
+    """Zamba2 smoke, greedy, two slots: the port's engine gives each request
+    the tokens of the reference engine serving it alone, and logits within
+    LOGIT_ATOL of those runs. The reference's own two-slot run does not: its
+    slot insert writes every state leaf at axis 1, and the hybrid's main
+    Mamba-2 states carry the batch on axis 2, so each admission overwrites
+    slot 0's (``dynamic_update_slice`` clamps the start)."""
+    rcfg = ref_get_config("zamba2_1p2b", smoke=True)
+    rp = ref_init_params(ref_model.lm_specs(rcfg), jax.random.PRNGKey(0))
+    cfg = get_config("zamba2_1p2b", smoke=True)
+    params = interop.params_from_numpy(np_tree(rp), "cpu")
+    lens, max_new = (5, 9), 4
+    solo, solo_logits = {}, {}
+    for req in _requests(rcfg, lens, max_new, req=RefRequest):
+        ref = RefEngine(rcfg, rp, batch_slots=1, max_context=32, record_logits=True)
+        solo.update(_run(ref, [req]))
+        solo_logits.update(ref.logit_trace)
+    ref_pair = _run(RefEngine(rcfg, rp, batch_slots=2, max_context=32),
+                    _requests(rcfg, lens, max_new, req=RefRequest))
+    assert ref_pair != solo
+    eng = Engine(cfg, params, batch_slots=2, max_context=32, record_logits=True)
+    assert _run(eng, _requests(cfg, lens, max_new)) == solo
+    assert not eng.bucketed
+    for rid, rows in solo_logits.items():
+        assert len(eng.logit_trace[rid]) == len(rows) == max_new
+        for g, w in zip(eng.logit_trace[rid], rows):
+            np.testing.assert_allclose(g, np.asarray(w), rtol=0, atol=LOGIT_ATOL)
+
+
+def _phi_dyadic_hybrid():
+    cfg = phi_variant(get_config("zamba2_1p2b", smoke=True), timesteps=2, q=16)
+    params = init_params(model.lm_specs(cfg), torch.Generator().manual_seed(0), "cpu")
+    train, frozen = model.split_phi_state(params)
+    for leaf in model.state_leaves(train):
+        leaf.copy_(torch.round(leaf * 1024) / 1024)
+    params = model.merge_phi_state(train, frozen)
+    batch = model.dummy_batch(cfg, 2, 16, False, torch.Generator().manual_seed(2), "cpu")
+    with torch.no_grad():
+        params, _ = model.calibrate_lm_phi(cfg, params, batch)
+    return cfg, params
+
+
+def test_hybrid_phi_engine_bitwise_spiking_dense_and_one_slot(fresh_policy):
+    """Zamba2 smoke in Phi mode on dyadic weights: the engine's tokens and
+    every logits row equal the spiking-dense engine's bitwise; a one-slot
+    engine over the same requests gives the same tokens; paged=True keeps
+    dense slots and counts the gate."""
+    cfg, params = _phi_dyadic_hybrid()
+    lens, max_new = (5, 11, 7), 3
+
+    def go(**kw):
+        eng = Engine(cfg, params, max_context=32, record_logits=True, **kw)
+        return eng, _run(eng, _requests(cfg, lens, max_new))
+
+    phi, phi_res = go(batch_slots=2)
+    oracle, oracle_res = go(batch_slots=2, matmul=model.spiking_dense_matmul(cfg))
+    paged, paged_res = go(batch_slots=2, paged=True)
+    _, one_res = go(batch_slots=1)
+    assert phi_res == oracle_res == paged_res == one_res
+    assert all(len(t) == max_new for t in phi_res.values())
+    for other in (oracle, paged):
+        for rid, rows in phi.logit_trace.items():
+            assert all(np.array_equal(a, b) for a, b in zip(rows, other.logit_trace[rid]))
+    assert not paged.paged and paged.scheduler.report().get("paged_gate_dense") == 1
+    assert any(s.startswith("lm.wz") for s, _, _ in fresh_policy.decisions())
 
 
 def test_bucket_len_and_overlong_prompt():
@@ -289,6 +365,18 @@ def test_launcher_serves_on_the_cpu(tmp_path, fresh_policy):
     assert "serve_decoded_tokens 6" in body and "phi_dispatch_decisions" in body
     kinds = {json.loads(line)["kind"] for line in trace.read_text().splitlines()}
     assert {"submit", "admit", "prefill", "decode", "retire", "dispatch"} <= kinds
+
+
+def test_launcher_serves_the_hybrid_on_the_cpu(tmp_path, fresh_policy):
+    from repro_torch.launch import serve
+
+    prom = tmp_path / "m.prom"
+    serve.main(["--arch", "zamba2_1p2b", "--smoke", "--phi", "--device", "cpu", "--requests",
+                "3", "--max-new", "3", "--max-context", "32", "--paged", "--metrics-out",
+                str(prom)])
+    body = prom.read_text()
+    assert "serve_decoded_tokens 6" in body and "phi_dispatch_decisions" in body
+    assert 'lm.wz' in body
 
 
 def test_launcher_and_entry_points_default_to_the_card():
