@@ -62,11 +62,24 @@ phases, and the ``kernels`` summary:
   one-slot Phi engine over two requests, token-identical, and a
   ``paged=True`` engine that keeps dense slots; each kernel against its
   plain version at layer 0's operands; prefill, decode and GEMM timings at
-  the wz, wB (N = 64) and wo sites; calibration seconds and peak memory).
+  the wz, wB (N = 64) and wo sites; calibration seconds and peak memory);
+* LM training and checkpoints — ``lm_train`` (OLMo-1B at full width,
+  ``LM_LAYERS`` deep, through ``launch.train.train_loop`` at B = 1, S =
+  2048, every layer's attention on the kernel with lse under autograd:
+  step 1 against the same step with the attention's plain forward; dense,
+  6 uninterrupted steps against 3 checkpointed steps and a resume to 6,
+  the checkpoint restored bitwise, a second resume that runs no step, an
+  engine over the checkpoint's params token-identical to one over the
+  trained params in memory; the launcher's ``--phi`` config (T = 2, q = 16,
+  ``LM_TRAIN_PHI_LAYERS`` = 1 layer) calibrated by the loop (LIF and
+  matcher kernels), 3 steps on ``coo``,
+  then rounded, recalibrated and Phi ``train_logits`` bitwise its
+  spiking-dense arm (the streaming kernel); ms a step and its parts,
+  checkpoint bytes, save and restore seconds, peak memory).
 
-Every ``*main_path`` phase, ``lm_serve`` and ``hybrid_serve`` print the
-policy's decisions (site, impl, reason, count). Each main path,
-``accel_sim``'s captures and ``phi_apply`` calls, each of the three training
+Every ``*main_path`` phase, ``lm_serve``, ``hybrid_serve`` and ``lm_train``
+print the policy's decisions (site, impl, reason, count). Each main path,
+``accel_sim``'s captures and ``phi_apply`` calls, each of the four training
 phases and the two serving phases' counted runs are driven with every
 kernel's launch count set to 0 just before and read just after. The card's
 ``nvidia-smi`` name and power limit sit on their own line before the
@@ -78,6 +91,7 @@ prints no result. It imports nothing of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -2234,6 +2248,430 @@ def hybrid_serve_phase(dev, smi) -> dict:
     return {"launches": launches, "lif_err": lif_err, "attn_err": attn_row["max_abs_err"]}
 
 
+# LM training and checkpoints: OLMo-1B (lm_serve's config and depth) trained
+# at full width through the port's train_loop, dense (the launcher's
+# default) and in Phi spiking mode (the launcher's --phi config), at B = 1,
+# S = 2048 so that every layer's attention takes the kernel under autograd.
+LM_TRAIN_S = 2048
+LM_TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, decay_steps=6)
+LM_TRAIN_STEPS, LM_TRAIN_CRASH = 6, 3  # uninterrupted steps; the crashed run's
+LM_TRAIN_PHI_STEPS = 3
+# The Phi arm's depth. Its calibration pools every layer's 2 x 2048 spike
+# rows a site: at 4 layers one pass took 45-47 s, and the arm calibrates
+# twice (the loop's pass, the recalibration after training).
+LM_TRAIN_PHI_LAYERS = 1
+LM_TRAIN_SERVE = 4                    # lm_serve's first requests, served from the checkpoint
+RESUME_RTOL, RESUME_ATOL = 1e-4, 1e-5  # resumed losses (the reference's crash-resume test)
+# Step 1 on the path's bf16 activations, kernel against plain attention:
+# each layer's attention output is rounded to bf16 (2^-8 relative), and the
+# other order of the f32 softmax flips some of those roundings by one ulp.
+# Averaged over 2048 tokens the loss moves little; a gradient by a few bf16
+# ulps of its largest entry. The same step at float32 activations is held to
+# LOSS_REL / GRAD_REL.
+BF16_LOSS_REL = 2.0 ** -12
+BF16_GRAD_REL = 2.0 ** -5
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """A context in which ``models.flash.flash_attention`` runs the plain
+    forward ``_flash_fwd_impl`` on the card instead of the kernel (its
+    ``autograd.Function`` looks the kernel's wrapper up at each call)."""
+    from repro_torch.kernels import phi_attention
+    from repro_torch.models.flash import _flash_fwd_impl
+
+    real = phi_attention.flash_attention_cuda
+
+    def plain(q, k, v, *, causal, window, chunk, block_q, block_kv, return_lse=False):
+        out, lse = _flash_fwd_impl(q, k, v, causal, window, chunk, block_q, block_kv)
+        return (out, lse) if return_lse else out
+
+    phi_attention.flash_attention_cuda = plain
+    try:
+        yield
+    finally:
+        phi_attention.flash_attention_cuda = real
+
+
+def tree_pairs(a, b, path=""):
+    """(path, leaf of a, leaf of b) over two trees of one structure."""
+    if isinstance(a, dict):
+        if sorted(a) != sorted(b):
+            raise AssertionError(f"{path}: keys {sorted(a)} != {sorted(b)}")
+        for key in a:
+            yield from tree_pairs(a[key], b[key], f"{path}/{key}")
+    else:
+        yield path, a, b
+
+
+def lm_train_parts_ms(cfg, bundle, params, opt_state, ocfg, batch) -> dict:
+    """CUDA-event ms of a train step's parts: the forward under autograd
+    (the graph kept), forward and backward (``bundle.grads``), and the
+    optimizer update alone."""
+    import torch
+
+    from repro_torch.models import model
+    from repro_torch.train import optimizer as opt
+
+    trainable, phi_state = model.split_phi_state(params)
+    leaves = model.map_state(lambda w: w.detach().requires_grad_(), trainable)
+    merged = model.merge_phi_state(leaves, phi_state)
+    _, grads = bundle.grads(params, batch)
+    with torch.enable_grad():
+        fwd = cuda_time_ms(lambda: model.train_loss(cfg, merged, batch), runs=5, warmup=1)
+    return {"forward_autograd_ms": fwd,
+            "forward_backward_ms": cuda_time_ms(lambda: bundle.grads(params, batch), runs=5,
+                                                warmup=1),
+            "optimizer_ms": cuda_time_ms(
+                lambda: opt.apply_updates(trainable, grads, opt_state, ocfg), runs=5, warmup=1)}
+
+
+def lm_train_phase(dev, smi) -> dict:
+    """The ``lm_train`` phase: OLMo-1B at full width, LM_LAYERS of its 16
+    layers, trained through ``launch.train.train_loop`` at B = 1, S = 2048.
+
+    Step 1's loss and gradients with the attention kernel against the same
+    step with the attention's plain forward (outside the counted run). Then,
+    with every kernel's launch count set to 0 just before and read just
+    after: dense, 6 uninterrupted steps; 3 steps checkpointed at step 3 (the
+    restored params, optimizer state and cursor bitwise what was saved);
+    a resume to 6 (losses within RESUME_RTOL/ATOL of the uninterrupted
+    run's); a second resume that runs no step; an engine over params
+    restored from the checkpoint against one over the trained params in
+    memory, token-identical on lm_serve's first 4 requests. Phi (the
+    launcher's ``--phi`` config, T = 2, q = 16, LM_TRAIN_PHI_LAYERS deep):
+    the loop's calibration (the
+    LIF and matcher kernels), 3 steps with every GEMM on ``coo``
+    (``autodiff_or_vmap``) and every attention ``autodiff_keeps_flash``;
+    the trained weights rounded onto the 2^-10 grid and recalibrated, Phi
+    ``train_logits`` bitwise the spiking-dense arm's (the streaming kernel).
+    Then the kernels at this path's operands against their plain versions,
+    ms a step and its parts, the profiler's view of one dense step,
+    checkpoint bytes, save and restore seconds, peak memory."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_config, phi_variant
+    from repro_torch.data.pipeline import DataConfig, ShardedLoader
+    from repro_torch.distributed.sharding import init_params
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.phi_attention import flash_attention_cuda
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.launch import train as train_launch
+    from repro_torch.models import flash as flash_mod
+    from repro_torch.models import layers as ll
+    from repro_torch.models import model, transformer
+    from repro_torch.obs import ListSink, Tracer, set_tracer
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_lib
+    from repro_torch.utils import tree_bytes
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(LM_ARCH, smoke=LM_SMOKE)
+    if LM_LAYERS is not None:
+        cfg = cfg.with_(n_layers=LM_LAYERS)
+    phi_cfg = phi_variant(cfg, timesteps=2, q=16).with_(   # the launcher's --phi
+        n_layers=min(cfg.n_layers, LM_TRAIN_PHI_LAYERS))
+    ocfg = opt.OptConfig(**LM_TRAIN_OPT)
+    kw = dict(global_batch=1, seq=LM_TRAIN_S, seed=SEED, log_every=0, device=dev)
+    policy = dispatch.PhiExecutionPolicy()
+    prev_policy = dispatch.set_policy(policy)
+    sink = ListSink()
+    tracer = Tracer(sink)
+    prev_tracer = set_tracer(tracer)
+    tmp = tempfile.mkdtemp(prefix="lm_train_")
+    ckpt = f"{tmp}/ckpt"
+    times, marks = {}, {}
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return out
+
+    class Recording(CheckpointManager):
+        """The manager train_loop builds, keeping each save's tree (the
+        step is functional: the tensors it saved are never written)."""
+        saved: dict = {}
+
+        def save(self, step, tree, extra=None):
+            Recording.saved[step] = (tree, extra)
+            super().save(step, tree, extra)
+
+    try:
+        # ------------------------------ step 1: kernel against plain twin ---
+        params = init_params(model.lm_specs(cfg), torch.Generator(device=dev).manual_seed(SEED),
+                             dev)
+        first = next(iter(ShardedLoader(DataConfig(vocab=cfg.vocab, seq_len=LM_TRAIN_S,
+                                                   global_batch=1, seed=SEED))))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in first.items()}
+
+        def step1_against_plain(c, loss_tol, grad_tol):
+            bundle = step_lib.make_train_step(c, ocfg)[0]
+            lse0 = flash_attention_cuda.lse_launches
+            loss, grads = bundle.grads(params, batch)
+            lse1 = flash_attention_cuda.lse_launches
+            with plain_attention():
+                ploss, pgrads = bundle.grads(params, batch)
+            torch.cuda.synchronize()
+            if lse1 - lse0 != c.n_layers or flash_attention_cuda.lse_launches != lse1:
+                raise AssertionError(f"step 1: {lse1 - lse0} lse launches with the kernel, "
+                                     f"{flash_attention_cuda.lse_launches - lse1} with the "
+                                     f"plain forward; want {c.n_layers} and 0")
+            out = {"loss": float(loss), "plain_loss": float(ploss),
+                   "loss_rel_err": abs(float(loss) - float(ploss)) / abs(float(ploss)),
+                   "grad_rel_err": {p: rel_err(g, w) for p, g, w in tree_pairs(grads, pgrads)},
+                   "loss_tol": loss_tol, "grad_tol": grad_tol}
+            if out["loss_rel_err"] > loss_tol or max(out["grad_rel_err"].values()) > grad_tol:
+                raise AssertionError(f"lm_train step 1 ({c.compute_dtype}): kernel against "
+                                     f"plain attention {out}")
+            if any(float(w.abs().max()) == 0 for _, _, w in tree_pairs(grads, pgrads)):
+                raise AssertionError("lm_train step 1: a gradient is zero")
+            return out
+
+        step1 = {"float32": step1_against_plain(cfg.with_(compute_dtype=torch.float32),
+                                                LOSS_REL, GRAD_REL),
+                 "path": step1_against_plain(cfg, BF16_LOSS_REL, BF16_GRAD_REL)}
+        del params
+
+        # ------------------------------------------------ the counted run ---
+        train_launch.CheckpointManager = Recording
+        zero_launches()
+        first_rec = len(sink.records)
+        p_full, full = stage("train_6", lambda: train_launch.train_loop(
+            cfg, ocfg, steps=LM_TRAIN_STEPS, **kw))
+        p3, l1 = stage("train_3_ckpt", lambda: train_launch.train_loop(
+            cfg, ocfg, steps=LM_TRAIN_CRASH, ckpt_dir=ckpt, ckpt_every=LM_TRAIN_CRASH, **kw))
+        saved, saved_extra = Recording.saved[LM_TRAIN_CRASH]
+        like = {"params": p3, "opt": opt.init(model.split_phi_state(p3)[0], ocfg)}
+        got = stage("restore", lambda: CheckpointManager(ckpt).restore_latest(like))
+        restored_step, restored, extra = got
+        roundtrip = {"step": restored_step, "extra": extra, "leaves": 0}
+        for path, a, b in tree_pairs(restored, saved):
+            if a.device != b.device or a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"checkpoint {path}: restored != saved ({a.dtype} "
+                                     f"{a.device} vs {b.dtype} {b.device})")
+            roundtrip["leaves"] += 1
+        if restored_step != LM_TRAIN_CRASH or extra != saved_extra or \
+                extra["loader"] != {"step": LM_TRAIN_CRASH}:
+            raise AssertionError(f"checkpoint step {restored_step}, extra {extra}")
+        for path, a, b in tree_pairs(restored["params"], p3):
+            if not torch.equal(a, b):
+                raise AssertionError(f"checkpoint {path}: restored != the trained params")
+        ckpt_bytes = tree_bytes(restored)
+        del restored, saved, like, p3
+        Recording.saved.clear()
+        p6, l2 = stage("resume_6", lambda: train_launch.train_loop(
+            cfg, ocfg, steps=LM_TRAIN_STEPS, ckpt_dir=ckpt, ckpt_every=100, **kw))
+        _, l3 = stage("resume_noop", lambda: train_launch.train_loop(
+            cfg, ocfg, steps=LM_TRAIN_STEPS, ckpt_dir=ckpt, ckpt_every=100, **kw))
+        marks["dense"] = (first_rec, len(sink.records))
+
+        # engine over the checkpoint's params against the in-memory ones
+        rng = np.random.default_rng(LM_PROMPT_SEED)
+        prompts = [rng.integers(3, cfg.vocab, int(n))
+                   for n in rng.integers(LM_PROMPT[0], LM_PROMPT[1] + 1, LM_REQUESTS)]
+
+        def serve(p):
+            eng = Engine(cfg, p, batch_slots=LM_SLOTS, max_context=LM_MAX_CONTEXT)
+            for rid, toks in enumerate(prompts[:LM_TRAIN_SERVE]):
+                eng.submit(Request(rid=rid, tokens=toks, max_new_tokens=LM_MAX_NEW))
+            return {r.rid: r.tokens for r in eng.run()}
+
+        base = init_params(model.lm_specs(cfg), torch.Generator(device=dev).manual_seed(SEED + 9),
+                           dev)
+        _, from_ckpt, served_step = serve_launch.restore_params(cfg, base, ckpt)
+        del base
+        tokens_ckpt = stage("serve_from_checkpoint", lambda: serve(from_ckpt))
+        tokens_mem = stage("serve_in_memory", lambda: serve(p6))
+        del from_ckpt
+
+        # ----------------------------------------------------- Phi arm ---
+        first_rec = len(sink.records)
+        p_phi, phi_losses = stage("phi_train", lambda: train_launch.train_loop(
+            phi_cfg, ocfg, steps=LM_TRAIN_PHI_STEPS, **kw))
+        marks["phi_train"] = (first_rec, len(sink.records))
+        calib = model.dummy_batch(phi_cfg, 1, LM_TRAIN_S, with_labels=False, device=dev)
+        with torch.no_grad():
+            for leaf in tree_leaves(model.split_phi_state(p_phi)[0]):
+                leaf.copy_(dyadic(leaf))
+            p_phi, stats = stage("recalibrate", lambda: model.calibrate_lm_phi(
+                phi_cfg, p_phi, calib))
+            eval_batch = model.dummy_batch(phi_cfg, 1, LM_TRAIN_S, False,
+                                           torch.Generator().manual_seed(SEED + 1), dev)
+            first_rec = len(sink.records)
+            phi_logits = stage("phi_logits", lambda: model.train_logits(phi_cfg, p_phi,
+                                                                        eval_batch))
+            marks["phi_gate"] = (first_rec, len(sink.records))
+            dense_logits = stage("spiking_dense_logits", lambda: model.train_logits(
+                phi_cfg, p_phi, eval_batch, matmul=model.spiking_dense_matmul(phi_cfg)))
+        launches = read_launches()
+    finally:
+        train_launch.CheckpointManager = CheckpointManager
+        set_tracer(prev_tracer)
+        dispatch.set_policy(prev_policy)
+        shutil.rmtree(tmp, ignore_errors=True)
+    counted_s = time.perf_counter() - t_phase
+
+    # ------------------------------------------------------------ gates ---
+    n_layers, phi_layers = cfg.n_layers, phi_cfg.n_layers
+    resume_diff = float(np.abs(np.asarray(l1 + l2) - np.asarray(full)).max())
+    if not all(np.isfinite(full)) or len(full) != LM_TRAIN_STEPS or \
+            len(l1) != LM_TRAIN_CRASH or len(l2) != LM_TRAIN_STEPS - LM_TRAIN_CRASH:
+        raise AssertionError(f"lm_train: losses {full}, {l1}, {l2}")
+    if not np.allclose(l1 + l2, full, rtol=RESUME_RTOL, atol=RESUME_ATOL):
+        raise AssertionError(f"lm_train: resumed losses {l1 + l2} != uninterrupted {full} "
+                             f"(max |diff| {resume_diff})")
+    if l3:
+        raise AssertionError(f"lm_train: the second resume ran steps {l3}")
+    if full[0] != step1["path"]["loss"]:
+        raise AssertionError(f"lm_train: train_loop's step 1 loss {full[0]} != "
+                             f"{step1['path']['loss']}")
+    if served_step != LM_TRAIN_STEPS or tokens_ckpt != tokens_mem or \
+            sorted(tokens_mem) != list(range(LM_TRAIN_SERVE)) or \
+            any(len(t) != LM_MAX_NEW for t in tokens_mem.values()):
+        raise AssertionError(f"lm_train: engine from the step-{served_step} checkpoint "
+                             f"{tokens_ckpt} != in memory {tokens_mem}")
+    if not all(np.isfinite(phi_losses)) or len(phi_losses) != LM_TRAIN_PHI_STEPS:
+        raise AssertionError(f"lm_train: Phi losses {phi_losses}")
+    if phi_logits.shape != (1, LM_TRAIN_S, cfg.vocab) or not torch.isfinite(phi_logits).all():
+        raise AssertionError(f"lm_train: Phi logits {tuple(phi_logits.shape)} not finite")
+    if not torch.equal(phi_logits, dense_logits):
+        raise AssertionError(f"lm_train: Phi logits after training differ from spiking-dense, "
+                             f"max |diff| {float((phi_logits - dense_logits).abs().max())}")
+
+    def tally(lo, hi):
+        out = {}
+        for r in sink.records[lo:hi]:
+            if r["kind"] == "dispatch":
+                key = (r["site"], r["impl"], r["reason"])
+                out[key] = out.get(key, 0) + 1
+        return out
+
+    dense_dec = tally(*marks["dense"])
+    dense_steps = LM_TRAIN_STEPS + LM_TRAIN_CRASH + LM_TRAIN_STEPS - LM_TRAIN_CRASH
+    if dense_dec != {("lm.attn_prefill", "flash", "autodiff_keeps_flash"):
+                     dense_steps * n_layers}:
+        raise AssertionError(f"lm_train dense decisions {dense_dec}")
+    phi_dec = tally(*marks["phi_train"])
+    want = {(f"lm.{w}", "coo", "autodiff_or_vmap"): LM_TRAIN_PHI_STEPS * phi_layers
+            for w in ("wq", "wk", "wv", "wo", "w1", "w2", "w3")}
+    # the calibration captures with dense math: one no-grad attention a layer
+    want[("lm.attn_prefill", "flash", "dense_qk_keeps_flash")] = phi_layers
+    want[("lm.attn_prefill", "flash", "autodiff_keeps_flash")] = LM_TRAIN_PHI_STEPS * phi_layers
+    if phi_dec != want:
+        raise AssertionError(f"lm_train Phi decisions {phi_dec}, want {want}")
+    gate_dec = tally(*marks["phi_gate"])
+    gate_impls = {impl for (site, impl, _) in gate_dec if site.startswith("lm.w")}
+    if not gate_impls or not gate_impls <= {"fused", "fused_stream", "fused_prefetch"}:
+        raise AssertionError(f"lm_train: the gate after training ran {gate_dec}")
+    # Launches: the attention kernel with lse once a layer a step (the step-1
+    # twin ran outside the counted run), without lse at both calibrations'
+    # captures and both arms of the gate; LIF and matcher at calibration.
+    n_lse = dense_steps * n_layers + LM_TRAIN_PHI_STEPS * phi_layers
+    if launches["flash_attention_cuda_lse"] != n_lse or \
+            launches["flash_attention_cuda"] != n_lse + 4 * phi_layers:
+        raise AssertionError(f"lm_train attention launches {launches}, want {n_lse} with lse "
+                             f"and {4 * phi_layers} without")
+    if launches["lif_sequence_cuda"] <= 0 or launches["matcher_cuda"] <= 0:
+        raise AssertionError(f"lm_train: calibration never launched LIF or matcher: {launches}")
+    for impl in ("fused", "fused_stream", "fused_prefetch"):
+        n = sum(c for (site, i, _), c in gate_dec.items() if i == impl)
+        if launches[f"phi_{impl}_cuda"] != n:
+            raise AssertionError(f"lm_train: phi_{impl} launched {launches[f'phi_{impl}_cuda']} "
+                                 f"times for {n} decisions")
+
+    # ------------------------------------ kernels against plain versions ---
+    layer0 = transformer.layer_slice(p_phi["decoder"]["stack"], 0)["p0"]
+    with torch.no_grad():
+        captured = model._capture_phi_spikes(phi_cfg, p_phi, calib)
+    sites = {name: (f"{name}#0", layer0, name) for name in ("wq", "wk", "wv", "wo")}
+    sites.update({name: (f"{name}#0", layer0["mlp"], name) for name in ("w1", "w3", "w2")})
+    gate_recs = [r for r in sink.records[slice(*marks["phi_gate"])] if r["kind"] == "dispatch"]
+    checks, gemm_rows = lm_gemms(sites, captured, gate_recs, 16, timed=("wq", "w2"))
+    x0 = ll.apply_norm(phi_cfg, layer0["ln1"], model._embed_inputs(phi_cfg, p_phi, calib))
+    x_seq = x0.to(torch.float32).unsqueeze(0).expand(phi_cfg.phi.timesteps,
+                                                     *x0.shape).contiguous()
+    lif_timing, lif_err = lif_rows([x_seq])
+    matcher_row = lm_matcher_row(
+        "lm_train w2", captured["w2#0"][0].reshape(-1, cfg.d_ff).to(torch.float32).contiguous(),
+        layer0["mlp"]["phi_w2"]["patterns"])
+    del captured
+    # Attention with lse: layer 0's q, k, v of the trained dense model.
+    d0 = transformer.layer_slice(p6["decoder"]["stack"], 0)["p0"]
+    with torch.no_grad():
+        h = ll.apply_norm(cfg, d0["ln1"], model._embed_inputs(cfg, p6, batch))
+        pos = torch.arange(LM_TRAIN_S, device=dev)[None]
+        q, k, v = (x.to(torch.float32).contiguous()
+                   for x in transformer._qkv(cfg, d0, h, pos, model.make_matmul(cfg)))
+    attn_row = lm_attention_row("lm_train", policy, q, k, v)
+    bq, bkv = attn_row["blocks"]
+    _, lse = flash_attention_cuda(q, k, v, causal=True, block_q=bq, block_kv=bkv,
+                                  return_lse=True)
+    _, plse = flash_mod._flash_fwd_impl(q, k, v, True, None, None, bq, bkv)
+    lse_err = float((lse - plse).abs().max())
+    lse_tol = LSE_ULPS * 2.0 ** -24 * max(1.0, float(plse.abs().max()))
+    if lse_err > lse_tol:
+        raise AssertionError(f"lm_train: lse max |diff| {lse_err} > {lse_tol}")
+    attn_row.update(lse_max_abs_err=lse_err, lse_tol=lse_tol)
+    del q, k, v, lse, plse, p_phi, x_seq
+
+    # ------------------------------------------------------------ timing ---
+    bundle, _, _ = step_lib.make_train_step(cfg, ocfg)
+    state = opt.init(p6, ocfg)
+    step_ms = cuda_time_ms(lambda: bundle.fn(p6, state, batch), runs=5, warmup=2)
+    profile = device_profile(lambda: bundle.fn(p6, state, batch), step_ms)
+    parts = lm_train_parts_ms(cfg, bundle, p6, state, ocfg, batch)
+    tree = {"params": p6, "opt": state}
+    with tempfile.TemporaryDirectory(prefix="lm_train_") as tmp:
+        mgr = CheckpointManager(tmp, async_save=False)
+        t0 = time.perf_counter()
+        mgr.save(1, tree)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mgr.restore_latest(tree)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    emit({"phase": "lm_train", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "config": {"arch": LM_ARCH, "smoke": LM_SMOKE, "n_layers": n_layers,
+                     "phi_layers": phi_layers,
+                     "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+                     "heads": cfg.n_heads, "batch": 1, "seq": LM_TRAIN_S, "opt": LM_TRAIN_OPT,
+                     "steps": LM_TRAIN_STEPS, "crash_at": LM_TRAIN_CRASH,
+                     "phi": {"timesteps": phi_cfg.phi.timesteps, "q": phi_cfg.phi.q,
+                             "k": phi_cfg.phi.k, "nnz_budget": phi_cfg.phi.nnz_budget,
+                             "steps": LM_TRAIN_PHI_STEPS}},
+          "counted_s": counted_s, "stages_s": times, "launches": launches,
+          "step1_plain_attention": step1,
+          "losses": full, "resumed_losses": l1 + l2, "resume_max_abs_diff": resume_diff,
+          "resume_tol": [RESUME_RTOL, RESUME_ATOL], "checkpoint_roundtrip": roundtrip,
+          "served_tokens_identical": LM_TRAIN_SERVE, "phi_losses": phi_losses,
+          "phi_logits_bitwise_spiking_dense": True,
+          "phi_l2_density": {key: st.l2_density for key, st in sorted(stats.items())},
+          "decisions": {"dense": [[*key, n] for key, n in sorted(dense_dec.items())],
+                        "phi_train": [[*key, n] for key, n in sorted(phi_dec.items())],
+                        "phi_gate": [[*key, n] for key, n in sorted(gate_dec.items())]},
+          "gemm_l2_entries_256_rows": checks, "gemms": gemm_rows,
+          "lif_sequence": lif_timing, "lif_max_abs_err": lif_err, "matcher": matcher_row,
+          "attention": attn_row, "ms_per_step": step_ms, "step_parts": parts,
+          "profile_step": profile, "checkpoint_bytes": ckpt_bytes,
+          "checkpoint_save_s": save_s, "checkpoint_restore_s": restore_s,
+          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "seconds": time.perf_counter() - t_phase})
+    del p6, state, tree, p_full
+    torch.cuda.empty_cache()
+    return {"launches": launches, "lif_err": lif_err, "attn_err": attn_row["max_abs_err"],
+            "lse_err": lse_err}
+
+
 def main() -> int:
     import torch
 
@@ -2490,9 +2928,12 @@ def main() -> int:
     # ------------------------------------------------------ LM serving ---
     lm = lm_serve_phase(dev, smi)
     hyb = hybrid_serve_phase(dev, smi)
+
+    # ------------------------------------------------------ LM training ---
+    lm_tr = lm_train_phase(dev, smi)
     later = {"accel_sim": accel["launches"], "train": trained["launches"],
              "paft": paft_run["launches"], "spikformer_train": spk_train["launches"],
-             "lm": lm["launches"], "hybrid": hyb["launches"]}
+             "lm": lm["launches"], "hybrid": hyb["launches"], "lm_train": lm_tr["launches"]}
 
     # ------------------------------------------------------------ summary ---
     # Times are per batch of the main paths: the sum over the calls one
@@ -2531,7 +2972,8 @@ def main() -> int:
          "launches": launches["lif_sequence_cuda"] + spk_launches["lif_sequence_cuda"],
          "launches_by_path": {"vgg": launches["lif_sequence_cuda"],
                               "spikformer": spk_launches["lif_sequence_cuda"]},
-         "max_abs_err": max(lif_err, spk["lif_err"], lm["lif_err"], hyb["lif_err"]),
+         "max_abs_err": max(lif_err, spk["lif_err"], lm["lif_err"], hyb["lif_err"],
+                            lm_tr["lif_err"]),
          "ms": sum(r["ms"] for r in all_lif), "device_ms": device_sum(all_lif),
          "plain_ms": sum(r["plain_ms"] for r in all_lif),
          "bound_ms": lif_bound, "bound_by": lif_by, "library_ms": None},
@@ -2552,11 +2994,13 @@ def main() -> int:
         entry["launches_by_path"].update(by)
         entry["launches"] += sum(by.values())
     attn = entries[2]
-    attn["lse_max_abs_err"] = spk_train["lse_err"]
-    attn["dense_lse_launches"] = spk_train["launches"]["flash_attention_cuda_lse"]
+    attn["lse_max_abs_err"] = max(spk_train["lse_err"], lm_tr["lse_err"])
+    attn["dense_lse_launches"] = sum(later[path]["flash_attention_cuda_lse"]
+                                     for path in ("spikformer_train", "lm_train"))
     attn["dense_instantiation_launches"] += sum(c["flash_attention_cuda"] for c in later.values())
     attn["lm_dense_max_abs_err"] = lm["attn_err"]
     attn["hybrid_dense_max_abs_err"] = hyb["attn_err"]
+    attn["lm_train_dense_max_abs_err"] = lm_tr["attn_err"]
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

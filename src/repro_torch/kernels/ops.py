@@ -533,13 +533,45 @@ def _phi_matmul_coo_chunked(a2: torch.Tensor, w: torch.Tensor, patterns: torch.T
                 rows = rows * pwp_scale[t].to(torch.float32)[idx[:, t]][:, None]
             out1 = out1 + rows
         r, c, s, _ = pack_l2_coo_jit(residual, cap)
-        out2 = torch.zeros((chunk_rows + 1, N), dtype=torch.float32, device=a2.device)
-        for b in range(0, cap, entry_block):
+        outs.append(out1 + _CooL2.apply(wf, r, c, s, chunk_rows, entry_block))
+    return torch.cat(outs).reshape(nc * chunk_rows, N)[:M]
+
+
+class _CooL2(torch.autograd.Function):
+    """The L2 half of the ``coo`` lowering: ``out[r] += w[c] · s`` over static-
+    capacity COO entries (row ``rows`` takes the padding), in slabs of
+    ``entry_block`` gathered weight rows.
+
+    Under autograd (training: the policy resolves ``coo`` for every spiking
+    GEMM) the backward keeps only the entries: ``dw[c] += dout[r] · s``,
+    summed in float32 and rounded once to ``w``'s dtype. Autograd through the
+    slabs themselves would keep every (entry_block, N) slab alive until the
+    backward: at OLMo-1B's widths ≈ 11 GB a GEMM.
+    """
+
+    @staticmethod
+    def forward(ctx, wf: torch.Tensor, r: torch.Tensor, c: torch.Tensor, s: torch.Tensor,
+                rows: int, entry_block: int) -> torch.Tensor:
+        out = torch.zeros((rows + 1, wf.shape[1]), dtype=torch.float32, device=wf.device)
+        for b in range(0, r.shape[0], entry_block):
             vals = wf[c[b:b + entry_block].long()].to(torch.float32) \
                 * s[b:b + entry_block].to(torch.float32)[:, None]
-            out2.index_add_(0, r[b:b + entry_block].long(), vals)
-        outs.append(out1 + out2[:chunk_rows])
-    return torch.cat(outs).reshape(nc * chunk_rows, N)[:M]
+            out.index_add_(0, r[b:b + entry_block].long(), vals)
+        ctx.save_for_backward(r, c, s)
+        ctx.entry_block, ctx.w_dtype, ctx.w_rows = entry_block, wf.dtype, wf.shape[0]
+        return out[:rows]
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor):
+        r, c, s = ctx.saved_tensors
+        eb = ctx.entry_block
+        g = torch.cat([dout.to(torch.float32), dout.new_zeros((1, dout.shape[1]),
+                                                              dtype=torch.float32)])
+        dw = torch.zeros((ctx.w_rows, dout.shape[1]), dtype=torch.float32, device=dout.device)
+        for b in range(0, r.shape[0], eb):
+            dw.index_add_(0, c[b:b + eb].long(),
+                          g[r[b:b + eb].long()] * s[b:b + eb].to(torch.float32)[:, None])
+        return dw.to(ctx.w_dtype), None, None, None, None, None
 
 
 # -------------------------------------------------------------- composite ---

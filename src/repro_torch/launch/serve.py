@@ -1,15 +1,16 @@
-"""Serving launcher: build a config (optionally spiking+Phi), init params,
-and drive the continuous-batching engine over a synthetic request stream,
-reporting throughput/latency/slot-utilisation. Port of
+"""Serving launcher: build a config (optionally spiking+Phi), load or init
+params, and drive the continuous-batching engine over a synthetic request
+stream, reporting throughput/latency/slot-utilisation. Port of
 ``repro/launch/serve.py``.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo_1b --smoke \
-        --requests 16 --slots 4 [--phi] [--device cpu] \
+        --requests 16 --slots 4 [--phi] [--ckpt-dir DIR] [--device cpu] \
         [--trace-out trace.jsonl --metrics-out metrics.prom --obs]
 
-Runs on ``cuda`` unless ``--device`` names another. The reference's
-``--host-devices`` and ``--mesh-model`` (multi-device) and ``--ckpt-dir``
-(checkpoints) have no counterpart yet.
+Runs on ``cuda`` unless ``--device`` names another. ``--ckpt-dir`` restores
+the params of the newest checkpoint there (``launch.train``'s, or the
+reference's: one on-disk format). The reference's ``--host-devices`` and
+``--mesh-model`` (multi-device) have no counterpart yet.
 
 Observability: ``--trace-out`` streams the request lifecycle + dispatch
 records as deterministic JSONL, ``--metrics-out`` writes the merged metric
@@ -28,12 +29,34 @@ import numpy as np
 import torch
 
 from repro_torch import obs
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, phi_variant
 from repro_torch.distributed.sharding import init_params
 from repro_torch.kernels import IMPLS, dispatch
 from repro_torch.models import model
 from repro_torch.serve.engine import Engine, Request
 from repro_torch.utils import log, resolve_device
+
+
+def restore_params(cfg, params: dict, ckpt_dir: str):
+    """The params of the newest checkpoint in ``ckpt_dir``, on the devices and
+    dtypes of ``params``. Returns (cfg, params, step); step None (and the
+    inputs) where the directory holds none.
+
+    ``usage`` leaves an older checkpoint lacks are zero-filled (the policy
+    reads all-zero as "no histogram"); a persisted ``--phi-impl`` override
+    is re-applied (a live one wins); the usage histograms riding in the
+    params tree are registered with the policy, so its usage gate works
+    without a fresh calibration pass.
+    """
+    step, tree, extra = CheckpointManager(ckpt_dir).restore_latest(
+        {"params": params}, missing_ok=("usage",))
+    if step is None:
+        return cfg, params, None
+    cfg = dispatch.apply_checkpoint_extra(cfg, extra)
+    n_usage = dispatch.register_usage_from_params(tree["params"])
+    log.info("restored params from step %d (%d phi usage histograms)", step, n_usage)
+    return cfg, tree["params"], step
 
 
 def main(argv: list[str] | None = None) -> None:
@@ -70,6 +93,8 @@ def main(argv: list[str] | None = None) -> None:
                     help="enable wall-time observation: per-token latency "
                          "histogram (p50/p99 logged) and wall_ms fields on "
                          "trace spans")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the params of the newest checkpoint here")
     ap.add_argument("--device", default="cuda",
                     help="device to serve on (default cuda; cpu runs the "
                          "kernels' plain versions)")
@@ -82,6 +107,8 @@ def main(argv: list[str] | None = None) -> None:
         if args.phi_impl:
             cfg = cfg.with_(phi=dataclasses.replace(cfg.phi, impl=args.phi_impl))
     params = init_params(model.lm_specs(cfg), torch.Generator().manual_seed(0), device)
+    if args.ckpt_dir:
+        cfg, params, _ = restore_params(cfg, params, args.ckpt_dir)
     if args.phi:
         batch = model.dummy_batch(cfg, 2, 16, with_labels=False, device=device)
         with torch.no_grad():

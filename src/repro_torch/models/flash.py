@@ -184,9 +184,18 @@ def _flash_bwd(causal: bool, window: int | None, chunk: int | None, block_q: int
     return back(dq), back(dk), back(dv)
 
 
+# The backward's tiles: the reference's flash tiles (``ModelConfig``'s
+# ``flash_block_q``/``flash_block_kv``), whatever tiles the forward kernel
+# ran. The backward is batched PyTorch, one launch per block product: at
+# S = 2048 the kernel's (64, 128) tiles would make 1 024 block pairs a layer
+# where these make 8. Tiles change only the order of its float32 sums.
+BWD_BLOCK_Q, BWD_BLOCK_KV = 512, 1024
+
+
 class _FlashAttention(torch.autograd.Function):
     """Flash attention with the flash backward: the forward keeps
-    (q, k, v, out, lse), the backward is :func:`_flash_bwd`."""
+    (q, k, v, out, lse), the backward is :func:`_flash_bwd` at
+    (BWD_BLOCK_Q, BWD_BLOCK_KV)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, chunk, block_q, block_kv):
@@ -196,12 +205,12 @@ class _FlashAttention(torch.autograd.Function):
         out, lse = flash_attention_cuda(q, k, v, causal=causal, window=window, chunk=chunk,
                                         block_q=block_q, block_kv=block_kv, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.blocks = (causal, window, chunk, block_q, block_kv)
+        ctx.masks = (causal, window, chunk)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        dq, dk, dv = _flash_bwd(*ctx.blocks, *ctx.saved_tensors, dout)
+        dq, dk, dv = _flash_bwd(*ctx.masks, BWD_BLOCK_Q, BWD_BLOCK_KV, *ctx.saved_tensors, dout)
         return dq, dk, dv, None, None, None, None, None
 
 

@@ -206,12 +206,15 @@ def attention_prefill(cfg: ModelConfig, layer_idx, q, k, v, *, layer_global: boo
         return flash_attention(q, k, v, causal=True, window=window,
                                block_q=min(512, S), block_kv=min(1024, S))
     # The flash branch goes through the execution policy: dense LM Q/K are
-    # not spikes, so the site records ``dense_qk_keeps_flash`` and the
-    # decision carries the attention kernel's blocks for this shape.
+    # not spikes, so the site records ``dense_qk_keeps_flash``, or
+    # ``autodiff_keeps_flash`` where a backward will run through q, k, v
+    # (the reference's ``autodiff_region`` of its train step); the decision
+    # carries the attention kernel's blocks for this shape.
     B, _, H, D = q.shape
     dec = dispatch.get_policy().resolve_attention(
         site="lm.attn_prefill", s=S, d=D, heads=H, batch=B,
-        spike_qk=False, has_patterns=False, device=q.device)
+        spike_qk=False, has_patterns=False, transform=flash_mod.under_autograd(q, k, v),
+        device=q.device)
     bq, bkv = dec.blocks
     f32 = [x.to(torch.float32) for x in (q, k, v)]
     return flash_mod.flash_attention(*f32, True, window, chunk, bq, bkv).to(q.dtype)

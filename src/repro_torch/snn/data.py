@@ -1,9 +1,10 @@
 """Synthetic datasets for the paper-side SNN experiments.
 
-A numpy copy of ``synthetic_images``, ``synthetic_event_frames`` and
-``batches`` from the reference package's ``snn/data.py``: class-conditional
-spatial templates plus noise (and a DVS-style frame stream of them), whose
-spike activations show the clustered binary statistics Phi exploits.
+A numpy copy of ``synthetic_images``, ``synthetic_event_frames``,
+``synthetic_text_tokens`` and ``batches`` from the reference package's
+``snn/data.py``: class-conditional spatial templates plus noise (and a
+DVS-style frame stream of them), whose spike activations show the clustered
+binary statistics Phi exploits, and class-conditional token streams.
 """
 from __future__ import annotations
 
@@ -47,6 +48,19 @@ def synthetic_event_frames(
         neg = (shift[..., 0] < rng.uniform(0.25, 0.45)).astype(np.float32)
         frames.append(np.stack([pos, neg], -1))
     return np.stack(frames, 1).astype(np.float32), y
+
+
+def synthetic_text_tokens(
+    n: int, num_classes: int = 2, seq_len: int = 32, vocab: int = 256, seed: int = 0
+) -> tuple[np.ndarray, np.ndarray]:
+    """SST-style classification: class-specific token unigram mixtures.
+    Returns (x (n, seq_len) i32, y (n,) i32)."""
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, num_classes, n).astype(np.int32)
+    logits = rng.standard_normal((num_classes, vocab)) * 1.5
+    probs = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    x = np.stack([rng.choice(vocab, seq_len, p=probs[c]) for c in y])
+    return x.astype(np.int32), y
 
 
 def batches(x: np.ndarray, y: np.ndarray, batch: int, seed: int = 0, epochs: int = 1):

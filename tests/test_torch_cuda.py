@@ -1226,3 +1226,107 @@ def test_hybrid_engine_two_slots_equal_one_slot_on_the_card(dev):
     finally:
         dispatch.set_policy(prev)
     assert two == one and all(len(t) == 4 for t in two.values())
+
+
+# LM training and checkpoints (OLMo-1B smoke on the card). Step 1 against
+# the CPU: identical params (drawn on the card, copied), another order of the
+# forward's and backward's sums (the attention kernel's softmax; CUDA's
+# atomics in the embedding's backward): loss within LM_LOSS_REL, each
+# gradient within GRAD_REL of its largest magnitude. A resumed run's losses
+# within the crash-resume test's rtol 1e-4 / atol 1e-5 of the uninterrupted
+# run's (the atomics make the card's steps repeatable only to roundings).
+LM_LOSS_REL = 1e-6
+
+
+def _tree_pairs(a, b, path=""):
+    if isinstance(a, dict):
+        assert sorted(a) == sorted(b), path
+        for k in a:
+            yield from _tree_pairs(a[k], b[k], f"{path}/{k}")
+    else:
+        yield path, a, b
+
+
+def test_lm_checkpoint_roundtrip_on_the_card_is_bitwise(dev, tmp_path):
+    from repro_torch.checkpoint import CheckpointManager
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    tree = {"params": {"w": torch.randn((64, 33), generator=g, device=dev),
+                       "b": torch.randn((7,), generator=g, device=dev).to(torch.bfloat16),
+                       "phi_w": {"patterns": torch.randint(-1, 2, (4, 16, 16), generator=g,
+                                                           device=dev).to(torch.int8),
+                                 "usage": torch.randint(0, 99, (4, 17), generator=g,
+                                                        device=dev).to(torch.int32)}},
+            "opt": {"step": torch.tensor(5, dtype=torch.int32, device=dev),
+                    "v": {"w": {"vr": torch.rand((64,), generator=g, device=dev),
+                                "vc": torch.rand((33,), generator=g, device=dev)}}}}
+    mgr = CheckpointManager(str(tmp_path), async_save=True)
+    mgr.save(5, tree, {"loader": {"step": 5}})
+    mgr.wait()
+    like = {"params": {k: (torch.empty_like(v) if isinstance(v, torch.Tensor)
+                           else {kk: torch.empty_like(vv) for kk, vv in v.items()})
+                       for k, v in tree["params"].items()},
+            "opt": {"step": torch.zeros((), dtype=torch.int32, device=dev),
+                    "v": {"w": {"vr": torch.empty_like(tree["opt"]["v"]["w"]["vr"]),
+                                "vc": torch.empty_like(tree["opt"]["v"]["w"]["vc"])}}}}
+    step, got, extra = mgr.restore_latest(like)
+    assert step == 5 and extra == {"loader": {"step": 5}}
+    for path, a, b in _tree_pairs(got, tree):
+        assert a.device == b.device and a.dtype == b.dtype and a.shape == b.shape, path
+        assert torch.equal(a, b), path
+
+
+def test_lm_train_loop_step_one_on_the_card_matches_the_cpu(dev):
+    """One step of ``train_loop`` at S = 2048 (the attention kernel under
+    autograd in every layer, with lse) against the same step on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, ShardedLoader
+    from repro_torch.distributed.sharding import init_params
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import model
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_lib
+
+    cfg = get_config("olmo_1b", smoke=True)
+    ocfg = opt.OptConfig(lr=1e-3, warmup_steps=2, decay_steps=6)
+    prev = dispatch.set_policy(dispatch.PhiExecutionPolicy())
+    try:
+        lse = flash_attention_cuda.lse_launches
+        _, losses = train_loop(cfg, ocfg, steps=1, global_batch=1, seq=2048, log_every=0,
+                               device=dev)
+        torch.cuda.synchronize()
+        assert flash_attention_cuda.lse_launches - lse == cfg.n_layers
+        assert set(dispatch.get_policy().decisions()) == {
+            ("lm.attn_prefill", "flash", "autodiff_keeps_flash")}
+    finally:
+        dispatch.set_policy(prev)
+    params = init_params(model.lm_specs(cfg), torch.Generator(device=dev).manual_seed(0), dev)
+    batch = next(iter(ShardedLoader(DataConfig(vocab=cfg.vocab, seq_len=2048,
+                                               global_batch=1, seed=0))))
+    bundle, _, _ = step_lib.make_train_step(cfg, ocfg)
+    loss, grads = bundle.grads(params, {k: torch.from_numpy(v).to(dev)
+                                        for k, v in batch.items()})
+    cpu_loss, cpu_grads = bundle.grads(model.map_state(lambda x: x.cpu(), params),
+                                       {k: torch.from_numpy(v) for k, v in batch.items()})
+    assert float(loss) == losses[0]
+    assert abs(losses[0] - float(cpu_loss)) <= LM_LOSS_REL * abs(float(cpu_loss))
+    for path, g, want in _tree_pairs(grads, cpu_grads):
+        scale = float(want.abs().max())
+        assert scale > 0, path
+        assert float((g.cpu() - want).abs().max()) <= GRAD_REL * scale, path
+
+
+def test_lm_crash_resume_on_the_card(dev, tmp_path):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_loop
+    from repro_torch.train import optimizer as opt
+
+    cfg = get_config("olmo_1b", smoke=True)
+    ocfg = opt.OptConfig(lr=1e-3, warmup_steps=2, decay_steps=30)
+    kw = dict(global_batch=4, seq=64, log_every=0, device=dev)
+    _, full = train_loop(cfg, ocfg, steps=8, **kw)
+    _, l1 = train_loop(cfg, ocfg, steps=4, ckpt_dir=str(tmp_path), ckpt_every=2, **kw)
+    _, l2 = train_loop(cfg, ocfg, steps=8, ckpt_dir=str(tmp_path), ckpt_every=100, **kw)
+    _, l3 = train_loop(cfg, ocfg, steps=8, ckpt_dir=str(tmp_path), ckpt_every=100, **kw)
+    assert len(l1) == len(l2) == 4 and l3 == []
+    np.testing.assert_allclose(l1 + l2, full, rtol=1e-4, atol=1e-5)

@@ -26,7 +26,9 @@ def test_importing_every_module_leaves_jax_out():
         "lm = {'repro_torch.' + m for m in ('models.config', 'models.layers',\n"
         "      'models.transformer', 'models.model', 'distributed.sharding', 'obs.metrics',\n"
         "      'obs.drift', 'obs.trace', 'serve.sampling', 'serve.page_manager',\n"
-        "      'serve.scheduler', 'serve.engine', 'launch.serve', 'configs.olmo_1b')}\n"
+        "      'serve.scheduler', 'serve.engine', 'launch.serve', 'configs.olmo_1b',\n"
+        "      'checkpoint.checkpoint', 'data.pipeline', 'distributed.watchdog', 'train.step',\n"
+        "      'launch.train')}\n"
         "assert lm <= set(names), lm - set(names)\n"
         "print(len(names))\n"
     )

@@ -16,6 +16,17 @@ from repro.core.patterns import _kmeans_binary_jit
 from repro_torch.core.patterns import kmeans_unique_rows
 
 
+# One train step's loss, and each gradient leaf of its largest magnitude
+# (float32 forwards that differ by a few roundings in norms, RoPE and
+# softmax, and a backward summed in another order), plus GRAD_ATOL: a leaf
+# whose exact gradient is zero holds rounding noise (Llama-4's top-1 router:
+# a weight normalised over one expert is 1 whatever the logits; both sides
+# give ~1e-9).
+LOSS_REL = 1e-6
+GRAD_REL = 1e-5
+GRAD_ATOL = 1e-7
+
+
 def dyadic(x: np.ndarray) -> np.ndarray:
     """Round onto the 2^-10 grid (float32)."""
     return (np.round(np.asarray(x, np.float64) * 1024) / 1024).astype(np.float32)
@@ -63,3 +74,25 @@ def reference_init_idx(acts: np.ndarray, k: int, q: int, seed: int = 0) -> list:
         assert (match.sum(1) == 1).all()
         out.append(match.argmax(1))
     return out
+
+
+def assert_grads_close(got: dict, want: dict, path: str = ""):
+    """Each gradient leaf (a tensor tree) within GRAD_REL of the largest
+    magnitude of its reference leaf (a numpy tree), plus GRAD_ATOL."""
+    assert sorted(got) == sorted(want), path
+    for k in want:
+        if isinstance(want[k], dict):
+            assert_grads_close(got[k], want[k], f"{path}/{k}")
+            continue
+        w = np.asarray(want[k], np.float32)
+        g = got[k].detach().to(torch.float32).numpy()
+        assert g.shape == w.shape, f"{path}/{k}"
+        scale = float(np.abs(w).max())
+        np.testing.assert_allclose(g, w, rtol=0, atol=GRAD_REL * scale + GRAD_ATOL,
+                                   err_msg=f"{path}/{k}")
+
+
+def assert_loss_close(got, want):
+    """A loss within LOSS_REL of the reference's."""
+    assert abs(float(got) - float(want)) <= LOSS_REL * abs(float(want)), (float(got),
+                                                                          float(want))
