@@ -54,6 +54,17 @@ phases, and the ``kernels`` summary:
   decisions at prefill and decode; each kernel the phase launched against
   its plain version at layer 0's operands; prefill, decode and GEMM timings
   beside their bounds; PWP bytes and peak memory);
+* serving on a mesh — ``mesh_serve`` (``lm_serve``'s calibrated OLMo-1B on
+  a (data 2, model 2) mesh of four spawned ranks sharing the card, talking
+  through gloo, each holding its shards (cut here, passed through host
+  shared memory): a 2 x 2048 Phi prefill and 4 decode steps bitwise one device's,
+  a short prompt's forced-``coo`` run bitwise the policy's, the engine over
+  ``lm_serve``'s requests token-identical, the w1 and w2 decisions a fused
+  kernel in the per-rank body with ``shards`` 4, each rank's launches
+  counted; rank 0's kernels against their plain versions at its layer-0
+  local operands; then one Arctic-480B MoE layer at full width, ``moe_dense``
+  here and ``moe_ep`` over four ranks of 32 experts, within ``MOE_ULPS``
+  bf16 ulps, no token dropped; per-rank times, collectives and peak memory);
 * hybrid serving — ``hybrid_serve`` (Zamba2-1.2B at full width and depth in
   Phi spiking mode: 36 Mamba-2 layers in 6 sites, each followed by the
   shared attention + MLP block with the site's LoRA on Q, then 2 tail
@@ -77,8 +88,8 @@ phases, and the ``kernels`` summary:
   spiking-dense arm (the streaming kernel); ms a step and its parts,
   checkpoint bytes, save and restore seconds, peak memory).
 
-Every ``*main_path`` phase, ``lm_serve``, ``hybrid_serve`` and ``lm_train``
-print the policy's decisions (site, impl, reason, count). Each main path,
+Every ``*main_path`` phase, ``lm_serve``, ``mesh_serve``, ``hybrid_serve``
+and ``lm_train`` print the policy's decisions (site, impl, reason, count). Each main path,
 ``accel_sim``'s captures and ``phi_apply`` calls, each of the four training
 phases and the two serving phases' counted runs are driven with every
 kernel's launch count set to 0 just before and read just after. The card's
@@ -1985,9 +1996,522 @@ def lm_serve_phase(dev, smi) -> dict:
           "pwp_bytes": pwp_bytes, "weight_bytes": weight_bytes,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "seconds": time.perf_counter() - t_phase})
-    del params, runs
+    del runs
     torch.cuda.empty_cache()
-    return {"launches": launches, "lif_err": lif_err, "attn_err": attn_row["max_abs_err"]}
+    return {"launches": launches, "lif_err": lif_err, "attn_err": attn_row["max_abs_err"],
+            "cfg": cfg, "params": params, "prompts": prompts, "tokens": want}
+
+
+# Serving on a mesh of ranks. OLMo-1B in Phi spiking mode, lm_serve's
+# configuration and calibrated params, on a (data, model) mesh of MESH_SHAPE
+# ranks; one Arctic-480B MoE layer (src/repro_torch/configs/arctic_480b.py)
+# at full width, expert-parallel on MOE_MESH. The script needs one card, so
+# the ranks are processes sharing it: NCCL refuses two ranks on one device,
+# and the collectives go through gloo.
+MESH_SHAPE = (2, 2)            # (data, model)
+MESH_PREFILL = (2, 2048)       # B, S: S > 1024 takes the attention kernel
+MESH_DECODE_STEPS = 4
+MESH_SHORT = (2, 16)           # the forced-coo gate's prompt
+MESH_COO_STEPS = 2
+MESH_TIMEOUT = 600.0           # seconds a world of ranks may take, and each collective
+MOE_ARCH = "arctic_480b"
+MOE_MESH = (1, 4)
+MOE_TOKENS = (4, 256)          # B, S of the MoE layer's input
+MOE_CF = 8.0                   # capacity factor: no token drops (the reference's test's)
+# EP against dense, per element: within MOE_ULPS bf16 ulps of max|dense|.
+# Both paths compute each expert's three GEMMs in bf16 with float32
+# accumulation, on buffers of different rows (every token against 128
+# experts; 4 x capacity routed rows against 32), so cuBLAS may sum a dot
+# product in another order and round h1, h3, their product, the second
+# GEMM's output and the combine's cast each one bf16 ulp apart (2^-8 of the
+# value); the second GEMM sums 4864 such differences of random sign. Eight
+# ulps of the largest output bound that with room, and the mean is held to
+# one ulp of the mean magnitude.
+MOE_ULPS = 8
+
+
+def _host_shared(tree):
+    """A copy of a tree of tensors in host shared memory: spawned ranks map
+    it without a copy, and it is gone when the last of them lets it go."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _host_shared(v) for k, v in tree.items()}
+    out = torch.empty(tree.shape, dtype=tree.dtype).share_memory_()
+    return out.copy_(tree)
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _bf16_ulp(v: float) -> float:
+    """One bf16 ulp at magnitude ``v`` (8 significant bits)."""
+    import math
+
+    return 2.0 ** (math.floor(math.log2(v)) - 7) if v > 0 else 0.0
+
+
+def _first_lif_input(fn):
+    """The current of the first LIF sequence kernel launch of ``fn()``."""
+    from repro_torch.snn import lif as snn_lif
+
+    seen, real = [], snn_lif.lif_sequence_cuda
+
+    def recording(x_seq, **kw):
+        if not seen:
+            seen.append(x_seq.clone())
+        return real(x_seq, **kw)
+
+    snn_lif.lif_sequence_cuda = recording
+    try:
+        fn()
+    finally:
+        snn_lif.lif_sequence_cuda = real
+    return seen[0]
+
+
+def _first_attention_operands(fn):
+    """q, k, v of the first dense attention kernel call of ``fn()``."""
+    from repro_torch.models import flash as flash_mod
+
+    seen, real = [], flash_mod.flash_attention
+
+    def recording(q, k, v, *a, **kw):
+        if not seen:
+            seen.append((q.clone(), k.clone(), v.clone()))
+        return real(q, k, v, *a, **kw)
+
+    flash_mod.flash_attention = recording
+    try:
+        fn()
+    finally:
+        flash_mod.flash_attention = real
+    return seen[0]
+
+
+def _record_layer0(params, cfg, batch, mesh) -> dict:
+    """Every rank: a prefill of ``batch`` on the mesh (its collectives need
+    every rank) that records this rank's layer-0 local operands: each Phi
+    site's first GEMM (spikes, weight, patterns, bank, usage), the first LIF
+    current and the first attention call's q, k, v."""
+    import torch
+
+    from repro_torch.distributed.sharding import SERVE_RULES, use_rules
+    from repro_torch.kernels import dispatch
+    from repro_torch.models import model
+
+    class Recording(dispatch.PhiExecutionPolicy):
+        def __init__(self):
+            super().__init__()
+            self.first = {}
+
+        def matmul(self, a, w, patterns, pwp, **kw):
+            self.first.setdefault(kw["site"], (a, w, patterns, pwp, kw.get("usage")))
+            return super().matmul(a, w, patterns, pwp, **kw)
+
+    rec = Recording()
+    prev = dispatch.set_policy(rec)
+    held = {}
+    try:
+        with torch.no_grad(), use_rules(SERVE_RULES, mesh):
+            def run():
+                held["qkv"] = _first_attention_operands(
+                    lambda: model.prefill(cfg, params, batch))
+            held["lif"] = _first_lif_input(run)
+    finally:
+        dispatch.set_policy(prev)
+    return {"policy": rec, "gemms": rec.first, "lif": held["lif"], "qkv": held["qkv"]}
+
+
+def _mesh_rank_checks(policy, rec) -> dict:
+    """Rank 0, after the counted run, while the other ranks wait: each kernel
+    the ranks launched against its plain version at this rank's layer-0
+    local operands (``rec``), and their times. The card is this rank's alone
+    then."""
+    import torch
+
+    from repro_torch.core.patterns import active_pattern_sets
+    from repro_torch.kernels.phi_fused import pack_patterns
+
+    out = {"gemms": [], "l2_entries_256_rows": {}}
+    # w1 column-parallel, w2 and wo row-parallel (wo's local T = 64 takes
+    # the first fused kernel at model = 2)
+    for site in ("lm.w1.spmd", "lm.w2.spmd", "lm.wo.spmd"):
+        a, w, pats, pwp, usage = rec["gemms"][site]
+        args = [a[:256].contiguous(), pats, pwp, torch.ones(pwp.shape[:2], device=a.device), w]
+        sets, _ = active_pattern_sets(usage) if usage is not None else (None, 1.0)
+        p_active = None if sets is None else int(sets.shape[-1])
+        packed = pack_patterns(pats)
+        out["l2_entries_256_rows"][site] = fused_checks(f"mesh {site}", args, packed,
+                                                        active_sets(args, p_active))
+        route = policy.last_decision(site).impl
+        targs = [a[:1024].contiguous()] + args[1:]
+        row = fused_timing(site, targs, packed, route, active_sets(targs, p_active),
+                           plain_runs=1)
+        b_ms, o_ms = needed_bound_ms(targs[0], pats, w.shape[1])
+        row.update(bytes_ms=b_ms, ops_ms=o_ms, bound_ms=max(b_ms, o_ms),
+                   whole_bank_bound_ms=row["bound_ms"])
+        out["gemms"].append(row)
+    attach_device_ms(out["gemms"], lambda row: FUSED_KERNEL[row["route"]])
+    lif_timing, out["lif_max_abs_err"] = lif_rows([rec["lif"].contiguous()])
+    out["lif_sequence"] = lif_timing
+    out["attention"] = lm_attention_row("mesh", rec["policy"],
+                                        *(t.contiguous() for t in rec["qkv"]))
+    for row in out["gemms"] + out["lif_sequence"] + [out["attention"]]:
+        row.pop("_fn", None)
+    return out
+
+
+def mesh_lm_rank(rank, cfg, params, batch, short, prompts, check: bool) -> dict:
+    """One rank of the OLMo mesh: every kernel's launch count set to 0, then
+    the prefill of ``batch`` and MESH_DECODE_STEPS greedy decode steps, the
+    short prompt's run under the policy and with ``impl="coo"`` forced, and
+    the engine over ``prompts``; the counts read. Rank 0 (``check``) then
+    holds the kernels against their plain versions."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.distributed.sharding import SERVE_RULES, use_rules
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.utils import log
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log.setLevel("WARNING")
+    mesh = make_mesh(MESH_SHAPE, ("data", "model"))
+    params, batch, short = (_to_device(t, mesh.device) for t in (params, batch, short))
+    policy = dispatch.PhiExecutionPolicy()
+    dispatch.set_policy(policy)
+    dispatch.register_usage_from_params(params)
+    times: dict = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    def greedy(c, b, steps, label):
+        B, S = b["tokens"].shape
+        logits, caches = timed(f"{label}_prefill_ms", lambda: model.prefill(c, params, b))
+        caches = model.extend_caches(c, caches, S + steps + 1)
+        outs = [logits.cpu().numpy()]
+        tok = logits.argmax(-1).to(torch.int32)
+        for i in range(steps):
+            pos = torch.full((B,), S + i, dtype=torch.int32, device=mesh.device)
+            logits, caches = timed(f"{label}_decode_ms", lambda: model.decode_step(
+                c, params, tok, pos, caches))
+            outs.append(logits.cpu().numpy())
+            tok = logits.argmax(-1).to(torch.int32)
+        shapes = [tuple(x.shape) for x in model.state_leaves(caches)]
+        return outs, shapes
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with torch.no_grad(), use_rules(SERVE_RULES, mesh):
+        logits, cache_shapes = greedy(cfg, batch, MESH_DECODE_STEPS, "main")
+        short_policy, _ = greedy(cfg, short, MESH_COO_STEPS, "short")
+        coo = cfg.with_(phi=dataclasses.replace(cfg.phi, impl="coo"))
+        short_coo, _ = greedy(coo, short, MESH_COO_STEPS, "short_coo")
+    eng = Engine(cfg, params, batch_slots=LM_SLOTS, max_context=LM_MAX_CONTEXT, mesh=mesh,
+                 wall_time=True)
+    for rid, toks in enumerate(prompts):
+        eng.submit(Request(rid=rid, tokens=toks, max_new_tokens=LM_MAX_NEW))
+    tokens = {r.rid: list(r.tokens) for r in timed("engine_ms", eng.run)}
+    launches = read_launches()
+    out = {"rank": rank, "coords": mesh.coords, "backend": mesh.backend,
+           "transport": mesh.transport,
+           "collectives": {op: {"calls": c, "bytes": b} for op, (c, b) in mesh.stats.items()},
+           "logits": logits, "cache_shapes": cache_shapes, "short_policy": short_policy,
+           "short_coo": short_coo, "tokens": tokens, "launches": launches, "times_ms": times,
+           "engine_ticks": eng.ticks, "decoded_tokens": eng.decoded_tokens,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "decisions": [[*key, n] for key, n in sorted(policy.decisions().items())],
+           "last": {site: dataclasses.asdict(policy.last_decision(site))
+                    for site in ("lm.w1.spmd", "lm.w2.spmd")}}
+    for d in out["last"].values():
+        d["runtime_sets"] = None if d["runtime_sets"] is None else np.asarray(d["runtime_sets"])
+    rec = _record_layer0(params, cfg, batch, mesh)
+    if check:
+        out["checks"] = _mesh_rank_checks(policy, rec)
+    return out
+
+
+def mesh_moe_rank(rank, cfg, router, x) -> dict:
+    """One rank of the expert-parallel MoE layer: its 32 experts drawn on
+    its card (:func:`_moe_experts`), ``moe_ep`` of every token (``data`` = 1)
+    against them."""
+    import torch
+
+    from repro_torch.distributed.sharding import SERVE_RULES, use_rules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+
+    mesh = make_mesh(MOE_MESH, ("data", "model"))
+    torch.cuda.reset_peak_memory_stats()
+    e_loc = cfg.n_experts // MOE_MESH[1]
+    p = _moe_experts(cfg, mesh.device, rank * e_loc, (rank + 1) * e_loc)
+    p["router"] = router.to(mesh.device)
+    x = x.to(mesh.device)
+    stats: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad(), use_rules(SERVE_RULES, mesh):
+        y = moe.moe_ep(cfg, p, x, stats)
+    torch.cuda.synchronize()
+    return {"rank": rank, "y": y.to(torch.float32).cpu().numpy(), "stats": stats,
+            "ms": (time.perf_counter() - t0) * 1e3,
+            "collectives": {op: {"calls": c, "bytes": b} for op, (c, b) in mesh.stats.items()},
+            "transport": mesh.transport, "backend": mesh.backend,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def _moe_experts(cfg, dev, lo: int, hi: int) -> dict:
+    """Experts ``lo`` to ``hi`` of one MoE layer (``moe_specs``' law, scale
+    1/sqrt(fan_in), drawn in float32 on ``dev`` and cast to the param dtype):
+    each expert's weights from a generator seeded by its leaf and index, so
+    a rank draws its own experts as the full layer holds them."""
+    import math
+
+    import torch
+
+    from repro_torch.models import moe
+
+    p = {}
+    for j, (name, spec) in enumerate(sorted(moe.moe_specs(cfg).items())):
+        if name == "router":
+            continue
+        t = torch.empty((hi - lo,) + spec.shape[1:], dtype=spec.dtype, device=dev)
+        for i, e in enumerate(range(lo, hi)):
+            gen = torch.Generator(device=dev).manual_seed(1_000_003 * (j + 1) + e + SEED)
+            t[i].copy_(torch.randn(spec.shape[1:], generator=gen, device=dev)
+                       / math.sqrt(spec.shape[-2]))
+        p[name] = t
+    return p
+
+
+def _moe_inputs(cfg, dev):
+    """The layer's router (scale 0.02, as ``moe_specs``) and its input batch."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    router = torch.randn((cfg.d_model, cfg.n_experts), generator=gen, device=dev) * 0.02
+    x = torch.randn((*MOE_TOKENS, cfg.d_model), generator=gen, device=dev)
+    return router.to(cfg.param_dtype), x.to(cfg.param_dtype)
+
+
+def mesh_serve_phase(dev, smi, lm) -> dict:
+    """The ``mesh_serve`` phase. OLMo-1B: ``lm_serve``'s calibrated params
+    and config; on one device (this process), a Phi prefill at MESH_PREFILL
+    and MESH_DECODE_STEPS greedy decode steps; every rank's shards
+    (``model.param_shardings``), passed through host shared memory to
+    MESH_SHAPE spawned ranks on this card; on the ranks the same prefill and steps, a
+    short prompt's run under the policy and with ``coo`` forced, and
+    ``lm_serve``'s requests through the mesh engine. Gates, all bitwise:
+    the mesh logits against one device's, the coo run against the policy's,
+    the engine's tokens against ``lm_serve``'s Phi engine's; the decisions
+    at w1 and w2 a fused kernel in the per-rank body with every rank
+    counted. Arctic-480B: one MoE layer at full width, ``moe_dense`` here,
+    then ``moe_ep`` on MOE_MESH ranks of 32 experts each (each draws its
+    own, as the full layer holds them), within MOE_ULPS, no token dropped."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.sharding import SERVE_RULES, place
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import model, moe
+
+    t_phase = time.perf_counter()
+    cfg, params = lm["cfg"], lm["params"]
+    policy = dispatch.PhiExecutionPolicy()
+    prev_policy = dispatch.set_policy(policy)
+    dispatch.register_usage_from_params(params)
+    times = {}
+    try:
+        batch = model.dummy_batch(cfg, *MESH_PREFILL, False,
+                                  torch.Generator().manual_seed(SEED + 2), dev)
+        short = model.dummy_batch(cfg, *MESH_SHORT, False,
+                                  torch.Generator().manual_seed(SEED + 3), dev)
+        single, single_ms = [], {"prefill": [], "decode": []}
+        with torch.no_grad():
+            B, S = MESH_PREFILL
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = model.prefill(cfg, params, batch)
+            torch.cuda.synchronize()
+            single_ms["prefill"].append((time.perf_counter() - t0) * 1e3)
+            caches = model.extend_caches(cfg, caches, S + MESH_DECODE_STEPS + 1)
+            single.append(logits.cpu().numpy())
+            tok = logits.argmax(-1).to(torch.int32)
+            for i in range(MESH_DECODE_STEPS):
+                pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
+                t0 = time.perf_counter()
+                logits, caches = model.decode_step(cfg, params, tok, pos, caches)
+                torch.cuda.synchronize()
+                single_ms["decode"].append((time.perf_counter() - t0) * 1e3)
+                single.append(logits.cpu().numpy())
+                tok = logits.argmax(-1).to(torch.int32)
+            single_shapes = [tuple(x.shape) for x in model.state_leaves(caches)]
+            del caches, logits
+        torch.cuda.empty_cache()
+    finally:
+        dispatch.set_policy(prev_policy)
+
+    axes = ("data", "model")
+    grid = types.SimpleNamespace(axis_names=axes, shape=dict(zip(axes, MESH_SHAPE)))
+    placements = model.param_shardings(cfg, grid, SERVE_RULES)
+    world = MESH_SHAPE[0] * MESH_SHAPE[1]
+    t0 = time.perf_counter()
+    # each model index's shards, which its data ranks share, in host shared
+    # memory: each rank copies its own onto the card
+    by_model = {m: _host_shared(place(params, placements, grid, {"data": 0, "model": m},
+                                      copy=False))
+                for m in range(MESH_SHAPE[1])}
+    torch.cuda.synchronize()
+    times["cut_shards_s"] = time.perf_counter() - t0
+    shard_bytes = {m: sum(t.numel() * t.element_size() for t in tree_leaves(sh))
+                   for m, sh in by_model.items()}
+    full_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(mesh_lm_rank, world,
+                        [(cfg, by_model[r % MESH_SHAPE[1]], _host_shared(batch),
+                          _host_shared(short), lm["prompts"], r == 0) for r in range(world)],
+                        device="cuda", timeout=MESH_TIMEOUT, threads=2)
+    times["olmo_ranks_s"] = time.perf_counter() - t0
+    del by_model
+
+    # ------------------------------------------------------------ gates ---
+    V = cfg.vocab
+    for r in ranks:
+        got = r["logits"]
+        if len(got) != len(single) or any(g.shape != (MESH_PREFILL[0], V) for g in got):
+            raise AssertionError(f"rank {r['rank']}: logits {[g.shape for g in got]}")
+        for i, (g, w) in enumerate(zip(got, single)):
+            if not np.array_equal(g, w):
+                raise AssertionError(f"rank {r['rank']} step {i}: mesh logits differ from one "
+                                     f"device's, max |diff| {float(np.abs(g - w).max())}")
+        for i, (g, w) in enumerate(zip(r["short_coo"], r["short_policy"])):
+            if not np.array_equal(g, w):
+                raise AssertionError(f"rank {r['rank']} short step {i}: forced coo differs "
+                                     f"from the policy's, max |diff| {float(np.abs(g - w).max())}")
+        if r["tokens"] != lm["tokens"]:
+            raise AssertionError(f"rank {r['rank']}: mesh engine tokens differ from lm_serve's")
+        for site, d in r["last"].items():
+            if d["impl"] not in ("fused", "fused_stream", "fused_prefetch") or \
+                    not d["reason"].startswith("spmd_local_") or d["shards"] != world:
+                raise AssertionError(f"rank {r['rank']} {site}: decision {d['impl']} "
+                                     f"{d['reason']} shards {d['shards']}")
+        if not any(s == "lm.w2.spmd" and i == "coo" and reason == "config_override"
+                   for s, i, reason, _ in r["decisions"]):
+            raise AssertionError(f"rank {r['rank']}: no config_override coo at lm.w2.spmd")
+        want_shapes = [(L, B // MESH_SHAPE[0], S_, H // MESH_SHAPE[1], hd)
+                       for (L, B, S_, H, hd) in single_shapes]
+        if r["cache_shapes"] != want_shapes:
+            raise AssertionError(f"rank {r['rank']}: caches {r['cache_shapes']} != {want_shapes}")
+        lc = r["launches"]
+        if lc["phi_fused_stream_cuda"] <= 0 or lc["lif_sequence_cuda"] <= 0 or \
+                lc["flash_attention_cuda"] != cfg.n_layers:
+            raise AssertionError(f"rank {r['rank']}: launches {lc}")
+    if float(np.std(single[0])) == 0 or not np.isfinite(single[0]).all():
+        raise AssertionError("mesh_serve: constant or non-finite prefill logits")
+    checks = ranks[0]["checks"]
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+
+    # ----------------------------------------------- Arctic MoE, EP over 4 ---
+    mcfg = get_config(MOE_ARCH).with_(capacity_factor=MOE_CF)
+    del lm["params"], params
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    p = _moe_experts(mcfg, dev, 0, mcfg.n_experts)
+    p["router"], x = _moe_inputs(mcfg, dev)
+    torch.cuda.synchronize()
+    times["moe_init_s"] = time.perf_counter() - t0
+    expert_bytes = sum(t.numel() * t.element_size() for k, t in p.items() if k != "router")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dense = moe.moe_dense(mcfg, p, x)
+        torch.cuda.synchronize()
+        dense_ms = (time.perf_counter() - t0) * 1e3
+        dense = dense.to(torch.float32).cpu().numpy()
+    dense_peak = torch.cuda.max_memory_allocated()
+    router, x = p["router"].cpu(), x.cpu()
+    del p
+    torch.cuda.empty_cache()
+    tp = MOE_MESH[1]
+    t0 = time.perf_counter()
+    moe_ranks = spawn_ranks(mesh_moe_rank, tp, [(mcfg, router, x)] * tp, device="cuda",
+                            timeout=MESH_TIMEOUT, threads=2)
+    times["moe_ranks_s"] = time.perf_counter() - t0
+    ulp = _bf16_ulp(float(np.abs(dense).max()))
+    mean_ulp = _bf16_ulp(float(np.abs(dense).mean()))
+    moe_err = {}
+    for r in moe_ranks:
+        y = r["y"]
+        if y.shape != dense.shape or not np.isfinite(y).all():
+            raise AssertionError(f"moe rank {r['rank']}: output {y.shape} not finite/{dense.shape}")
+        if r["stats"]["dropped"] != 0:
+            raise AssertionError(f"moe rank {r['rank']}: {r['stats']['dropped']} choices dropped")
+        diff = np.abs(y - dense)
+        moe_err[r["rank"]] = {"max_abs_err": float(diff.max()), "mean_abs_err": float(diff.mean()),
+                              "differing_share": float((diff > 0).mean())}
+        if diff.max() > MOE_ULPS * ulp or diff.mean() > mean_ulp:
+            raise AssertionError(f"moe rank {r['rank']}: EP vs dense max |diff| {diff.max()} "
+                                 f"(> {MOE_ULPS * ulp}?) mean {diff.mean()} (> {mean_ulp}?)")
+        if not np.array_equal(y, moe_ranks[0]["y"]):
+            raise AssertionError(f"moe rank {r['rank']}: output differs from rank 0's")
+
+    def rank_row(r):
+        return {"rank": r["rank"], "coords": r["coords"], "backend": r["backend"],
+                "transport": r["transport"], "collectives": r["collectives"],
+                "times_ms": r["times_ms"], "engine_ticks": r["engine_ticks"],
+                "decoded_tokens": r["decoded_tokens"],
+                "max_memory_allocated": r["max_memory_allocated"], "launches": r["launches"]}
+
+    emit({"phase": "mesh_serve", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "note": "ranks are processes sharing one card: their times include each other's work",
+          "olmo": {"arch": LM_ARCH, "n_layers": cfg.n_layers, "mesh": dict(zip(axes, MESH_SHAPE)),
+                   "prefill": MESH_PREFILL, "decode_steps": MESH_DECODE_STEPS,
+                   "short": MESH_SHORT, "coo_steps": MESH_COO_STEPS,
+                   "full_param_bytes": full_bytes, "shard_bytes_by_model_index": shard_bytes,
+                   "single_device_ms": single_ms, "ranks": [rank_row(r) for r in ranks],
+                   "decisions_rank0": ranks[0]["decisions"],
+                   "last_decisions_rank0": {s: {k: v for k, v in d.items()
+                                                if k != "runtime_sets"}
+                                            for s, d in ranks[0]["last"].items()},
+                   "checks_rank0": checks,
+                   "gates": {"prefill_and_decode_bitwise_one_device": True,
+                             "forced_coo_bitwise_policy": True,
+                             "engine_tokens_equal_lm_serve": True,
+                             "w1_w2_spmd_local_fused_shards": world}},
+          "moe": {"arch": MOE_ARCH, "mesh": dict(zip(axes, MOE_MESH)),
+                  "d_model": mcfg.d_model, "d_ff": mcfg.d_ff, "experts": mcfg.n_experts,
+                  "top_k": mcfg.top_k, "tokens": MOE_TOKENS, "capacity_factor": MOE_CF,
+                  "capacity": moe_ranks[0]["stats"]["capacity"],
+                  "dropped": [r["stats"]["dropped"] for r in moe_ranks],
+                  "expert_bytes": expert_bytes, "dense_ms": dense_ms,
+                  "dense_peak_memory": dense_peak, "tolerance_ulps": MOE_ULPS,
+                  "bf16_ulp_at_max": ulp, "errors": moe_err,
+                  "ranks": [{k: r[k] for k in ("rank", "ms", "collectives", "transport",
+                                               "backend", "max_memory_allocated")}
+                            for r in moe_ranks]},
+          "stages_s": times, "seconds": time.perf_counter() - t_phase})
+    return {"launches": launches, "lif_err": checks["lif_max_abs_err"],
+            "attn_err": checks["attention"]["max_abs_err"]}
 
 
 # The hybrid serving path: Zamba2-1.2B (src/repro_torch/configs/zamba2_1p2b.py)
@@ -2927,13 +3451,15 @@ def main() -> int:
 
     # ------------------------------------------------------ LM serving ---
     lm = lm_serve_phase(dev, smi)
+    mesh = mesh_serve_phase(dev, smi, lm)
     hyb = hybrid_serve_phase(dev, smi)
 
     # ------------------------------------------------------ LM training ---
     lm_tr = lm_train_phase(dev, smi)
     later = {"accel_sim": accel["launches"], "train": trained["launches"],
              "paft": paft_run["launches"], "spikformer_train": spk_train["launches"],
-             "lm": lm["launches"], "hybrid": hyb["launches"], "lm_train": lm_tr["launches"]}
+             "lm": lm["launches"], "mesh_serve": mesh["launches"], "hybrid": hyb["launches"],
+             "lm_train": lm_tr["launches"]}
 
     # ------------------------------------------------------------ summary ---
     # Times are per batch of the main paths: the sum over the calls one
@@ -2972,8 +3498,8 @@ def main() -> int:
          "launches": launches["lif_sequence_cuda"] + spk_launches["lif_sequence_cuda"],
          "launches_by_path": {"vgg": launches["lif_sequence_cuda"],
                               "spikformer": spk_launches["lif_sequence_cuda"]},
-         "max_abs_err": max(lif_err, spk["lif_err"], lm["lif_err"], hyb["lif_err"],
-                            lm_tr["lif_err"]),
+         "max_abs_err": max(lif_err, spk["lif_err"], lm["lif_err"], mesh["lif_err"],
+                            hyb["lif_err"], lm_tr["lif_err"]),
          "ms": sum(r["ms"] for r in all_lif), "device_ms": device_sum(all_lif),
          "plain_ms": sum(r["plain_ms"] for r in all_lif),
          "bound_ms": lif_bound, "bound_by": lif_by, "library_ms": None},
@@ -2999,6 +3525,7 @@ def main() -> int:
                                      for path in ("spikformer_train", "lm_train"))
     attn["dense_instantiation_launches"] += sum(c["flash_attention_cuda"] for c in later.values())
     attn["lm_dense_max_abs_err"] = lm["attn_err"]
+    attn["mesh_dense_max_abs_err"] = mesh["attn_err"]
     attn["hybrid_dense_max_abs_err"] = hyb["attn_err"]
     attn["lm_train_dense_max_abs_err"] = lm_tr["attn_err"]
     emit({"kernels": entries})

@@ -16,9 +16,20 @@ site's calibration usage: ``fused_prefetch`` where the usage is skewed,
 ``fused_stream`` where the K loop is long, ``fused`` elsewhere, ``coo``
 where no kernel takes the bank (on the CPU; on the card that row, and a
 forced kernel demoted by it, raises). The reference's launch-cost row is a TPU
-cost model it applies only on the TPU; no launch-cost row applies here
-until it is re-derived for the H100. The SPMD rows wait for the
-multi-device port.
+cost model it applies only on the TPU; no launch-cost row applies here, on
+one device or in an SPMD body, until it is re-derived for the H100.
+
+SPMD rows. Under a mesh (``sharding.use_rules(rules, mesh)``) or an explicit
+:func:`spmd_region`, a call is in an SPMD region. The reference tells a
+``shard_map`` body, whose operands are each device's local shards, from a
+``pjit``-traced region by JAX's axis environment; the port marks the body
+with :func:`spmd_body`, which carries the number of ranks cooperating on the
+call (the reference's axis-env product). In a body the rows re-gate the
+kernels on the local shape (``spmd_local_*``) and every decision records
+``shards``; outside one, a kernel lowering is demoted to ``coo``
+(``spmd_region``, ``spmd_region_demotes_*``), as the reference's partitioner
+cannot split a kernel call. On the card, ``spmd_local_vmem_gate`` raises as
+``fused_vmem_gate`` does.
 
 The backend is the operands' device. On ``cuda`` the rows resolve to the
 hand-written kernels (reason suffix ``_native``) and a bank or shape a
@@ -44,6 +55,7 @@ the pre-pass.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import math
@@ -92,6 +104,54 @@ class Decision:
     # from the site's aggregated match histogram; the kernel then skips the
     # stripe_active_sets pre-pass. None = pre-pass.
     runtime_sets: Any = None
+    # SPMD body: the ranks cooperating on this call (``shape`` is each rank's
+    # local problem); None outside one.
+    shards: int | None = None
+
+
+_tls = threading.local()
+
+
+@contextlib.contextmanager
+def spmd_region():
+    """Mark a dynamic extent as SPMD (the step builders wrap their calls with
+    this, beside the mesh that ``use_rules`` sets)."""
+    prev = getattr(_tls, "spmd", 0)
+    _tls.spmd = prev + 1
+    try:
+        yield
+    finally:
+        _tls.spmd = prev
+
+
+@contextlib.contextmanager
+def spmd_body(shards: int):
+    """Mark a per-rank body: the calls inside run on one rank's local shards
+    of a GEMM that ``shards`` ranks share (the reference's ``shard_map`` body
+    and its axis environment)."""
+    prev = getattr(_tls, "body", None)
+    _tls.body = int(shards)
+    try:
+        yield
+    finally:
+        _tls.body = prev
+
+
+def in_spmd_body() -> bool:
+    """True inside :func:`spmd_body`."""
+    return getattr(_tls, "body", None) is not None
+
+
+def _body_shards() -> int | None:
+    return getattr(_tls, "body", None)
+
+
+def in_spmd_region() -> bool:
+    """True in an SPMD region: an explicit :func:`spmd_region`, an active
+    mesh (``sharding.use_rules``), or a per-rank body."""
+    from repro_torch.distributed.sharding import current_mesh
+
+    return bool(getattr(_tls, "spmd", 0)) or current_mesh() is not None or in_spmd_body()
 
 
 def _skew(usage: Any) -> tuple[int | None, float]:
@@ -130,6 +190,8 @@ class PhiExecutionPolicy:
         self._call_skew: dict[str, tuple[Any, int | None, float]] = {}
         # site -> (runtime sets, the same on the card), copied once per change
         self._sets_on_device: dict[str, tuple[np.ndarray, torch.Tensor]] = {}
+        # (site, shards) -> the registered usage's per-shard view
+        self._shard_usage: dict[tuple[str, int], Any] = {}
 
     # --------------------------------------------------------------- usage --
     def register_usage(self, site: str, usage: Any) -> None:
@@ -145,11 +207,26 @@ class PhiExecutionPolicy:
         skew = _skew(u)
         with self._lock:
             self._usage_skew[site] = skew
+            self._shard_usage = {k: v for k, v in self._shard_usage.items() if k[0] != site}
 
     def usage_for(self, site: str) -> np.ndarray | None:
         """The calibration usage registered for ``site``, or None."""
         with self._lock:
             return self._usage.get(site)
+
+    def shard_usage_for(self, site: str, shards: int) -> np.ndarray | None:
+        """:func:`shard_usage_histogram` of ``site``'s registered usage,
+        computed once per registration (the same object every call, so its
+        skew is computed once too)."""
+        key = (site, shards)
+        with self._lock:
+            if key in self._shard_usage:
+                return self._shard_usage[key]
+            usage = self._usage.get(site)
+        view = shard_usage_histogram(usage, shards)
+        with self._lock:
+            self._shard_usage[key] = view
+        return view
 
     def _skew_for(self, site: str, usage: Any) -> tuple[int | None, float]:
         if usage is None:
@@ -165,8 +242,8 @@ class PhiExecutionPolicy:
         return p_active, ratio
 
     def runtime_shards_for(self, site: str) -> int:
-        """Mesh extent recorded for ``site``'s runtime counters (1: the port
-        runs on one device)."""
+        """Mesh extent recorded for ``site``'s runtime counters (1 when the
+        site has only executed outside a per-rank body, or not at all)."""
         self._flush(site)
         with self._lock:
             return int(self._sites.get(site, {}).get("shards", 1))
@@ -249,6 +326,11 @@ class PhiExecutionPolicy:
                                  f"expected one of {IMPLS}")
         backend = torch.device(device).type
         shape = (m, k_dim, n, t, q)
+        spmd = in_spmd_region()
+        # A per-rank body runs the kernels on its local shards, so they stay
+        # executable and (m, k_dim, n, t) is the local shape to gate on.
+        spmd_local = spmd and not transform and in_spmd_body()
+        shards = _body_shards() if spmd_local else None
         if p_active is None:
             p_active, usage_ratio = self._skew_for(site, usage)
         else:
@@ -259,7 +341,9 @@ class PhiExecutionPolicy:
                           if o is not None), (None, None))
         mode = "native" if backend == "cuda" else "interpret"
         if ov is not None:
-            if transform and ov in _PALLAS_IMPLS:
+            if spmd and not spmd_local and ov in _PALLAS_IMPLS:
+                d = Decision("coo", f"spmd_region_demotes_{ov}", site, shape, backend)
+            elif transform and ov in _PALLAS_IMPLS:
                 d = Decision("coo", f"autodiff_demotes_{ov}", site, shape, backend)
             elif ov == "fused_prefetch":
                 gate = ops.fused_shape_viable(m, k_dim, n, t, q, p_active=p_active)
@@ -286,6 +370,22 @@ class PhiExecutionPolicy:
                     d = Decision(ov, f"{which}_override", site, shape, backend)  # also runs
             else:
                 d = Decision(ov, f"{which}_override", site, shape, backend)
+        elif spmd and not spmd_local:
+            d = Decision("coo", "spmd_region", site, shape, backend)
+        elif spmd:
+            # Re-gate on the rank's local shape: the fused dataflow wherever a
+            # kernel takes it, "coo" only where none does.
+            gate = ops.fused_shape_viable(m, k_dim, n, t, q, p_active=p_active)
+            if gate == "coo":
+                d = Decision("coo", "spmd_local_vmem_gate", site, shape, backend)
+            elif gate == "fused_prefetch":
+                d = Decision("fused_prefetch", f"spmd_local_prefetch_{mode}", site, shape,
+                             backend)
+            elif gate == "fused_stream":
+                d = Decision("fused_stream", f"spmd_local_k_stream_{mode}", site, shape,
+                             backend)
+            else:
+                d = Decision("fused", f"spmd_local_fused_{mode}", site, shape, backend)
         elif transform:
             d = Decision("coo", "autodiff_or_vmap", site, shape, backend)
         else:
@@ -301,7 +401,8 @@ class PhiExecutionPolicy:
             else:
                 d = Decision("fused", f"single_device_default_{mode}", site, shape, backend)
         if backend == "cuda" and d.impl == "coo" and (
-                d.reason == "fused_vmem_gate" or d.reason.startswith("vmem_gate_demotes_")):
+                d.reason in ("fused_vmem_gate", "spmd_local_vmem_gate")
+                or d.reason.startswith("vmem_gate_demotes_")):
             # The reference's row runs its XLA lowering here; on the card the
             # kernels are the only lowerings of this row, and they refuse.
             raise ValueError(
@@ -326,6 +427,10 @@ class PhiExecutionPolicy:
             if rt_hist is not None and d.p_active and rt_hist.shape == (t, q + 1):
                 d = dataclasses.replace(d, runtime_sets=top_p_sets(rt_hist, d.p_active),
                                         reason=d.reason + "_runtime_sets")
+        if shards is not None:
+            # ``shape`` is the local problem: every decision in a body carries
+            # the ranks cooperating on it (overrides included)
+            d = dataclasses.replace(d, shards=shards)
         self._record_decision(d)
         return d
 
@@ -358,6 +463,9 @@ class PhiExecutionPolicy:
         # Only the kernel on the card is native; on the CPU the plain
         # lowering runs, as the reference's XLA lowering does off the TPU.
         mode = "native" if backend == "cuda" else "xla"
+        spmd = in_spmd_region()
+        spmd_local = spmd and not transform and in_spmd_body()
+        shards = _body_shards() if spmd_local else None
         ov, which = next(((o, lbl) for o, lbl in ((override, "call"),
                                                   (config_override, "config"))
                           if o is not None), (None, None))
@@ -377,6 +485,8 @@ class PhiExecutionPolicy:
                 dec = Decision("flash", "autodiff_demotes_phi_flash", site, shape, backend)
             elif not has_patterns:
                 dec = Decision("flash", "no_patterns_demotes_phi_flash", site, shape, backend)
+            elif spmd and not spmd_local:
+                dec = Decision("phi_flash", "spmd_region_phi_flash_xla", site, shape, backend)
             elif not viable:
                 dec = Decision("phi_flash", "vmem_gate_phi_flash_xla", site, shape, backend)
             else:
@@ -387,12 +497,22 @@ class PhiExecutionPolicy:
             dec = Decision("flash", "dense_qk_keeps_flash", site, shape, backend)
         elif not has_patterns:
             dec = Decision("flash", "no_patterns_keeps_flash", site, shape, backend)
+        elif spmd and not spmd_local:
+            dec = Decision("phi_flash", "spmd_region_phi_flash_xla", site, shape, backend)
+        elif spmd_local:
+            if viable:
+                dec = Decision("phi_flash", f"spmd_local_phi_flash_{mode}", site, shape, backend)
+            else:
+                dec = Decision("phi_flash", "spmd_local_vmem_phi_flash_xla", site, shape,
+                               backend)
         elif not viable:
             # the bank or every block pair exceeds what the kernel takes
             dec = Decision("phi_flash", "vmem_gate_phi_flash_xla", site, shape, backend)
         else:
             dec = Decision("phi_flash", f"spike_qk_phi_flash_{mode}", site, shape, backend)
         dec = dataclasses.replace(dec, blocks=ops.autotune_attn_blocks(s, d, t, q, kp))
+        if shards is not None:
+            dec = dataclasses.replace(dec, shards=shards)
         self._record_decision(dec)
         return dec
 
@@ -434,7 +554,8 @@ class PhiExecutionPolicy:
         if tracer is not None:
             tracer.emit("dispatch", site=d.site, impl=d.impl, reason=d.reason,
                         shape=[int(x) for x in d.shape],
-                        blocks=None if d.blocks is None else [int(b) for b in d.blocks])
+                        blocks=None if d.blocks is None else [int(b) for b in d.blocks],
+                        shards=d.shards)
         if first:
             log.info("phi dispatch: %s -> %s (%s, M=%d K=%d N=%d)",
                      d.site, d.impl, d.reason, *d.shape[:3])
@@ -486,8 +607,10 @@ class PhiExecutionPolicy:
             out, nnz = ops.phi_fused_prefetch(a, patterns, pwp, w, p_active=d.p_active,
                                               pwp_scale=pwp_scale, block_m=bm, packed=packed)
         if self.telemetry:
+            # in a body each rank counts its own local executions; ``shards``
+            # labels the site with the ranks they came from
             self._accumulate(site, ops.effective_block_m(M, bm), K, M, nnz, group_t,
-                             d.usage_ratio, hist)
+                             d.usage_ratio, hist, d.shards)
         return out
 
     def _sets_on(self, site: str, sets: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -503,7 +626,8 @@ class PhiExecutionPolicy:
         return dev_sets
 
     def _accumulate(self, site: str, block_m: int, k_dim: int, rows: int, nnz: torch.Tensor,
-                    group_t: int, usage_ratio: float | None, hist: torch.Tensor | None) -> None:
+                    group_t: int, usage_ratio: float | None, hist: torch.Tensor | None,
+                    shards: int | None = None) -> None:
         """Add one fused-kernel execution to the site's accumulators: the
         counts on the host, the ``l2_nnz`` sum and peak and the match
         histogram on the device, with no copy to the host. A site that ran on
@@ -524,7 +648,8 @@ class PhiExecutionPolicy:
             if nnz.numel():
                 acc["nnz_total"].add_(nnz.sum(dtype=torch.int64))
                 torch.maximum(acc["nnz_max"], nnz.max(), out=acc["nnz_max"])
-            acc.update(block_m=block_m, k_dim=k_dim, group_t=group_t, usage_ratio=usage_ratio)
+            acc.update(block_m=block_m, k_dim=k_dim, group_t=group_t, usage_ratio=usage_ratio,
+                       shards=shards)
             if hist is not None:
                 h, prev = hist.to(torch.int64), acc["hist"]
                 acc["hist"] = h if prev is None or prev.shape != h.shape else prev + h
@@ -543,7 +668,8 @@ class PhiExecutionPolicy:
             host = torch.cat(parts).cpu().numpy()
             hist = None if acc["hist"] is None else host[2:].reshape(acc["hist"].shape)
             self._fold(s, acc["executions"], acc["rows"], int(host[0]), int(host[1]),
-                       acc["block_m"], acc["k_dim"], acc["group_t"], acc["usage_ratio"], hist)
+                       acc["block_m"], acc["k_dim"], acc["group_t"], acc["usage_ratio"], hist,
+                       acc["shards"])
 
     def _record_nnz(self, site: str, block_m: int, k_dim: int, rows: int, nnz: Any,
                     group_t: int = 0, usage_ratio: float | None = None,
@@ -638,9 +764,31 @@ class PhiExecutionPolicy:
             self._sets_on_device.clear()
             if not keep_usage:
                 self._usage.clear()
+                self._shard_usage.clear()
                 self._usage_skew.clear()
                 self._call_skew.clear()
         self.metrics.reset()
+
+
+# ------------------------------------------------------ per-shard usage ------
+def shard_usage_histogram(usage: Any, shards: int) -> np.ndarray | None:
+    """Per-shard view of a (T, q+1) pattern-usage histogram for a call whose
+    K axis is split ``shards``-ways (row-parallel).
+
+    Shard ``i`` owns histogram rows ``[i·T/shards, (i+1)·T/shards)``; every
+    rank gets the element-wise max over the shard slices, as the reference's
+    body, traced once for all shards, does: a pattern hot in any shard stays
+    inside the prefetch gather sizing, and every rank resolves the same
+    decision (exactness never depends on the set choice). Column-parallel
+    calls replicate the bank: ``shards=1`` (identity). None where T does not
+    divide (the divisibility fallback replicated the weight)."""
+    if usage is None or shards <= 1:
+        return usage
+    u = np.asarray(usage)
+    t = u.shape[0]
+    if t % shards:
+        return None
+    return u.reshape(shards, t // shards, u.shape[1]).max(axis=0)
 
 
 # ---------------------------------------------------------- default policy ---

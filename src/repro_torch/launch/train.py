@@ -42,8 +42,10 @@ def train_loop(cfg, ocfg, *, steps: int, global_batch: int, seq: int,
     """Train ``cfg`` for ``steps`` steps (counting those a checkpoint in
     ``ckpt_dir`` already holds). Returns (params, losses of the steps run)."""
     if mesh is not None:
-        raise NotImplementedError("repro_torch.launch.train runs on one device; the "
-                                  "multi-device port has not landed")
+        raise NotImplementedError(
+            "repro_torch.launch.train runs on one device; training on a mesh "
+            "(make_train_step's mesh half, grad_compress, the pipeline, elastic restore: "
+            "ROADMAP.md queue 1 item 3b) is not ported yet")
     device = resolve_device(device)
     # Observability: step counters/histograms land in the caller's registry;
     # the process tracer (if installed via --trace-out) gets one "train_step"

@@ -15,8 +15,16 @@ tiles the kernel refuses at head dim 128, and the blocks only tile the same
 online softmax. The kernel takes float32 q/k/v, so bf16 operands are widened
 around it (the reference computes the scores in float32 too) and the
 output is cast back.
+
+On a mesh a rank holds a block of the batch rows and the heads. The kernel
+sums each (row, head) alone, but the library contractions of the other
+paths sum in an order that depends on their batch and head counts, so a
+rank runs those inside one device's call shape (``block``,
+:func:`one_device_call`) and gets one device's bits.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -77,6 +85,39 @@ def _repeat_kv(k: torch.Tensor, rep: int) -> torch.Tensor:
         return k
     b, s, h, d = k.shape
     return k[:, :, :, None].expand(b, s, h, rep, d).reshape(b, s, h * rep, d)
+
+
+def one_device_call(fn, block: tuple | None, q: torch.Tensor, *kv: torch.Tensor,
+                    pos: torch.Tensor | None = None) -> torch.Tensor:
+    """``fn(q, *kv[, pos])`` for this rank's block of one device's call.
+
+    ``block`` is (rows, row0, heads, head0): the global batch rows and Q
+    heads, and the first of this rank's (None: the call is one device's).
+    q (b, S, hq, D) and each of ``kv`` (b, S', h, D) are written into zeros
+    of the global shape (``kv``'s heads scaled by h / hq), ``pos`` (b,) into
+    zeros of (rows,); the call is made and this rank's block of its
+    (rows, S, heads, D) output returned. Every output entry depends on its
+    own row and head alone, so the zeros change no bit of the block; they
+    cost the rest of one device's work.
+    """
+    args = [q, *kv] + ([] if pos is None else [pos])
+    if block is None or (q.shape[0], q.shape[2]) == (block[0], block[2]):
+        return fn(*args)
+    rows, row0, heads, head0 = block
+    b, hq = q.shape[0], q.shape[2]
+
+    def place(x: torch.Tensor) -> torch.Tensor:
+        h, h0 = x.shape[2] * heads // hq, x.shape[2] * head0 // hq
+        full = x.new_zeros((rows, x.shape[1], h, x.shape[3]))
+        full[row0:row0 + b, :, h0:h0 + x.shape[2]] = x
+        return full
+
+    args = [place(x) for x in (q, *kv)]
+    if pos is not None:
+        full_pos = pos.new_zeros((rows,))
+        full_pos[row0:row0 + b] = pos
+        args.append(full_pos)
+    return fn(*args)[row0:row0 + b, :, head0:head0 + hq]
 
 
 def _softmax_rows(s: torch.Tensor) -> torch.Tensor:
@@ -181,8 +222,10 @@ def chunked_local_attention(q, k, v, chunk: int):
     return out.transpose(0, 1).reshape(B, S, H, D)
 
 
-def attention_prefill(cfg: ModelConfig, layer_idx, q, k, v, *, layer_global: bool):
-    """Dispatch by attention type and sequence length. q/k/v (B,S,H*,D)."""
+def attention_prefill(cfg: ModelConfig, layer_idx, q, k, v, *, layer_global: bool,
+                      block: tuple | None = None):
+    """Dispatch by attention type and sequence length. q/k/v (B,S,H*,D);
+    ``block``: this rank's block of one device's call (:func:`one_device_call`)."""
     from repro_torch.kernels import dispatch
     from repro_torch.models import flash as flash_mod
 
@@ -193,34 +236,40 @@ def attention_prefill(cfg: ModelConfig, layer_idx, q, k, v, *, layer_global: boo
     chunk = (cfg.chunk if (cfg.attn_type == "chunked_interleaved" and not layer_global)
              else None)
     if S <= 1024:  # small sequences: materialised scores are cheapest
-        if chunk is not None:
-            return chunked_local_attention(q, k, v, chunk)
-        return attention_dense(q, k, v, causal=True, window=window)
-    if window is not None and S > 8192:
+        run = (functools.partial(chunked_local_attention, chunk=chunk) if chunk is not None
+               else functools.partial(attention_dense, causal=True, window=window))
+    elif window is not None and S > 8192:
         # long SWA prefill (inference-only shapes): banded O(S·W) forward
-        return flash_attention(q, k, v, window=window,
-                               block_q=min(512, S), block_kv=min(1024, S))
-    if cfg.attn_impl == "naive":
-        if chunk is not None:
-            return chunked_local_attention(q, k, v, chunk)
-        return flash_attention(q, k, v, causal=True, window=window,
-                               block_q=min(512, S), block_kv=min(1024, S))
-    # The flash branch goes through the execution policy: dense LM Q/K are
-    # not spikes, so the site records ``dense_qk_keeps_flash``, or
-    # ``autodiff_keeps_flash`` where a backward will run through q, k, v
-    # (the reference's ``autodiff_region`` of its train step); the decision
-    # carries the attention kernel's blocks for this shape.
-    B, _, H, D = q.shape
-    dec = dispatch.get_policy().resolve_attention(
-        site="lm.attn_prefill", s=S, d=D, heads=H, batch=B,
-        spike_qk=False, has_patterns=False, transform=flash_mod.under_autograd(q, k, v),
-        device=q.device)
-    bq, bkv = dec.blocks
-    f32 = [x.to(torch.float32) for x in (q, k, v)]
-    return flash_mod.flash_attention(*f32, True, window, chunk, bq, bkv).to(q.dtype)
+        run = functools.partial(flash_attention, window=window, block_q=min(512, S),
+                                block_kv=min(1024, S))
+    elif cfg.attn_impl == "naive":
+        run = (functools.partial(chunked_local_attention, chunk=chunk) if chunk is not None
+               else functools.partial(flash_attention, causal=True, window=window,
+                                      block_q=min(512, S), block_kv=min(1024, S)))
+    else:
+        # The flash branch goes through the execution policy: dense LM Q/K
+        # are not spikes, so the site records ``dense_qk_keeps_flash``, or
+        # ``autodiff_keeps_flash`` where a backward will run through q, k, v
+        # (the reference's ``autodiff_region`` of its train step); the
+        # decision carries the attention kernel's blocks for this shape.
+        B, _, H, D = q.shape
+        dec = dispatch.get_policy().resolve_attention(
+            site="lm.attn_prefill", s=S, d=D, heads=H, batch=B,
+            spike_qk=False, has_patterns=False, transform=flash_mod.under_autograd(q, k, v),
+            device=q.device)
+        bq, bkv = dec.blocks
+
+        def run(*qkv):
+            f32 = [x.to(torch.float32) for x in qkv]
+            return flash_mod.flash_attention(*f32, True, window, chunk, bq, bkv).to(q.dtype)
+
+        if q.device.type == "cuda":
+            block = None      # the kernel sums each (row, head) alone; its plain version not
+    return one_device_call(run, block, q, k, v)
 
 
-def attention_decode(q, k_cache, v_cache, pos, *, mode: str = "full"):
+def attention_decode(q, k_cache, v_cache, pos, *, mode: str = "full",
+                     block: tuple | None = None):
     """One-token decode. q (B,1,H,D); caches (B,Smax,Hkv,D); pos (B,) int.
 
     mode:
@@ -231,7 +280,12 @@ def attention_decode(q, k_cache, v_cache, pos, *, mode: str = "full"):
                      slot s holds the latest position ≡ s (mod chunk); the
                      slots belonging to the current chunk are exactly
                      s ≤ pos mod chunk.
+
+    ``block``: this rank's block of one device's call (:func:`one_device_call`).
     """
+    if block is not None:
+        return one_device_call(functools.partial(attention_decode, mode=mode), block,
+                               q, k_cache, v_cache, pos=pos)
     rep = q.shape[2] // k_cache.shape[2]
     k = _repeat_kv(k_cache, rep)
     v = _repeat_kv(v_cache, rep)

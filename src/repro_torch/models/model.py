@@ -27,12 +27,29 @@ spiking-dense arm can run the same serving path.
 Every family of the ten configs runs: the attention families (dense,
 sliding-window, chunked-local/global), the patch and frame frontends (stub
 embeddings, as in the reference), Mamba-2 (``ssm``), the Zamba2 hybrid and
-MoE layers. Single device: ``_phi_sharded_matmul`` keeps only its
-single-device branch and MoE only its dense branch; ``moe_impl="ep"`` raises
-(both wait for ``ROADMAP.md`` queue 1's multi-device item).
+MoE layers.
+
+On a mesh (``sharding.use_rules(rules, mesh)``), the attention families
+serve from per-rank shards (``param_shardings``; ``sharding.place`` cuts
+them): the entry points take the global batch, run this rank's rows (the
+``batch`` axis; a batch it does not divide is replicated) on its heads and
+its slice of ``d_ff``, and return the logits gathered over both. Collectives
+stand where the reference's ``pjit`` and ``shard_map`` put them: the
+row-parallel GEMMs (``wo``, ``w2``) sum their partial products over
+``model`` in float32, the vocab-parallel embedding lookup is masked and
+summed, and the vocab-parallel head's logits are gathered. Each Phi GEMM
+runs ``dispatch.phi_matmul`` on the rank's local spikes and shards in a
+per-rank body (site ``lm.{name}.spmd``), so the policy re-gates on the
+local shape. On dyadic weights every partial sum is exact. The library
+contractions (materialised attention, the head) sum in an order that
+depends on their shapes, so a rank makes one device's call with zeros in
+place of the other ranks' rows, heads and vocab (``layers.one_device_call``,
+:func:`_logits`): the mesh's logits equal one device's bitwise. Mamba-2 and
+the hybrid run on one device only.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any
 
@@ -42,7 +59,10 @@ import torch.nn.functional as F
 
 from repro_torch.core.assign import PhiStats
 from repro_torch.core.patterns import PhiConfig
-from repro_torch.distributed.sharding import ParamSpec, is_spec, shard
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.sharding import (
+    ParamSpec, axis_names_of, axis_size, current_mesh, current_rules, is_spec, resolve_spec,
+    shard, specs_to_shardings, use_batch_rows)
 from repro_torch.kernels import dispatch
 from repro_torch.models import layers as ll
 from repro_torch.models import transformer
@@ -162,20 +182,190 @@ def rate_code(x: torch.Tensor, timesteps: int, lif: LIFConfig) -> torch.Tensor:
     return lif_sequence(xf.unsqueeze(0).expand(timesteps, *xf.shape), lif)
 
 
+# Logical (K, N) axes of every Phi-eligible weight, as the reference's table.
+_WEIGHT_AXES = {
+    "wq": ("fsdp", "heads"), "wk": ("fsdp", "kv_heads"), "wv": ("fsdp", "kv_heads"),
+    "wo": ("heads", "fsdp"), "w1": ("fsdp", "mlp"), "w3": ("fsdp", "mlp"),
+    "w2": ("mlp", "fsdp"), "wz": ("fsdp", "heads"), "wx": ("fsdp", "heads"),
+    "wB": ("fsdp", "state"), "wC": ("fsdp", "state"), "wdt": ("fsdp", "heads"),
+}
+
+
+def _gemm_spec_axes(shape: tuple, logical: tuple, mesh, rules) -> tuple:
+    """(k_ax, n_ax) of a GEMM weight of global ``shape`` (..., K, N) whose
+    logical (K, N) axes are ``logical``, by the reference's rule: each axis
+    resolved alone and replicated where it does not divide its dim; an axis
+    that reuses a mesh axis of the batch's, or N one of K's, is dropped (a
+    placement uses each mesh axis once; the placements assume a batch the
+    ``batch`` axes divide)."""
+    def ax(lg, dim):
+        p = resolve_spec((lg,), rules, mesh)
+        a = p[0] if p else None
+        return a if a is not None and dim % axis_size(mesh, a) == 0 else None
+
+    bd = resolve_spec(("batch",), rules, mesh)
+    bd = set(axis_names_of(bd[0] if bd else None))
+    k_ax, n_ax = ax(logical[0], shape[-2]), ax(logical[1], shape[-1])
+    if set(axis_names_of(k_ax)) & bd:
+        k_ax = None
+    if set(axis_names_of(n_ax)) & (bd | set(axis_names_of(k_ax))):
+        n_ax = None
+    return k_ax, n_ax
+
+
+def _gemm_weights(specs: Any):
+    """(node, name, spec) of every GEMM weight named in _WEIGHT_AXES: 2-D or
+    stacked on a leading ``layers`` axis."""
+    for k, v in specs.items():
+        if isinstance(v, dict):
+            yield from _gemm_weights(v)
+        elif k in _WEIGHT_AXES and _is_gemm_weight(v):
+            yield specs, k, v
+
+
+def _is_gemm_weight(spec: ParamSpec) -> bool:
+    return len(spec.shape) == 2 or (len(spec.shape) == 3 and spec.axes[0] == "layers")
+
+
+def _lead(spec: ParamSpec, mesh, rules) -> tuple:
+    return tuple((resolve_spec((a,), rules, mesh) or (None,))[0] for a in spec.axes[:-2])
+
+
+def _trim(p: tuple) -> tuple:
+    p = list(p)
+    while p and p[-1] is None:
+        p.pop()
+    return tuple(p)
+
+
+def param_shardings(cfg: ModelConfig, mesh, rules: dict | None = None) -> dict:
+    """The placement of every leaf of ``lm_specs(cfg)`` on ``mesh``: per leaf,
+    the mesh axes each dim is split over (``sharding.specs_to_shardings``),
+    except that each GEMM weight and its Phi state are placed as the GEMM's
+    per-rank body reads them (the reference's ``shard_map`` in-specs): the
+    weight by (k_ax, n_ax), its patterns' K-partitions with K, its PWP bank's
+    with K and its columns with N, its usage histogram whole. The reference
+    stores the banks split over ``data`` (``pwp_tiles``) and gathers them at
+    each call; a rank here keeps the slice its GEMM reads."""
+    rules = rules or current_rules()
+    specs = lm_specs(cfg)
+    out = specs_to_shardings(specs, mesh, rules)
+
+    def walk(node, placed):
+        for k, v in node.items():
+            if isinstance(v, dict) and not k.startswith("phi_"):
+                walk(v, placed[k])
+            elif k in _WEIGHT_AXES and _is_gemm_weight(v):
+                k_ax, n_ax = _gemm_spec_axes(v.shape, _WEIGHT_AXES[k], mesh, rules)
+                lead = _lead(v, mesh, rules)
+                placed[k] = _trim(lead + (k_ax, n_ax))
+                if "phi_" + k in node:
+                    phi = {"patterns": _trim(lead + (k_ax,)),
+                           "pwp": _trim(lead + (k_ax, None, n_ax)),
+                           "usage": ()}
+                    if "pwp_scale" in node["phi_" + k]:
+                        phi["pwp_scale"] = _trim(lead + (k_ax,))
+                    placed["phi_" + k] = phi
+
+    walk(specs, out)
+    return out
+
+
+_LAYOUTS: dict = {}
+
+
+def _layout(cfg: ModelConfig, mesh, rules) -> dict:
+    """{(weight name, local (K, N)): (k_ax, n_ax)} of ``cfg`` on ``mesh``:
+    how a rank tells its local GEMM weights apart. Built once per config,
+    mesh shape and rule table."""
+    key = (cfg, tuple(mesh.axis_names), tuple(mesh.shape.items()),
+           tuple(sorted((k, v) for k, v in rules.items())))
+    table = _LAYOUTS.get(key)
+    if table is None:
+        table = {}
+        for _, name, spec in _gemm_weights(lm_specs(cfg)):
+            k_ax, n_ax = _gemm_spec_axes(spec.shape, _WEIGHT_AXES[name], mesh, rules)
+            K, N = spec.shape[-2:]
+            loc = (name, K // axis_size(mesh, k_ax), N // axis_size(mesh, n_ax))
+            if table.setdefault(loc, (k_ax, n_ax)) != (k_ax, n_ax):
+                raise ValueError(f"{cfg.name}: two {name} weights of local shape {loc[1:]} "
+                                 "are placed differently")
+        _LAYOUTS[key] = table
+    return table
+
+
+def _gemm_axes(cfg: ModelConfig, name: str, w: torch.Tensor) -> tuple:
+    """(k_ax, n_ax) of the local GEMM weight ``w`` named ``name`` on the
+    current mesh."""
+    mesh = current_mesh()
+    try:
+        return _layout(cfg, mesh, current_rules())[(name, *w.shape[-2:])]
+    except KeyError:
+        raise ValueError(f"{cfg.name}: no {name} weight of local shape "
+                         f"{tuple(w.shape[-2:])} on the mesh {mesh.shape}") from None
+
+
+def _tp_sum(cfg: ModelConfig, out: torch.Tensor, name: str, w: torch.Tensor) -> torch.Tensor:
+    """Complete a row-parallel GEMM: its partial products summed over the
+    weight's K axis, in float32 (a no-op off a mesh and for column-parallel
+    weights)."""
+    mesh = current_mesh()
+    if mesh is None or name not in _WEIGHT_AXES:
+        return out
+    k_ax, _ = _gemm_axes(cfg, name, w)
+    if k_ax is None:
+        return out
+    return coll.all_reduce(out.to(torch.float32), mesh, k_ax).to(out.dtype)
+
+
 def _phi_sharded_matmul(cfg, spikes, w, patterns, pwp, name, budget, pwp_scale=None):
-    """Phi matmul of one call site. The single-device branch of the
-    reference's: the execution policy resolves the lowering (the model layer
-    never names one, except through ``cfg.phi.impl``)."""
+    """Phi matmul of one call site; the execution policy resolves the
+    lowering (the model layer never names one, except through
+    ``cfg.phi.impl``).
+
+    On a mesh every operand is this rank's shard: spikes (T, rows, ..., K)
+    its rows and its K columns, the weight, patterns and bank as
+    :func:`param_shardings` places them. Column-parallel weights (K whole)
+    need no communication; row-parallel ones (K on ``model``: wo, w2) give
+    each rank the partial sum of its K-partitions (its bank slice and its
+    COO columns), and an all-reduce over K's axis, in float32 before any
+    cast, completes it: the Phi analogue of Megatron row-parallelism. The
+    call runs in a per-rank body (``dispatch.spmd_body``, the mesh's size),
+    at site ``lm.{name}.spmd``, with the calibration histogram sliced to the
+    local K-partitions (``dispatch.shard_usage_histogram``)."""
     override = cfg.phi.impl if cfg.phi is not None else None
-    return dispatch.phi_matmul(spikes, w, patterns, pwp, site=f"lm.{name}",
-                               config_override=override, nnz_budget=budget,
-                               gather_dtype=cfg.compute_dtype, pwp_scale=pwp_scale)
+    mesh = current_mesh()
+    if mesh is None:
+        return dispatch.phi_matmul(spikes, w, patterns, pwp, site=f"lm.{name}",
+                                   config_override=override, nnz_budget=budget,
+                                   gather_dtype=cfg.compute_dtype, pwp_scale=pwp_scale)
+    k_ax, _ = _gemm_axes(cfg, name, w)
+    usage = dispatch.get_policy().shard_usage_for(f"lm.{name}", axis_size(mesh, k_ax))
+    flat = spikes.reshape(-1, spikes.shape[-1])
+    with dispatch.spmd_body(mesh.size):
+        out = dispatch.phi_matmul(flat, w, patterns, pwp, site=f"lm.{name}.spmd",
+                                  config_override=override, nnz_budget=budget,
+                                  gather_dtype=cfg.compute_dtype, pwp_scale=pwp_scale,
+                                  usage=usage)
+    if k_ax is not None:
+        out = coll.all_reduce(out, mesh, k_ax)
+    return out.reshape(spikes.shape[:-1] + (w.shape[-1],))
+
+
+def _mesh_dense_mm(cfg: ModelConfig):
+    """The dense GEMM on a mesh: ``layers.default_mm`` with the row-parallel
+    weights' partial products summed over their K axis."""
+    def mm(a: torch.Tensor, p: dict, name: str) -> torch.Tensor:
+        return _tp_sum(cfg, ll.default_mm(a, p, name), name, p[name])
+
+    return mm
 
 
 def make_matmul(cfg: ModelConfig):
     """Returns the GEMM implementation for this config (dense / spiking-Phi)."""
     if not cfg.spiking:
-        return None  # default dense mm
+        # default dense mm; on a mesh, with the row-parallel sums
+        return None if current_mesh() is None else _mesh_dense_mm(cfg)
 
     phi = cfg.phi or PhiConfig()
     lif = LIFConfig(decay=0.5, threshold=1.0)
@@ -186,13 +376,14 @@ def make_matmul(cfg: ModelConfig):
         phi_p = p.get("phi_" + name)
         spikes = rate_code(x, phi.timesteps, lif)                  # (T, ..., K)
         if phi_p is None:
-            out = spikes.to(cfg.compute_dtype) @ w.to(cfg.compute_dtype)
+            out = _tp_sum(cfg, spikes.to(cfg.compute_dtype) @ w.to(cfg.compute_dtype), name, w)
         elif spike_impl != "phi":
             # Oracle comparison mode (cfg.spike_impl names a lowering): the
             # one context where the model layer pins the impl.
-            out = dispatch.phi_matmul(spikes, w.to(torch.float32), phi_p["patterns"],
-                                      phi_p["pwp"].to(torch.float32),
-                                      site=f"lm.{name}.oracle", override=spike_impl)
+            out = _tp_sum(cfg, dispatch.phi_matmul(
+                spikes, w.to(torch.float32), phi_p["patterns"],
+                phi_p["pwp"].to(torch.float32), site=f"lm.{name}.oracle",
+                override=spike_impl), name, w)
         else:
             pwp_v = phi_p["pwp"]
             if pwp_v.dtype != torch.int8:
@@ -216,7 +407,7 @@ def spiking_dense_matmul(cfg: ModelConfig):
 
     def mm(x: torch.Tensor, p: dict, name: str) -> torch.Tensor:
         spikes = rate_code(x, phi.timesteps, lif)
-        out = spikes @ p[name].to(torch.float32)
+        out = _tp_sum(cfg, spikes @ p[name].to(torch.float32), name, p[name])
         return (out.mean(0) * 2.0).to(x.dtype)
 
     return mm
@@ -432,6 +623,25 @@ def calibrate_lm_phi(cfg: ModelConfig, params: dict, sample_batch: dict,
 
 
 # ---------------------------------------------------------------- forward ---
+def _vocab_axis():
+    return (resolve_spec(("vocab",)) or (None,))[0]
+
+
+def _embed_tokens(cfg: ModelConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embedding rows. A vocab-parallel table (a rank holds its
+    block of the vocab) looks up the tokens in its block, zeros elsewhere,
+    and sums over the vocab axis."""
+    emb = params["embed"]
+    tok = tokens.long()
+    if emb.shape[0] == cfg.vocab:
+        return emb[tok]
+    mesh, ax = current_mesh(), _vocab_axis()
+    local = tok - mesh.index(ax) * emb.shape[0]
+    hit = (local >= 0) & (local < emb.shape[0])
+    rows = emb[local.clamp(0, emb.shape[0] - 1)] * hit[..., None].to(emb.dtype)
+    return coll.all_reduce(rows.to(torch.float32), mesh, ax).to(emb.dtype)
+
+
 def _embed_inputs(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     """Token + stub-frontend embedding -> (B, S_total, D) in compute dtype."""
     parts = []
@@ -440,16 +650,57 @@ def _embed_inputs(cfg: ModelConfig, params: dict, batch: dict) -> torch.Tensor:
     if cfg.frontend == "frames":
         x = batch["frame_embeds"].to(cfg.compute_dtype)
         return shard(x, "batch", "seq", "act_embed")
-    tok = params["embed"][batch["tokens"].long()].to(cfg.compute_dtype)
+    tok = _embed_tokens(cfg, params, batch["tokens"]).to(cfg.compute_dtype)
     parts.append(tok)
     x = torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
     return shard(x, "batch", "seq", "act_embed")
 
 
-def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    x = ll.apply_norm(cfg, params["ln_f"], x)
-    logits = x.to(cfg.compute_dtype) @ params["head"].to(cfg.compute_dtype)
-    return shard(logits.to(torch.float32), "batch", "seq", "act_vocab")
+def _logits(cfg: ModelConfig, params: dict, x: torch.Tensor, bd=None) -> torch.Tensor:
+    """The head over the global rows. On a mesh a rank makes one device's
+    call: it gathers the rows over ``bd`` (the batch axis, None where they
+    are replicated), and a vocab-parallel head writes its block into zeros
+    of the whole (D, V) head, keeps its block of the logits and gathers them
+    over the vocab axis. The library GEMM sums in an order that depends on
+    its shape, so only one device's shape gives one device's bits; the zero
+    columns cost the rest of one device's head."""
+    x = ll.apply_norm(cfg, params["ln_f"], x).to(cfg.compute_dtype)
+    w = params["head"].to(cfg.compute_dtype)
+    mesh = current_mesh()
+    if mesh is None:
+        return shard((x @ w).to(torch.float32), "batch", "seq", "act_vocab")
+    x = coll.all_gather(x, mesh, bd, dim=0)
+    if w.shape[1] == cfg.vocab:
+        return (x @ w).to(torch.float32)
+    ax = _vocab_axis()
+    v0 = mesh.index(ax) * w.shape[1]
+    full = w.new_zeros((w.shape[0], cfg.vocab))
+    full[:, v0:v0 + w.shape[1]] = w
+    logits = (x @ full)[..., v0:v0 + w.shape[1]].to(torch.float32)
+    return coll.all_gather(logits, mesh, ax, dim=-1)
+
+
+def batch_axis(batch: int):
+    """The mesh axes a global batch of ``batch`` rows is split over: the
+    ``batch`` rule's, or None off a mesh and where they do not divide it
+    (the reference's divisibility fallback: the rows replicate)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return None
+    ax = (resolve_spec(("batch",)) or (None,))[0]
+    return ax if ax is not None and batch % axis_size(mesh, ax) == 0 else None
+
+
+def local_rows(x: Any, bd) -> Any:
+    """This rank's rows (dim 0) of a global batch tensor, or of each tensor
+    of a dict, under the batch axis ``bd``."""
+    if isinstance(x, dict):
+        return {k: local_rows(v, bd) for k, v in x.items()}
+    if bd is None or x is None:
+        return x
+    mesh = current_mesh()
+    n = x.shape[0] // mesh.extent(bd)
+    return x[mesh.index(bd) * n:(mesh.index(bd) + 1) * n]
 
 
 def _forward(cfg: ModelConfig, params: dict, batch: dict, matmul=None,
@@ -462,9 +713,29 @@ def _forward(cfg: ModelConfig, params: dict, batch: dict, matmul=None,
                                      matmul=mm, want_cache=want_cache)
 
 
+def _batch_rows(batch: dict):
+    """(batch axis, the context that declares this rank's block of the
+    batch's rows, this rank's rows of ``batch``)."""
+    rows = next(iter(batch.values())).shape[0]
+    bd = batch_axis(rows)
+    return bd, _row_block(bd, rows), local_rows(batch, bd)
+
+
+def _row_block(bd, rows: int):
+    """The context that declares this rank's block of a global batch of
+    ``rows`` rows split over ``bd`` (nothing where the rows replicate)."""
+    if bd is None:
+        return contextlib.nullcontext()
+    mesh = current_mesh()
+    n = rows // mesh.extent(bd)
+    return use_batch_rows(rows, mesh.index(bd) * n)
+
+
 def train_logits(cfg: ModelConfig, params: dict, batch: dict, matmul=None) -> torch.Tensor:
-    x, _ = _forward(cfg, params, batch, matmul)
-    return _logits(cfg, params, x)
+    bd, rows, batch = _batch_rows(batch)
+    with rows:
+        x, _ = _forward(cfg, params, batch, matmul)
+    return _logits(cfg, params, x, bd)
 
 
 def train_loss(cfg: ModelConfig, params: dict, batch: dict, matmul=None) -> torch.Tensor:
@@ -478,9 +749,12 @@ def train_loss(cfg: ModelConfig, params: dict, batch: dict, matmul=None) -> torc
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, matmul=None):
-    """Returns (last-position logits (B, V), decode state)."""
-    x, caches = _forward(cfg, params, batch, matmul, want_cache=True)
-    logits = _logits(cfg, params, x[:, -1:])
+    """Returns (last-position logits (B, V), decode state). On a mesh the
+    decode state is this rank's: its rows and heads."""
+    bd, rows, batch = _batch_rows(batch)
+    with rows:
+        x, caches = _forward(cfg, params, batch, matmul, want_cache=True)
+    logits = _logits(cfg, params, x[:, -1:], bd)
     return logits[:, 0], caches
 
 
@@ -496,26 +770,33 @@ def prefill_padded(cfg: ModelConfig, params: dict, batch: dict,
     tokens into state — callers must gate on family/attn_type (the serve
     engine's prompt bucketing does).
     """
-    x, caches = _forward(cfg, params, batch, matmul, want_cache=True)
-    idx = last_pos.to(device=x.device, dtype=torch.long)[:, None, None]
+    bd, rows, batch = _batch_rows(batch)
+    with rows:
+        x, caches = _forward(cfg, params, batch, matmul, want_cache=True)
+    idx = local_rows(last_pos, bd).to(device=x.device, dtype=torch.long)[:, None, None]
     sel = torch.gather(x, 1, idx.expand(x.shape[0], 1, x.shape[2]))
-    logits = _logits(cfg, params, sel)
+    logits = _logits(cfg, params, sel, bd)
     return logits[:, 0], caches
 
 
 def decode_step(cfg: ModelConfig, params: dict, token: torch.Tensor, pos: torch.Tensor,
                 caches, embeds: torch.Tensor | None = None, matmul=None):
     """token (B,) int (or embeds (B, D) for frame frontends); pos (B,) int.
-    The caches are written in place and returned."""
+    The caches are written in place and returned. On a mesh, ``token``,
+    ``pos`` and ``embeds`` are global and the caches this rank's."""
+    rows = (embeds if embeds is not None else token).shape[0]
+    bd = batch_axis(rows)
+    token, pos, embeds = (local_rows(t, bd) for t in (token, pos, embeds))
     if embeds is not None:
         x = embeds[:, None].to(cfg.compute_dtype)
     else:
-        x = params["embed"][token.long()][:, None].to(cfg.compute_dtype)
+        x = _embed_tokens(cfg, params, token)[:, None].to(cfg.compute_dtype)
     x = shard(x, "batch", None, "act_embed")
     mm = matmul if matmul is not None else make_matmul(cfg)
-    x, new_caches = transformer.stack_decode(cfg, params["decoder"], x, pos, caches,
-                                             matmul=mm)
-    logits = _logits(cfg, params, x)
+    with _row_block(bd, rows):
+        x, new_caches = transformer.stack_decode(cfg, params["decoder"], x, pos, caches,
+                                                 matmul=mm)
+    logits = _logits(cfg, params, x, bd)
     return logits[:, 0], new_caches
 
 
@@ -528,8 +809,11 @@ def decode_step_paged(cfg: ModelConfig, params: dict, token: torch.Tensor,
     page pools from ``init_paged_state`` plus the engine's page table
     ((B, logical_pages) int32, -1 = unmapped) — see
     ``serve/page_manager.py`` for the layout and the bitwise-exactness
-    contract. Full-attention families only. The pools are written in place.
+    contract. Full-attention families only, one device only. The pools are
+    written in place.
     """
+    if current_mesh() is not None:
+        raise NotImplementedError("paged decode runs on one device")
     x = params["embed"][token.long()][:, None].to(cfg.compute_dtype)
     x = shard(x, "batch", None, "act_embed")
     mm = matmul if matmul is not None else make_matmul(cfg)

@@ -1,21 +1,35 @@
-"""Mixture-of-Experts: top-k routing, single device. Port of the
-``moe_impl="dense"`` branch of ``repro/models/moe.py``.
+"""Mixture-of-Experts: top-k routing with two execution paths (port of
+``repro/models/moe.py``).
 
-``moe_dense`` evaluates every expert densely and combines the outputs by
-the gates: exact (infinite capacity) and mesh-free, the reference's oracle
-and its smoke-test path. ``moe_impl="ep"`` (expert parallelism under
-``shard_map``: all-to-all dispatch, ZeRO-3 gathered expert weights) needs a
-device mesh, which the port does not have yet (``ROADMAP.md`` queue 1,
-multi-device): ``moe_apply`` refuses it and never runs the dense branch in
-its place. Experts are contracted by einsum, not through the injectable
-GEMM, so they stay dense in Phi spiking mode, as in the reference.
+``moe_impl="dense"`` — every expert evaluated densely, outputs combined by
+the gates. Exact (infinite capacity) and mesh-free: the correctness oracle
+and the smoke-test path.
+
+``moe_impl="ep"`` — expert parallelism on a mesh of ranks. Tokens stay on
+their rank's rows (the ``pod``/``data`` axes); experts are split over
+``model`` and the expert hidden dim over ``data`` (ZeRO-3 style, gathered per
+layer). Per rank:
+
+    route → local capacity dispatch → all_to_all('model') →
+    all_gather(expert weights, 'data') → grouped FFN →
+    all_to_all('model') back → combine with gates
+
+Capacity is static (ceil(k·tokens·cf/E)); tokens past it are dropped
+(standard token-dropping MoE): :func:`moe_ep` with ``capacity_factor`` large
+enough that nothing drops equals the dense path. Without a mesh it is the
+dense path, as the reference's. Experts are contracted by einsum, not
+through the injectable GEMM, so they stay dense in Phi spiking mode, as in
+the reference.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import ParamSpec
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.sharding import ParamSpec, current_mesh, resolve_spec
 from repro_torch.models.config import ModelConfig
 
 
@@ -65,10 +79,16 @@ def _expert_ffn(cfg: ModelConfig, p: dict, toks: torch.Tensor) -> torch.Tensor:
 
 
 def _shared_expert(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """The always-on expert (a plain MLP). On a mesh its ``sw2`` is
+    row-parallel: the partial products are summed over its K axis."""
     ct = cfg.compute_dtype
     xc = x.to(ct)
     h = _act(cfg, xc @ p["sw1"].to(ct), lambda: xc @ p["sw3"].to(ct))
-    return h @ p["sw2"].to(ct)
+    out = h @ p["sw2"].to(ct)
+    if p["sw2"].shape[-2] != cfg.d_ff:
+        ax = resolve_spec(("mlp",))[0]
+        out = coll.all_reduce(out.to(torch.float32), current_mesh(), ax).to(ct)
+    return out
 
 
 def moe_dense(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -85,10 +105,80 @@ def moe_dense(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+# ---------------------------------------------------------------- EP path ---
+def _dispatch(x_flat: torch.Tensor, idx: torch.Tensor, gates: torch.Tensor, E: int, cap: int):
+    """x (N, D), idx/gates (N, k) -> buf (E, cap, D) and the route
+    (expert, slot, keep, source token) of each of the N·k choices: a choice
+    takes the next free slot of its expert, in token order, and is dropped
+    past ``cap``."""
+    N, k = idx.shape
+    flat_e = idx.reshape(-1).long()                                   # (N·k,)
+    oh = F.one_hot(flat_e, E)
+    pos = ((torch.cumsum(oh, 0) - 1) * oh).sum(-1)                    # rank within expert
+    keep = pos < cap
+    posc = pos.clamp(0, cap - 1)
+    src = torch.arange(N, device=x_flat.device).repeat_interleave(k)
+    buf = torch.zeros((E, cap, x_flat.shape[-1]), dtype=x_flat.dtype, device=x_flat.device)
+    buf.index_put_((flat_e, posc), x_flat[src] * keep[:, None].to(x_flat.dtype),
+                   accumulate=True)
+    return buf, (flat_e, posc, keep, src)
+
+
+def _combine(out_buf: torch.Tensor, route, gates: torch.Tensor, N: int) -> torch.Tensor:
+    """Each token's kept choices' expert outputs, weighted by their gates and
+    summed: (N, D)."""
+    flat_e, posc, keep, src = route
+    vals = out_buf[flat_e, posc] * (keep * gates.reshape(-1)).to(out_buf.dtype)[:, None]
+    out = torch.zeros((N, out_buf.shape[-1]), dtype=out_buf.dtype, device=out_buf.device)
+    return out.index_add_(0, src, vals)
+
+
+def moe_ep(cfg: ModelConfig, p: dict, x: torch.Tensor, stats: dict | None = None
+           ) -> torch.Tensor:
+    """Expert-parallel MoE on the current mesh. x (B, S, D): this rank's
+    rows; ``p`` its shards (experts on ``model``, the expert hidden dim on
+    ``data``). ``stats``, if given, receives this rank's ``dropped`` choices
+    and ``capacity``. Without a mesh: :func:`moe_dense`."""
+    mesh = current_mesh()
+    if mesh is None:
+        return moe_dense(cfg, p, x)
+    tp = mesh.shape["model"]
+    fsdp_ax = "data" if "data" in mesh.axis_names else None
+    E = cfg.n_experts
+    if E % tp or p["w1"].shape[0] != E // tp:
+        raise ValueError(f"moe_ep: {E} experts do not split over model = {tp} "
+                         f"(local experts {p['w1'].shape[0]})")
+    e_loc = E // tp
+    B, S, D = x.shape
+    cap = max(1, math.ceil(cfg.top_k * B * S / E * cfg.capacity_factor))
+    xf = x.reshape(-1, D)
+    gates, idx = _route(cfg, p["router"], xf)
+    buf, route = _dispatch(xf, idx, gates, E, cap)                     # (E, cap, D)
+    if stats is not None:
+        stats.update(dropped=int((~route[2]).sum()), capacity=cap)
+    # all_to_all over 'model': block i (peer i's experts) goes to peer i; the
+    # blocks that come back are each peer's tokens for this rank's experts
+    buf = coll.all_to_all(buf.reshape(tp, e_loc, cap, D), mesh, "model")
+    buf = buf.transpose(0, 1).reshape(e_loc, tp * cap, D)
+    pp = {k: p[k] for k in ("w1", "w2", "w3") if k in p}
+    if fsdp_ax is not None and mesh.shape[fsdp_ax] > 1:   # ZeRO-3 gather of the hidden dim
+        pp = {k: coll.all_gather(w, mesh, fsdp_ax, dim=1 if k == "w2" else 2)
+              for k, w in pp.items()}
+    out = _expert_ffn(cfg, pp, buf)                                    # (e_loc, tp·cap, D)
+    out = out.reshape(e_loc, tp, cap, D).transpose(0, 1)               # (dst peer, e_loc, …)
+    out = coll.all_to_all(out, mesh, "model").reshape(E, cap, D)
+    y = _combine(out.to(torch.float32), route, gates, xf.shape[0])
+    y = y.reshape(x.shape).to(x.dtype)
+    if cfg.shared_expert:   # a plain dense MLP, outside the expert exchange
+        y = y + _shared_expert(cfg, p, x).to(y.dtype)
+    return y
+
+
 def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.moe_impl == "ep":
+        return moe_ep(cfg, p, x)
+    if current_mesh() is not None:
         raise NotImplementedError(
-            f"{cfg.name}: moe_impl='ep' (expert parallelism under shard_map) needs a device "
-            "mesh, which the port does not have yet (ROADMAP.md queue 1, multi-device); "
-            "moe_impl='dense' runs on one device")
+            f"{cfg.name}: moe_impl='dense' on a mesh: a rank holds only its experts; "
+            "moe_impl='ep' runs them there")
     return moe_dense(cfg, p, x)

@@ -19,6 +19,13 @@ single-device dense branch; ``moe_impl="ep"`` raises).
 GQA under TP with awkward head counts keeps the reference's exact math:
 padded Q heads are zero-masked before the out-projection, and logical KV
 heads are repeated up to the padded head count.
+
+On a mesh (``sharding.use_rules``) the blocks run on a rank's local shards:
+its block of Q (and KV) heads, read from the local weights' widths, and its
+block of ``d_ff``; the row-parallel out-projections' partial sums are
+completed by the matmul (``models.model``). The head mask and replicated KV
+heads take the rank's block of the global head range, and attention runs on
+the rank's block inside one device's call shape (``layers.one_device_call``).
 """
 from __future__ import annotations
 
@@ -123,10 +130,37 @@ def decoder_specs(cfg: ModelConfig) -> dict:
 
 
 # ---------------------------------------------------------------- forward ---
-def _head_mask(cfg: ModelConfig, device) -> torch.Tensor:
-    m = torch.zeros((cfg.q_heads_padded,), dtype=torch.float32, device=device)
-    m[: cfg.n_heads] = 1.0
-    return m
+def _head_block(cfg: ModelConfig, hq: int) -> int:
+    """Index of this rank's block of ``hq`` Q heads among the padded heads
+    (0 on one device, where ``hq`` is all of them)."""
+    if hq == cfg.q_heads_padded:
+        return 0
+    from repro_torch.distributed.sharding import current_mesh, resolve_spec
+
+    mesh = current_mesh()
+    if mesh is None:
+        raise ValueError(f"{hq} of {cfg.q_heads_padded} Q heads outside a mesh")
+    return mesh.index(resolve_spec(("heads",))[0])
+
+
+def _call_block(cfg: ModelConfig, q: torch.Tensor) -> tuple | None:
+    """This rank's block of one device's attention call, (rows, row0, heads,
+    head0) as ``layers.one_device_call`` takes it, or None off a mesh."""
+    from repro_torch.distributed.sharding import batch_rows, current_mesh
+
+    if current_mesh() is None:
+        return None
+    rows, row0 = batch_rows() or (q.shape[0], 0)
+    hq = q.shape[2]
+    return rows, row0, cfg.q_heads_padded, _head_block(cfg, hq) * hq
+
+
+def _head_mask(cfg: ModelConfig, device, hq: int | None = None) -> torch.Tensor:
+    """1 for the real Q heads among this rank's ``hq`` (default: all the
+    padded heads), 0 for the padding."""
+    hq = cfg.q_heads_padded if hq is None else hq
+    first = _head_block(cfg, hq) * hq
+    return (torch.arange(first, first + hq, device=device) < cfg.n_heads).to(torch.float32)
 
 
 def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, matmul=None,
@@ -143,14 +177,16 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, ma
         q = q + p["bq"].to(q.dtype)
         k = k + p["bk"].to(k.dtype)
         v = v + p["bv"].to(v.dtype)
-    hq = cfg.q_heads_padded
+    hq = q.shape[-1] // cfg.hd                       # this rank's Q heads
+    kv_local = cfg.kv_heads_padded * hq // cfg.q_heads_padded
     hkv_stored = k.shape[-1] // cfg.hd
     q = q.reshape(B, S, hq, cfg.hd)
     k = k.reshape(B, S, hkv_stored, cfg.hd)
     v = v.reshape(B, S, hkv_stored, cfg.hd)
-    if hkv_stored < cfg.kv_heads_padded:  # replicate logical KV heads
-        k = ll._repeat_kv(k, cfg.kv_heads_padded // hkv_stored)
-        v = ll._repeat_kv(v, cfg.kv_heads_padded // hkv_stored)
+    if hkv_stored < kv_local:  # replicate logical KV heads (the rank's block of them)
+        first = _head_block(cfg, hq) * kv_local
+        k = ll._repeat_kv(k, cfg.kv_heads_padded // hkv_stored)[:, :, first:first + kv_local]
+        v = ll._repeat_kv(v, cfg.kv_heads_padded // hkv_stored)[:, :, first:first + kv_local]
     q = shard(ll.rope(q, positions, cfg.rope_theta), "batch", "seq", "act_heads", None)
     k = shard(ll.rope(k, positions, cfg.rope_theta), "batch", "seq", "act_heads", None)
     v = shard(v, "batch", "seq", "act_heads", None)
@@ -158,7 +194,7 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, ma
 
 
 def _out_proj(cfg: ModelConfig, p: dict, x: torch.Tensor, o: torch.Tensor, mm) -> torch.Tensor:
-    o = o * _head_mask(cfg, o.device)[None, None, :, None].to(o.dtype)
+    o = o * _head_mask(cfg, o.device, o.shape[2])[None, None, :, None].to(o.dtype)
     o = o.reshape(x.shape[0], x.shape[1], -1)
     return x + mm(o, p, "wo")
 
@@ -168,7 +204,8 @@ def attn_block_prefill(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: to
     mm = matmul or ll.default_mm
     h = ll.apply_norm(cfg, p["ln1"], x)
     q, k, v = _qkv(cfg, p, h, positions, matmul, lora)
-    o = ll.attention_prefill(cfg, 0, q, k, v, layer_global=layer_global)
+    o = ll.attention_prefill(cfg, 0, q, k, v, layer_global=layer_global,
+                             block=_call_block(cfg, q))
     x = shard(_out_proj(cfg, p, x, o, mm), "batch", "saved_seq", "act_embed")
     cache = None
     if want_cache:
@@ -209,7 +246,7 @@ def attn_block_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, pos: torch.Ten
     bidx = torch.arange(k_cache.shape[0], device=k_cache.device)
     k_cache[bidx, slot] = k[:, 0].to(k_cache.dtype)
     v_cache[bidx, slot] = v[:, 0].to(v_cache.dtype)
-    o = ll.attention_decode(q, k_cache, v_cache, pos, mode=mode)
+    o = ll.attention_decode(q, k_cache, v_cache, pos, mode=mode, block=_call_block(cfg, q))
     return _out_proj(cfg, p, x, o, mm), (k_cache, v_cache)
 
 

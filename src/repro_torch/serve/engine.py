@@ -30,6 +30,17 @@ every spiking GEMM routes through the ``kernels.dispatch`` execution policy.
 ``matmul`` (default: the config's own, ``model.make_matmul``) lets the same
 engine serve the spiking-dense oracle (``model.spiking_dense_matmul``).
 Sampling draws from a ``torch.Generator`` seeded with ``seed`` on the host.
+
+On a mesh (``mesh=``, the rank's ``launch.mesh.make_mesh``), every rank runs
+this engine over its shards of the params: the host loop is global and the
+same on every rank (the same queue, scheduler decisions and greedy tokens,
+from logits the model gathers over the mesh), while each rank keeps only its
+shards of the decode state (``train.step.init_decode_state``: slots over
+``data`` where its size divides them, heads over ``model``). A prompt is
+prefilled on every rank (batch 1 replicates over ``data``), and its state is
+written only on the ``data`` rank that owns the slot. The calls run under
+``sharding.use_rules(SERVE_RULES, mesh)`` (:meth:`Engine._ctx`), so each Phi
+GEMM re-gates on its local shape. The paged engine runs on one device only.
 """
 from __future__ import annotations
 
@@ -42,6 +53,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import SERVE_RULES, use_rules
 from repro_torch.models import model
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.metrics import DEFAULT_BUCKETS, TICK_BUCKETS, MetricsRegistry
@@ -107,7 +119,7 @@ class Engine:
                  scheduler: TelemetryScheduler | None = None,
                  record_logits: bool = False,
                  tracer: Tracer | None = None,
-                 wall_time: bool = False, matmul=None):
+                 wall_time: bool = False, matmul=None, mesh=None):
         """Allocate the decode state (dense slots or page pool).
 
         ``tracer`` records the request lifecycle as spans (obs/trace.py);
@@ -122,6 +134,7 @@ class Engine:
         self.params = params
         self.device = params["embed"].device
         self.matmul = matmul
+        self.mesh = mesh
         self.B = batch_slots
         self.max_context = max_context
         self.eos_id = eos_id
@@ -164,6 +177,10 @@ class Engine:
             self.scheduler.note("paged_gate_dense")
 
         self.pm: PageManager | None = None
+        self._placements = None
+        if self.paged and mesh is not None:
+            raise NotImplementedError("the paged engine runs on one device; on a mesh "
+                                      "serve from contiguous slots (paged=False)")
         if self.paged:
             if num_pages is None:
                 num_pages = batch_slots * (max_context // page_size)
@@ -172,7 +189,9 @@ class Engine:
             self.pools = model.init_paged_state(cfg, num_pages, page_size, self.device)
             self.state = None
         else:
-            self.state = model.init_decode_state(cfg, batch_slots, max_context, self.device)
+            from repro_torch.train.step import init_decode_state
+            self.state, self._placements = init_decode_state(
+                cfg, batch_slots, max_context, mesh, SERVE_RULES, self.device)
         self.pos = np.zeros(batch_slots, np.int64)
         self.active = np.zeros(batch_slots, bool)
         self.budget = np.zeros(batch_slots, np.int64)
@@ -202,17 +221,33 @@ class Engine:
             return contextlib.nullcontext()
         return self.tracer.span(kind, tick=self.ticks, **attrs)
 
+    def _ctx(self):
+        """The context of the model calls: on a mesh, its serving rules (the
+        Phi GEMMs then run in per-rank bodies and re-gate on local shapes)."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return use_rules(SERVE_RULES, self.mesh)
+
     # ------------------------------------------------------------- plumbing
     def _insert(self, new_state, slot: int) -> None:
         """Write a prefill's state (caches extended to ``max_context``) into
         the batched state at ``slot``, in place: each leaf at its own batch
         axis (the hybrid's main Mamba-2 states carry it on axis 2, behind
         (n_sites, g); the reference writes every leaf at axis 1, which there
-        clamps onto slot 0)."""
+        clamps onto slot 0). On a mesh a leaf whose slots are split over
+        ``data`` is written only on the rank that holds ``slot``."""
         axes = model.state_leaves(model.state_batch_axes(self.cfg, self.state))
-        for dst, src, axis in zip(model.state_leaves(self.state),
-                                  model.state_leaves(new_state), axes):
-            dst.select(axis, slot).copy_(src.select(axis, 0))
+        places = self._placements if self._placements is not None else [()] * len(axes)
+        for dst, src, axis, place in zip(model.state_leaves(self.state),
+                                         model.state_leaves(new_state), axes, places):
+            ax = place[axis] if axis < len(place) else None
+            local = slot
+            if ax is not None:
+                n = dst.shape[axis]                      # this rank's slots
+                if self.mesh.index(ax) != slot // n:
+                    continue
+                local = slot % n
+            dst.select(axis, local).copy_(src.select(axis, 0))
 
     def _splice(self, new_state, pages: np.ndarray) -> None:
         """Scatter a prefill's caches, (n_groups, 1, bl, H, hd), into this
@@ -291,13 +326,14 @@ class Engine:
             tokens = np.zeros((1, bl), np.int32)
             tokens[0, :plen] = prompt
             batch = {"tokens": torch.as_tensor(tokens, device=self.device)}
-            if self.bucketed:
-                last = torch.full((1,), plen - 1, dtype=torch.int32, device=self.device)
-                logits, new_state = model.prefill_padded(self.cfg, self.params, batch, last,
-                                                         matmul=self.matmul)
-            else:
-                logits, new_state = model.prefill(self.cfg, self.params, batch,
-                                                  matmul=self.matmul)
+            with self._ctx():
+                if self.bucketed:
+                    last = torch.full((1,), plen - 1, dtype=torch.int32, device=self.device)
+                    logits, new_state = model.prefill_padded(self.cfg, self.params, batch,
+                                                             last, matmul=self.matmul)
+                else:
+                    logits, new_state = model.prefill(self.cfg, self.params, batch,
+                                                      matmul=self.matmul)
         if self.paged:
             n = max(1, -(-bl // self.pm.page_size))
             self._splice(new_state, self.pm.tables[slot, :n].copy())
@@ -391,8 +427,9 @@ class Engine:
             logits, self.pools = model.decode_step_paged(
                 self.cfg, self.params, last_t, pos, self.pools, table, matmul=self.matmul)
         else:
-            logits, self.state = model.decode_step(self.cfg, self.params, last_t, pos,
-                                                   self.state, matmul=self.matmul)
+            with self._ctx():
+                logits, self.state = model.decode_step(self.cfg, self.params, last_t, pos,
+                                                       self.state, matmul=self.matmul)
         logits = logits.to(torch.float32).cpu()       # waits for the card
         # Per-slot temperatures: a sampled request batched next to a greedy
         # one must not perturb the greedy stream.

@@ -1330,3 +1330,42 @@ def test_lm_crash_resume_on_the_card(dev, tmp_path):
     _, l3 = train_loop(cfg, ocfg, steps=8, ckpt_dir=str(tmp_path), ckpt_every=100, **kw)
     assert len(l1) == len(l2) == 4 and l3 == []
     np.testing.assert_allclose(l1 + l2, full, rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------------------------------------------------
+# The collective helper on card tensors: a 2-rank world sharing the card
+# (gloo, as a mesh on one card runs), each collective against the result
+# one process computes from both ranks' inputs. Exact: sums of two small
+# integers-valued floats, and data movement.
+def _collective_input(rank: int) -> np.ndarray:
+    return (np.arange(8, dtype=np.float32) + 10 * rank) * (1 + rank)
+
+
+def _collective_rank(rank: int) -> dict:
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((2,), ("model",))
+    x = torch.from_numpy(_collective_input(rank)).to(mesh.device)
+    outs = {"all_reduce": coll.all_reduce(x, mesh, "model"),
+            "all_gather": coll.all_gather(x[None], mesh, "model", 0),
+            "all_to_all": coll.all_to_all(x, mesh, "model")}
+    return {"transport": mesh.transport, "backend": mesh.backend,
+            "devices": sorted({str(t.device) for t in outs.values()}),
+            **{k: t.cpu().numpy() for k, t in outs.items()}}
+
+
+def test_collectives_on_card_tensors_in_a_two_rank_world(dev):
+    from repro_torch.launch.mesh import spawn_ranks
+
+    out = spawn_ranks(_collective_rank, 2, device="cuda", timeout=180)
+    x0, x1 = _collective_input(0), _collective_input(1)
+    for rank, got in enumerate(out):
+        assert got["devices"] == [f"cuda:{rank % torch.cuda.device_count()}"]
+        want_backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+        assert got["backend"] == want_backend, got["transport"]
+        np.testing.assert_array_equal(got["all_reduce"], x0 + x1)
+        np.testing.assert_array_equal(got["all_gather"], np.stack([x0, x1]))
+        np.testing.assert_array_equal(got["all_to_all"],
+                                      np.concatenate([np.split(x0, 2)[rank],
+                                                      np.split(x1, 2)[rank]]))

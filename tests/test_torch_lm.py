@@ -134,16 +134,31 @@ def test_lm_specs_match_the_reference(arch):
 
 
 def test_unported_families_raise_not_implemented():
-    """Expert parallelism (the full MoE configs' ``moe_impl="ep"``) needs a
-    device mesh: the port refuses it, naming the multi-device queue, and runs
-    no other MoE in its place."""
+    """Expert parallelism (the full MoE configs' ``moe_impl="ep"``) without a
+    mesh runs the dense branch, as the reference's ``moe_ep`` does: logits
+    bitwise ``moe_impl="dense"``'s. What stays unported raises: the dense
+    branch on a mesh (a rank holds only its experts)."""
+    import types
+
+    from repro_torch.distributed.sharding import SERVE_RULES, use_rules
+    from repro_torch.models import moe
+
     for arch in ("llama4_maverick", "arctic_480b"):
         assert get_config(arch).moe_impl == "ep"
         cfg = get_config(arch, smoke=True).with_(moe_impl="ep")
         params = init_params(model.lm_specs(cfg), torch.Generator().manual_seed(0), "cpu")
-        batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, multi-device"):
-            model.train_logits(cfg, params, batch)
+        batch = {"tokens": torch.arange(4, dtype=torch.int32)[None]}
+        with torch.no_grad():
+            ep = model.train_logits(cfg, params, batch)
+            dense = model.train_logits(cfg.with_(moe_impl="dense"), params, batch)
+        assert torch.equal(ep, dense) and torch.isfinite(ep).all()
+        grid = types.SimpleNamespace(axis_names=("data", "model"),
+                                     shape={"data": 1, "model": 2})
+        x = torch.zeros((1, 4, cfg.d_model))
+        p = next(pos["moe"] for pos in params["decoder"]["stack"].values() if "moe" in pos)
+        with use_rules(SERVE_RULES, grid), \
+                pytest.raises(NotImplementedError, match="a rank holds only its experts"):
+            moe.moe_apply(cfg.with_(moe_impl="dense"), {k: v[0] for k, v in p.items()}, x)
 
 
 def test_init_params_laws_and_order():
