@@ -75,7 +75,7 @@ phases, and the ``kernels`` summary:
   plain version at layer 0's operands; prefill, decode and GEMM timings at
   the wz, wB (N = 64) and wo sites; calibration seconds and peak memory);
 * LM training and checkpoints — ``lm_train`` (OLMo-1B at full width,
-  ``LM_LAYERS`` deep, through ``launch.train.train_loop`` at B = 1, S =
+  ``LM_TRAIN_LAYERS`` = 2 deep, through ``launch.train.train_loop`` at B = 1, S =
   2048, every layer's attention on the kernel with lse under autograd:
   step 1 against the same step with the attention's plain forward; dense,
   6 uninterrupted steps against 3 checkpointed steps and a resume to 6,
@@ -86,10 +86,23 @@ phases, and the ``kernels`` summary:
   matcher kernels), 3 steps on ``coo``,
   then rounded, recalibrated and Phi ``train_logits`` bitwise its
   spiking-dense arm (the streaming kernel); ms a step and its parts,
-  checkpoint bytes, save and restore seconds, peak memory).
+  checkpoint bytes, save and restore seconds, peak memory);
+* training on a mesh — ``mesh_train`` (OLMo-1B at full width, ``LM_LAYERS``
+  deep, S = 2048, global batch 2, on four spawned ranks sharing the card through gloo, against one
+  device's run of the same params and batches: A, ZeRO-3 / tensor-parallel
+  steps on (data 2, model 2) through ``train_loop(mesh=)``, step 1's loss
+  and every gathered gradient leaf, 4 steps' losses and final params, a
+  crash at step 2 whose checkpoint is byte for byte one device's and a
+  resume on (data 1, model 4); B, int8 error-feedback gradients across
+  (pod 2, data 1, model 2) against the uncompressed mesh step; C, the GPipe
+  pipeline of four full-width decoder layers over pod = 4, bitwise the
+  layers in sequence; D, the ``--phi`` config calibrated here once, 2 steps,
+  every ``lm.*.spmd`` GEMM on ``coo``; per-rank collectives, step ms beside
+  one device's, peak memory and attention launches).
 
-Every ``*main_path`` phase, ``lm_serve``, ``mesh_serve``, ``hybrid_serve``
-and ``lm_train`` print the policy's decisions (site, impl, reason, count). Each main path,
+Every ``*main_path`` phase, ``lm_serve``, ``mesh_serve``, ``hybrid_serve``,
+``lm_train`` and ``mesh_train`` print the policy's decisions (site, impl,
+reason, count). Each main path,
 ``accel_sim``'s captures and ``phi_apply`` calls, each of the four training
 phases and the two serving phases' counted runs are driven with every
 kernel's launch count set to 0 just before and read just after. The card's
@@ -104,6 +117,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -2772,11 +2786,14 @@ def hybrid_serve_phase(dev, smi) -> dict:
     return {"launches": launches, "lif_err": lif_err, "attn_err": attn_row["max_abs_err"]}
 
 
-# LM training and checkpoints: OLMo-1B (lm_serve's config and depth) trained
-# at full width through the port's train_loop, dense (the launcher's
+# LM training and checkpoints: OLMo-1B (lm_serve's config, LM_TRAIN_LAYERS
+# deep) trained at full width through the port's train_loop, dense (the launcher's
 # default) and in Phi spiking mode (the launcher's --phi config), at B = 1,
 # S = 2048 so that every layer's attention takes the kernel under autograd.
 LM_TRAIN_S = 2048
+# lm_train's depth: 2 of OLMo-1B's 16 layers (it ran 4 before mesh_train
+# joined the script), cut to keep the script near 800 s of its 1200 s limit.
+LM_TRAIN_LAYERS = 2
 LM_TRAIN_OPT = dict(lr=3e-4, warmup_steps=2, decay_steps=6)
 LM_TRAIN_STEPS, LM_TRAIN_CRASH = 6, 3  # uninterrupted steps; the crashed run's
 LM_TRAIN_PHI_STEPS = 3
@@ -2851,8 +2868,8 @@ def lm_train_parts_ms(cfg, bundle, params, opt_state, ocfg, batch) -> dict:
 
 
 def lm_train_phase(dev, smi) -> dict:
-    """The ``lm_train`` phase: OLMo-1B at full width, LM_LAYERS of its 16
-    layers, trained through ``launch.train.train_loop`` at B = 1, S = 2048.
+    """The ``lm_train`` phase: OLMo-1B at full width, LM_TRAIN_LAYERS of its
+    16 layers, trained through ``launch.train.train_loop`` at B = 1, S = 2048.
 
     Step 1's loss and gradients with the attention kernel against the same
     step with the attention's plain forward (outside the counted run). Then,
@@ -2899,8 +2916,8 @@ def lm_train_phase(dev, smi) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cfg = get_config(LM_ARCH, smoke=LM_SMOKE)
-    if LM_LAYERS is not None:
-        cfg = cfg.with_(n_layers=LM_LAYERS)
+    if LM_TRAIN_LAYERS is not None:
+        cfg = cfg.with_(n_layers=LM_TRAIN_LAYERS)
     phi_cfg = phi_variant(cfg, timesteps=2, q=16).with_(   # the launcher's --phi
         n_layers=min(cfg.n_layers, LM_TRAIN_PHI_LAYERS))
     ocfg = opt.OptConfig(**LM_TRAIN_OPT)
@@ -2926,9 +2943,9 @@ def lm_train_phase(dev, smi) -> dict:
         step is functional: the tensors it saved are never written)."""
         saved: dict = {}
 
-        def save(self, step, tree, extra=None):
+        def save(self, step, tree, extra=None, shardings=None):
             Recording.saved[step] = (tree, extra)
-            super().save(step, tree, extra)
+            super().save(step, tree, extra, shardings)
 
     try:
         # ------------------------------ step 1: kernel against plain twin ---
@@ -3196,6 +3213,615 @@ def lm_train_phase(dev, smi) -> dict:
             "lse_err": lse_err}
 
 
+
+# Training on a mesh: OLMo-1B (lm_serve's config and depth, LM_LAYERS, full
+# width; lm_train's optimizer and sequence) on four ranks sharing the card
+# through gloo (NCCL refuses two ranks on one device), against one device's
+# run of the same params and batches.
+MT_BATCH = 2                       # global rows: one a data rank on (data 2, model 2)
+MT_STEPS, MT_CRASH = 4, 2          # uninterrupted steps; the crashed run's
+MT_MESH = (2, 2)                   # (data, model)
+MT_RESUME_MESH = (1, 4)            # the elastic resume's
+MT_POD_MESH = (2, 1, 2)            # (pod, data, model): the compressed gradients
+MT_COMPRESS_STEPS = 2
+MT_PHI_STEPS = 2
+MT_PIPE = (6, 1, 512)              # microbatches, rows, tokens of each (x d_model)
+MT_TIMED_STEPS = 2
+# The mesh against one device: the data ranks' and the row-parallel partial
+# sums in another order, rounded to bf16 activations where one device rounds
+# its own sums (lm_train's kernel-against-plain gap, BF16_LOSS_REL and
+# BF16_GRAD_REL). After MT_STEPS AdamW steps a parameter moves by at most
+# about lr_t a step (|m/sqrt(v)| <= 1), so where a rounding moves a near-zero
+# gradient the runs may differ by 2 * sum(lr_t); the mean difference is held
+# to a hundredth of it. Compressed gradients: the reference test's 5% of the
+# uncompressed gradient's largest entry.
+MT_COMPRESS_REL = 0.05
+# A compressed step's update differs where the int8 step zeroes a gradient
+# entry (Adam then moves it by 0 instead of lr): the next loss, against the
+# uncompressed mesh step's, measured 7.2e-4 relative on an H100.
+MT_COMPRESS_LOSS_REL = 2.0 ** -9
+# The crash and the elastic resume run at float32 activations: on another
+# mesh a step's sums round in another order, and at bf16 activations that
+# moved step 4's loss 1.26e-4 relative on an H100, past the reference's
+# crash-resume tolerance; at float32 it holds RESUME_RTOL / RESUME_ATOL.
+MT_RESUME_DTYPE = "float32"
+
+
+def _flat_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _flat_leaves(tree[k], f"{prefix}{k}/")
+    else:
+        yield prefix[:-1], tree
+
+
+def _lr_sum(ocfg, steps: int) -> float:
+    import torch
+
+    from repro_torch.train import optimizer as opt
+
+    sched = opt.lr_schedule(ocfg)
+    return float(sum(sched(torch.tensor(s)) for s in range(1, steps + 1)))
+
+
+def _checkpoint_bytes_equal(path, tree, extra) -> int:
+    """Rank 0: the files of the checkpoint at ``path`` against the bytes one
+    device's ``save_tree`` writes for ``tree`` (global values): every leaf's
+    ``.npy`` and the manifest. Returns the bytes compared."""
+    import io
+    import json
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+
+    manifest = {"leaves": [], "extra": extra or {}}
+    compared = 0
+    for i, (key, leaf) in enumerate(ckpt._flatten(tree)):
+        arr, name = ckpt._to_numpy(leaf)
+        buf = io.BytesIO()
+        ckpt._save_npy(buf, arr, name)
+        fname = f"leaf_{i:05d}.npy"
+        with open(os.path.join(path, fname), "rb") as f:
+            if f.read() != buf.getvalue():
+                raise AssertionError(f"checkpoint {key}: {fname} differs from one device's")
+        compared += len(buf.getvalue())
+        manifest["leaves"].append({"key": key, "file": fname, "shape": list(arr.shape),
+                                   "dtype": name})
+    with open(os.path.join(path, "manifest.json")) as f:
+        if f.read() != json.dumps(manifest):
+            raise AssertionError("checkpoint manifest differs from one device's")
+    return compared
+
+
+def _gathered_errs(tree, placements, mesh, want):
+    """{leaf: (max |diff|, mean |diff|, max |want|)} of a tree of this rank's
+    shards, gathered leaf by leaf, against the global values ``want``."""
+    from repro_torch.distributed import collectives as coll
+
+    pls, ws = dict(_flat_leaves(placements)), dict(_flat_leaves(want))
+    out = {}
+    for key, leaf in _flat_leaves(tree):
+        full = coll.gather_global(leaf.detach(), pls[key], mesh).float()
+        w = ws[key].to(full.device).float()
+        d = (full - w).abs()
+        out[key] = (float(d.max()), float(d.mean()), float(w.abs().max()))
+        del full, w, d
+    return out
+
+
+def mesh_train_rank(rank, cfg, phi_cfg, ocfg, seq, params0, phi_params, single, tmp,
+                    pipe) -> dict:
+    """One rank of the mesh_train world: every kernel's launch count set to
+    0, then arm A (dense, (data 2, model 2): step 1's grads, MT_STEPS steps
+    through ``train_loop(mesh=)``, MT_CRASH steps checkpointed, the resume on
+    (data 1, model 4)), arm D (Phi, (data 2, model 2)) and arm B
+    (compressed gradients, (pod 2, data 1, model 2)); the counts read. Then
+    timed steps, arm C (the pipeline over pod = 4) and, on rank 0, the
+    attention kernel at this mesh's local operands against its plain
+    version."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import obs
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.checkpoint import _unflatten
+    from repro_torch.data.pipeline import DataConfig, ShardedLoader
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.pipeline import bubble_fraction, pipeline_apply
+    from repro_torch.distributed.sharding import place
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train as train_launch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model, transformer
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_lib
+    from repro_torch.utils import log
+
+    t_rank = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log.setLevel("WARNING")
+    out = {"rank": rank}
+    policy = dispatch.PhiExecutionPolicy()
+    dispatch.set_policy(policy)
+    sink = obs.ListSink()
+    obs.set_tracer(obs.Tracer(sink))
+    loader = iter(ShardedLoader(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                           global_batch=MT_BATCH, seed=SEED)))
+    batches = [next(loader) for _ in range(max(MT_COMPRESS_STEPS, MT_PHI_STEPS))]
+    mesh = make_mesh(MT_MESH, ("data", "model"))
+    dev = mesh.device
+    gpu = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for b in batches]
+    kw = dict(global_batch=MT_BATCH, seq=seq, seed=SEED, log_every=0)
+    times: dict = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return res
+
+    class Recording(CheckpointManager):
+        saved: dict = {}
+
+        def save(self, step, tree, extra=None, shardings=None):
+            Recording.saved[step] = (tree, extra, shardings)
+            super().save(step, tree, extra, shardings)
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    steps_run = {}
+    # ------------------------------------------------- arm A: dense mesh ---
+    bundle, _, _, _ = step_lib.make_train_step(cfg, ocfg, mesh)
+    p_sh, o_sh, _ = bundle.in_shardings
+    t_sh = model.split_phi_state(p_sh)[0]
+    local = _to_device(place(params0, p_sh, mesh), dev)
+    mesh.stats.clear()
+    held: dict = {}
+
+    def grads_step():
+        held["out"] = bundle.grads(local, gpu[0])
+
+    # rank 0 keeps the first attention call's local q, k, v (no extra launch)
+    rec = timed("grads_s", lambda: _first_attention_operands(grads_step) if rank == 0
+                else grads_step())
+    loss1, grads = held.pop("out")
+    out["grad_stats"] = {op: list(v) for op, v in mesh.stats.items()}
+    out["loss1"] = float(loss1)
+    out["grad_errs"] = _gathered_errs(grads, t_sh, mesh, single["grads"])
+    del grads
+    ckpt = f"{tmp}/ckpt"
+    p_full, full = timed("train_loop_s", lambda: train_launch.train_loop(
+        cfg, ocfg, steps=MT_STEPS, mesh=mesh, **kw))
+    out["losses"] = full
+    out["param_errs"] = _gathered_errs(model.split_phi_state(p_full)[0], t_sh, mesh,
+                                       single["params"])
+    del p_full
+    # the crash and the elastic resume at float32 activations (see MT_RESUME_DTYPE)
+    cfg32 = cfg.with_(compute_dtype=getattr(torch, MT_RESUME_DTYPE))
+    _, out["losses_f32"] = timed("train_loop_f32_s", lambda: train_launch.train_loop(
+        cfg32, ocfg, steps=MT_STEPS, mesh=mesh, **kw))
+    train_launch.CheckpointManager = Recording
+    try:
+        _, first = timed("crash_run_s", lambda: train_launch.train_loop(
+            cfg32, ocfg, steps=MT_CRASH, ckpt_dir=ckpt, ckpt_every=100, mesh=mesh, **kw))
+        saved, extra, shardings = Recording.saved.pop(MT_CRASH)
+        host, pls = {}, dict(_flat_leaves(shardings))
+        for key, leaf in _flat_leaves(saved):
+            full_leaf = coll.gather_global(leaf, pls[key], mesh)
+            if rank == 0:
+                host[key] = full_leaf.cpu()
+            del full_leaf
+        if rank == 0:
+            out["ckpt_bytes_compared"] = timed("ckpt_bytes_s", lambda: _checkpoint_bytes_equal(
+                f"{ckpt}/step_{MT_CRASH:010d}", _unflatten(saved, host), extra))
+        del saved, host
+        mesh2 = make_mesh(MT_RESUME_MESH, ("data", "model"))
+        _, rest = timed("resume_run_s", lambda: train_launch.train_loop(
+            cfg32, ocfg, steps=MT_STEPS, ckpt_dir=ckpt, mesh=mesh2, **kw))
+    finally:
+        train_launch.CheckpointManager = CheckpointManager
+    out["resumed"] = first + rest
+    steps_run["dense_mesh"] = 1 + 2 * MT_STEPS + MT_CRASH + (MT_STEPS - MT_CRASH)
+    dist.barrier()
+    if rank == 0:
+        import shutil
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+    # --------------------------------------------------- arm D: Phi mesh ---
+    times["arm_a_s"] = time.perf_counter() - t_rank
+    phi_policy = dispatch.PhiExecutionPolicy()
+    dispatch.set_policy(phi_policy)
+    dispatch.register_usage_from_params(phi_params)
+    pbundle, _, _, _ = step_lib.make_train_step(phi_cfg, ocfg, mesh)
+    pp_sh = pbundle.in_shardings[0]
+    plocal = _to_device(place(phi_params, pp_sh, mesh), dev)
+    ploss1, pgrads = timed("phi_grads_s", lambda: pbundle.grads(plocal, gpu[0]))
+    out["phi_loss1"] = float(ploss1)
+    out["phi_grad_errs"] = _gathered_errs(pgrads, model.split_phi_state(pp_sh)[0], mesh,
+                                          single["phi_grads"])
+    del pgrads
+    pstate = opt.init(model.split_phi_state(plocal)[0], ocfg)
+    out["phi_losses"] = []
+    for i in range(MT_PHI_STEPS):
+        plocal, pstate, l = pbundle.fn(plocal, pstate, gpu[i])
+        out["phi_losses"].append(float(l))
+    out["phi_decisions"] = [[*key, n] for key, n in sorted(phi_policy.decisions().items())]
+    del plocal, pstate
+    steps_run["phi_mesh"] = 1 + MT_PHI_STEPS
+    dispatch.set_policy(policy)
+    times["arm_d_s"] = time.perf_counter() - t_rank - times["arm_a_s"]
+
+    # ------------------------------------- arm B: compressed gradients ---
+    pmesh = make_mesh(MT_POD_MESH, ("pod", "data", "model"))
+    ocfg_c = dataclasses.replace(ocfg, grad_compress=True)
+    ubundle, _, _, _ = step_lib.make_train_step(cfg, ocfg, pmesh)
+    cbundle, _, _, _ = step_lib.make_train_step(cfg, ocfg_c, pmesh)
+    c_sh = ubundle.in_shardings[0]
+    ct_sh = model.split_phi_state(c_sh)[0]
+    clocal = _to_device(place(params0, c_sh, pmesh), dev)
+    uloss, ugrads = ubundle.grads(clocal, gpu[0])
+    cstate = opt.init(clocal, ocfg_c)
+    scales: dict = {}
+    pmesh.stats.clear()
+    closs, cgrads, new_ef = cbundle.compressed(clocal, gpu[0], cstate["ef"], scales)
+    out["compress_stats"] = {op: list(v) for op, v in pmesh.stats.items()}
+    errs = {}
+    ug, cg = dict(_flat_leaves(ugrads)), dict(_flat_leaves(cgrads))
+    for key in ug:
+        errs[key] = (float((cg[key] - ug[key]).abs().max()), float(ug[key].abs().max()))
+    out["compress"] = {"loss_uncompressed": float(uloss), "loss": float(closs),
+                       "grad_errs": errs, "scales": scales, "coords": pmesh.coords,
+                       "ef_abs_max": max(float(e.abs().max()) for _, e in
+                                         _flat_leaves(new_ef))}
+    del ugrads, cgrads, new_ef
+    ustate = opt.init(clocal, ocfg)
+    ulocal = clocal
+    out["compress"]["losses"], out["compress"]["uncompressed_losses"] = [], []
+    for i in range(MT_COMPRESS_STEPS):
+        clocal, cstate, l = cbundle.fn(clocal, cstate, gpu[i])
+        out["compress"]["losses"].append(float(l))
+        ulocal, ustate, l = ubundle.fn(ulocal, ustate, gpu[i])
+        out["compress"]["uncompressed_losses"].append(float(l))
+    out["compress"]["ef_after_abs_max"] = max(float(e.abs().max()) for _, e in
+                                              _flat_leaves(cstate["ef"]))
+    del clocal, cstate, ulocal, ustate
+    steps_run["compressed_mesh"] = 2 + 2 * MT_COMPRESS_STEPS
+    torch.cuda.synchronize()
+    times["arm_b_s"] = time.perf_counter() - t_rank - times["arm_a_s"] - times["arm_d_s"]
+    out["launches"] = read_launches()
+    out["steps_run"] = steps_run
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["train_step_records"] = sum(r["kind"] == "train_step" for r in sink.records)
+    obs.set_tracer(None)
+
+    # -------------------------------------------- timed steps, (2, 2) ---
+    state = opt.init(model.split_phi_state(local)[0], ocfg)
+    mesh.stats.clear()
+    step_ms = []
+    for _ in range(MT_TIMED_STEPS):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        local, state, _ = bundle.fn(local, state, gpu[0])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    out["step_ms"] = step_ms
+    out["step_collectives"] = {op: {"calls": c // MT_TIMED_STEPS, "bytes": b // MT_TIMED_STEPS}
+                               for op, (c, b) in mesh.stats.items()}
+    out["backend"], out["transport"] = mesh.backend, mesh.transport
+    out["p2p_transport"] = mesh.p2p_transport
+    del local, state
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------- arm C: pipeline ---
+    qmesh = make_mesh((4,), ("pod",))
+    sid = qmesh.coords["pod"]
+    stage_p = _to_device(transformer.layer_slice(params0["decoder"]["stack"],
+                                                 slice(sid, sid + 1)), dev)
+    x_micro = pipe.to(dev)
+    pos = torch.arange(pipe.shape[2], device=dev)[None]
+
+    def stage(p, x):
+        x, _ = transformer.attn_block_prefill(cfg, p["p0"], x, pos, cfg.is_global_layer(0))
+        return transformer._ffn(cfg, p["p0"], x)
+
+    qmesh.stats.clear()
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = pipeline_apply(stage, stage_p, x_micro, qmesh, axis="pod")
+        torch.cuda.synchronize()
+    out["pipeline"] = {"out": y.cpu(), "ms": (time.perf_counter() - t0) * 1e3,
+                       "bubble_fraction": bubble_fraction(MT_PIPE[0], 4),
+                       "stats": {op: list(v) for op, v in qmesh.stats.items()},
+                       "p2p_transport": qmesh.p2p_transport}
+    del stage_p, x_micro, y
+    torch.cuda.empty_cache()
+    times["rank_s"] = time.perf_counter() - t_rank
+    out["times_s"] = times
+    if rank == 0:
+        from repro_torch.kernels.phi_attention import flash_attention_cuda
+        from repro_torch.models.flash import _flash_fwd_impl
+
+        q, k, v = (t.detach().to(torch.float32).contiguous() for t in rec)
+        row = lm_attention_row("mesh_train", policy, q, k, v)
+        row.pop("_fn", None)
+        bq, bkv = row["blocks"]
+        _, lse = flash_attention_cuda(q, k, v, causal=True, block_q=bq, block_kv=bkv,
+                                      return_lse=True)
+        _, plse = _flash_fwd_impl(q, k, v, True, None, None, bq, bkv)
+        row["lse_max_abs_err"] = float((lse - plse).abs().max())
+        row["lse_tol"] = LSE_ULPS * 2.0 ** -24 * max(1.0, float(plse.abs().max()))
+        if row["lse_max_abs_err"] > row["lse_tol"]:
+            raise AssertionError(f"mesh_train: lse max |diff| {row['lse_max_abs_err']}")
+        out["attention"] = row
+    return out
+
+
+def mesh_train_phase(dev, smi) -> dict:
+    """The ``mesh_train`` phase. OLMo-1B at full width, LM_LAYERS deep, S =
+    LM_TRAIN_S, global batch MT_BATCH, AdamW (LM_TRAIN_OPT). One device (this
+    process) runs the references: step 1's grads and MT_STEPS steps of
+    ``train_loop`` from the seed's params, the Phi config (LM_TRAIN_PHI_LAYERS
+    deep, calibrated here once: the LIF and matcher kernels) step 1's grads
+    and MT_PHI_STEPS steps, and the pipeline's four layers in sequence. Four
+    spawned ranks on this card (gloo; params through host shared memory)
+    then run arms A, D, B and C (:func:`mesh_train_rank`). Gates: step 1's
+    loss and every gradient leaf, gathered, within BF16_LOSS_REL /
+    BF16_GRAD_REL of one device's; MT_STEPS losses and the final params
+    within the stated tolerance; the crashed run's checkpoint byte for byte
+    one device's files, its resume on (data 1, model 4) within
+    RESUME_RTOL / RESUME_ATOL of the uninterrupted losses; the compressed
+    gradients within MT_COMPRESS_REL, ``ef`` non-zero, one scale a pod; the
+    pipeline bitwise the sequential layers; the Phi steps within the bf16
+    tolerances, every ``lm.*.spmd`` decision ``coo``; the attention kernel
+    launched by every rank."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config, phi_variant
+    from repro_torch.data.pipeline import DataConfig, ShardedLoader
+    from repro_torch.distributed.sharding import init_params
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train as train_launch
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import model, transformer
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_lib
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config(LM_ARCH, smoke=LM_SMOKE)
+    if LM_LAYERS is not None:
+        cfg = cfg.with_(n_layers=LM_LAYERS)
+    phi_cfg = phi_variant(cfg, timesteps=2, q=16).with_(
+        n_layers=min(cfg.n_layers, LM_TRAIN_PHI_LAYERS))
+    ocfg = opt.OptConfig(**LM_TRAIN_OPT)
+    loader = iter(ShardedLoader(DataConfig(vocab=cfg.vocab, seq_len=LM_TRAIN_S,
+                                           global_batch=MT_BATCH, seed=SEED)))
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(loader).items()}
+               for _ in range(MT_PHI_STEPS)]
+    policy = dispatch.PhiExecutionPolicy()
+    prev_policy = dispatch.set_policy(policy)
+    times = {}
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        return res
+
+    try:
+        # ------------------------------------------ one device's references ---
+        params0 = init_params(model.lm_specs(cfg), torch.Generator(device=dev).manual_seed(SEED),
+                              dev)
+        bundle, _, _ = step_lib.make_train_step(cfg, ocfg)
+        loss1, grads = stage("single_grads", lambda: bundle.grads(params0, batches[0]))
+        single = {"grads": _host_shared(grads)}
+        del grads
+        p4, single_losses = stage("single_train_loop", lambda: train_launch.train_loop(
+            cfg, ocfg, steps=MT_STEPS, global_batch=MT_BATCH, seq=LM_TRAIN_S, seed=SEED,
+            log_every=0, device=dev))
+        single["params"] = _host_shared(p4)
+        del p4
+        single_step_ms = cuda_time_ms(lambda: bundle.fn(params0, opt.init(params0, ocfg),
+                                                        batches[0]), runs=3, warmup=1)
+        # pipeline: the four layers in sequence, microbatch by microbatch
+        pipe = torch.randn((*MT_PIPE, cfg.d_model),
+                           generator=torch.Generator(device=dev).manual_seed(SEED + 5),
+                           device=dev).to(cfg.compute_dtype)
+        pos = torch.arange(MT_PIPE[2], device=dev)[None]
+        seq_out = torch.empty_like(pipe)
+        with torch.no_grad():
+            for m in range(MT_PIPE[0]):
+                y = pipe[m]
+                for li in range(cfg.n_layers):
+                    p = transformer.layer_slice(params0["decoder"]["stack"], li)["p0"]
+                    y, _ = transformer.attn_block_prefill(cfg, p, y, pos,
+                                                          cfg.is_global_layer(0))
+                    y = transformer._ffn(cfg, p, y)
+                seq_out[m] = y
+        seq_out = seq_out.cpu()
+        host_params0 = _host_shared(params0)
+        del params0
+        # Phi: calibrated here once on 1 x LM_TRAIN_S tokens (lm_train's
+        # loop calibrates on as many)
+        phi_params = init_params(model.lm_specs(phi_cfg),
+                                 torch.Generator(device=dev).manual_seed(SEED), dev)
+        calib = model.dummy_batch(phi_cfg, 1, LM_TRAIN_S, with_labels=False, device=dev)
+        zero_launches()            # the path's own launches: the calibration's, then the ranks'
+        with torch.no_grad():
+            phi_params, phi_stats = stage("phi_calibrate", lambda: model.calibrate_lm_phi(
+                phi_cfg, phi_params, calib))
+        parent_launches = read_launches()
+        # An L2 capacity no GEMM overflows: the coo lowering drops the
+        # entries past it, and a rank's shard has its own capacity, so only
+        # without drops is the mesh's Phi step one device's
+        budget = min(0.9, 2 * max(st.l2_density for st in phi_stats.values()) + 0.05)
+        phi_cfg = phi_cfg.with_(phi=dataclasses.replace(phi_cfg.phi, nnz_budget=budget))
+        pbundle, _, _ = step_lib.make_train_step(phi_cfg, ocfg)
+        ploss1, pgrads = pbundle.grads(phi_params, batches[0])
+        single["phi_grads"] = _host_shared(pgrads)
+        del pgrads
+        pstate, pp, phi_losses = opt.init(model.split_phi_state(phi_params)[0], ocfg), \
+            phi_params, []
+        for i in range(MT_PHI_STEPS):
+            pp, pstate, l = pbundle.fn(pp, pstate, batches[i])
+            phi_losses.append(float(l))
+        del pp, pstate
+        host_phi = _host_shared(phi_params)
+        del phi_params, batches
+        single_peak = torch.cuda.max_memory_allocated()
+        torch.cuda.empty_cache()
+    finally:
+        dispatch.set_policy(prev_policy)
+
+    # ----------------------------------------------------------- the ranks ---
+    tmp = tempfile.mkdtemp(prefix="mesh_train_")
+    world = MT_MESH[0] * MT_MESH[1]
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn_ranks(mesh_train_rank, world,
+                            [(cfg, phi_cfg, ocfg, LM_TRAIN_S, host_params0, host_phi, single,
+                              tmp, _host_shared(pipe.cpu()))] * world,
+                            device="cuda", timeout=MESH_TIMEOUT, threads=2)
+        times["ranks_s"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del host_params0, host_phi, single
+
+    # ------------------------------------------------------------- report ---
+    lr_sum = _lr_sum(ocfg, MT_STEPS)
+    param_tol = 2 * lr_sum
+    # each leaf's largest difference over its largest entry, both over every
+    # rank's shard (the reference test's measure of the whole leaf)
+    compress_rel = {k: max(r["compress"]["grad_errs"][k][0] for r in ranks)
+                    / max(max(r["compress"]["grad_errs"][k][1] for r in ranks), 1e-30)
+                    for k in ranks[0]["compress"]["grad_errs"]}
+    r0 = ranks[0]
+    report = {
+        "phase": "mesh_train", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+        "note": "ranks are processes sharing one card: their times include each other's work",
+        "config": {"arch": LM_ARCH, "n_layers": cfg.n_layers, "phi_layers": phi_cfg.n_layers,
+                   "phi_nnz_budget": phi_cfg.phi.nnz_budget,
+                   "d_model": cfg.d_model, "vocab": cfg.vocab, "seq": LM_TRAIN_S,
+                   "global_batch": MT_BATCH, "opt": LM_TRAIN_OPT, "mesh": MT_MESH,
+                   "resume_mesh": MT_RESUME_MESH, "pod_mesh": MT_POD_MESH,
+                   "pipe": MT_PIPE},
+        "tolerances": {"loss_rel": BF16_LOSS_REL, "grad_rel": BF16_GRAD_REL,
+                       "param_abs": param_tol, "param_mean_abs": lr_sum / 20,
+                       "compress_loss_rel": MT_COMPRESS_LOSS_REL,
+                       "resume": [RESUME_RTOL, RESUME_ATOL], "compress_rel": MT_COMPRESS_REL},
+        "single": {"loss1": float(loss1), "losses": single_losses, "step_ms": single_step_ms,
+                   "phi_loss1": float(ploss1), "phi_losses": phi_losses,
+                   "peak_memory": single_peak, "launches_calibration": parent_launches},
+        "ranks": [{k: r[k] for k in ("rank", "loss1", "losses", "losses_f32", "resumed",
+                                     "phi_loss1",
+                                     "phi_losses", "step_ms", "step_collectives", "backend",
+                                     "transport", "p2p_transport", "max_memory_allocated",
+                                     "launches", "steps_run", "times_s", "grad_stats",
+                                     "train_step_records")} for r in ranks],
+        "grad_rel_err_max": {k: max(r["grad_errs"][k][0] / max(r["grad_errs"][k][2], 1e-30)
+                                    for r in ranks) for k in r0["grad_errs"]},
+        "param_err": {k: [max(r["param_errs"][k][0] for r in ranks),
+                          max(r["param_errs"][k][1] for r in ranks)] for k in r0["param_errs"]},
+        "phi_grad_rel_err_max": {k: max(r["phi_grad_errs"][k][0]
+                                        / max(r["phi_grad_errs"][k][2], 1e-30) for r in ranks)
+                                 for k in r0["phi_grad_errs"]},
+        "phi_decisions_rank0": r0["phi_decisions"],
+        "reference_reason": "spmd_region",
+        "compress": [{k: v for k, v in r["compress"].items() if k != "grad_errs"}
+                     for r in ranks],
+        "compress_grad_rel_err": compress_rel,
+        "compress_scale_max_diff_in_a_pod": max(
+            abs(r["compress"]["scales"][k] - q["compress"]["scales"][k])
+            for r in ranks for q in ranks for k in r["compress"]["scales"]
+            if r["compress"]["coords"]["pod"] == q["compress"]["coords"]["pod"]),
+        "compress_stats_rank0": r0["compress_stats"],
+        "pipeline": {"ms": [r["pipeline"]["ms"] for r in ranks],
+                     "bubble_fraction": r0["pipeline"]["bubble_fraction"],
+                     "stats_rank0": r0["pipeline"]["stats"],
+                     "p2p_transport": r0["pipeline"]["p2p_transport"]},
+        "ckpt_bytes_compared": r0.get("ckpt_bytes_compared"),
+        "attention_rank0": r0["attention"],
+        "stages_s": times, "seconds": time.perf_counter() - t_phase}
+    emit(report)
+
+    # ------------------------------------------------------------ gates ---
+    for r in ranks:
+        rk = r["rank"]
+        if abs(r["loss1"] - float(loss1)) > BF16_LOSS_REL * abs(float(loss1)):
+            raise AssertionError(f"mesh_train rank {rk}: step 1 loss {r['loss1']} vs {loss1}")
+        for k, (d, _, w) in r["grad_errs"].items():
+            if d > BF16_GRAD_REL * w or w == 0:
+                raise AssertionError(f"mesh_train rank {rk}: grad {k} off by {d} of {w}")
+        if len(r["losses"]) != MT_STEPS or not np.allclose(r["losses"], single_losses, rtol=
+                                                           MT_STEPS * BF16_LOSS_REL, atol=0):
+            raise AssertionError(f"mesh_train rank {rk}: losses {r['losses']} vs "
+                                 f"{single_losses}")
+        for k, (d, mean, _) in r["param_errs"].items():
+            if d > param_tol or mean > lr_sum / 20:
+                raise AssertionError(f"mesh_train rank {rk}: params {k} max {d} mean {mean}")
+        if not np.allclose(r["resumed"], r["losses_f32"], rtol=RESUME_RTOL, atol=RESUME_ATOL):
+            raise AssertionError(f"mesh_train rank {rk}: resumed {r['resumed']} vs "
+                                 f"{r['losses_f32']}")
+        if abs(r["phi_loss1"] - float(ploss1)) > BF16_LOSS_REL * abs(float(ploss1)) or \
+                not np.allclose(r["phi_losses"], phi_losses, rtol=MT_PHI_STEPS * BF16_LOSS_REL,
+                                atol=0):
+            raise AssertionError(f"mesh_train rank {rk}: Phi losses {r['phi_losses']} vs "
+                                 f"{phi_losses}")
+        for k, (d, _, w) in r["phi_grad_errs"].items():
+            if d > BF16_GRAD_REL * w:
+                raise AssertionError(f"mesh_train rank {rk}: Phi grad {k} off by {d} of {w}")
+        spmd = [d for d in r["phi_decisions"] if d[0].endswith(".spmd")]
+        if len({d[0] for d in spmd}) != 7 or any(d[1] != "coo" for d in spmd):
+            raise AssertionError(f"mesh_train rank {rk}: Phi decisions {r['phi_decisions']}")
+        c = r["compress"]
+        if abs(c["loss"] - c["loss_uncompressed"]) > BF16_LOSS_REL * abs(c["loss_uncompressed"]):
+            raise AssertionError(f"mesh_train rank {rk}: compressed loss {c['loss']} vs "
+                                 f"{c['loss_uncompressed']}")
+        if not np.allclose(c["losses"], c["uncompressed_losses"], rtol=MT_COMPRESS_LOSS_REL,
+                           atol=0):
+            raise AssertionError(f"mesh_train rank {rk}: compressed losses {c['losses']} vs "
+                                 f"{c['uncompressed_losses']}")
+        if c["ef_abs_max"] == 0 or c["ef_after_abs_max"] == 0:
+            raise AssertionError(f"mesh_train rank {rk}: ef is zero")
+        if not np.array_equal(r["pipeline"]["out"].float().numpy(), seq_out.float().numpy()):
+            raise AssertionError(f"mesh_train rank {rk}: pipeline differs from the sequential "
+                                 "layers")
+        lc = r["launches"]
+        want_lse = sum(n * (phi_cfg.n_layers if arm == "phi_mesh" else cfg.n_layers)
+                       for arm, n in r["steps_run"].items())
+        if lc["flash_attention_cuda_lse"] != want_lse:
+            raise AssertionError(f"mesh_train rank {rk}: {lc['flash_attention_cuda_lse']} lse "
+                                 f"launches, want {want_lse}")
+    if max(compress_rel.values()) > MT_COMPRESS_REL:
+        raise AssertionError(f"mesh_train: compressed grads {compress_rel}")
+    for pod in range(MT_POD_MESH[0]):
+        same = [r["compress"]["scales"] for r in ranks if r["compress"]["coords"]["pod"] == pod]
+        if any(s != same[0] for s in same):
+            raise AssertionError(f"mesh_train: pod {pod}'s ranks quantise on other scales")
+    if r0.get("ckpt_bytes_compared", 0) <= 0 or r0["train_step_records"] != \
+            2 * MT_STEPS + MT_CRASH + MT_STEPS - MT_CRASH:
+        raise AssertionError(f"mesh_train: checkpoint bytes {r0.get('ckpt_bytes_compared')}, "
+                             f"train_step records {r0['train_step_records']}")
+    if any(r["train_step_records"] for r in ranks[1:]):
+        raise AssertionError("mesh_train: a rank other than 0 emitted train_step records")
+    launches = {k: sum(r["launches"][k] for r in ranks) + parent_launches[k]
+                for k in parent_launches}
+    return {"launches": launches, "attn_err": r0["attention"]["max_abs_err"],
+            "lse_err": r0["attention"]["lse_max_abs_err"]}
+
+
 def main() -> int:
     import torch
 
@@ -3456,10 +4082,11 @@ def main() -> int:
 
     # ------------------------------------------------------ LM training ---
     lm_tr = lm_train_phase(dev, smi)
+    mesh_tr = mesh_train_phase(dev, smi)
     later = {"accel_sim": accel["launches"], "train": trained["launches"],
              "paft": paft_run["launches"], "spikformer_train": spk_train["launches"],
              "lm": lm["launches"], "mesh_serve": mesh["launches"], "hybrid": hyb["launches"],
-             "lm_train": lm_tr["launches"]}
+             "lm_train": lm_tr["launches"], "mesh_train": mesh_tr["launches"]}
 
     # ------------------------------------------------------------ summary ---
     # Times are per batch of the main paths: the sum over the calls one
@@ -3520,14 +4147,15 @@ def main() -> int:
         entry["launches_by_path"].update(by)
         entry["launches"] += sum(by.values())
     attn = entries[2]
-    attn["lse_max_abs_err"] = max(spk_train["lse_err"], lm_tr["lse_err"])
+    attn["lse_max_abs_err"] = max(spk_train["lse_err"], lm_tr["lse_err"], mesh_tr["lse_err"])
     attn["dense_lse_launches"] = sum(later[path]["flash_attention_cuda_lse"]
-                                     for path in ("spikformer_train", "lm_train"))
+                                     for path in ("spikformer_train", "lm_train", "mesh_train"))
     attn["dense_instantiation_launches"] += sum(c["flash_attention_cuda"] for c in later.values())
     attn["lm_dense_max_abs_err"] = lm["attn_err"]
     attn["mesh_dense_max_abs_err"] = mesh["attn_err"]
     attn["hybrid_dense_max_abs_err"] = hyb["attn_err"]
     attn["lm_train_dense_max_abs_err"] = lm_tr["attn_err"]
+    attn["mesh_train_dense_max_abs_err"] = mesh_tr["attn_err"]
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

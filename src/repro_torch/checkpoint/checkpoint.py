@@ -19,10 +19,19 @@ Port of ``repro/checkpoint/checkpoint.py``, single host:
   * keep-last-N garbage collection + background (async) save thread, with
     save failures surfaced on the next ``wait()``. The device-to-host copy
     happens in ``save()`` before the thread starts, so training may go on
-    replacing or writing its tensors.
+    replacing or writing its tensors;
+  * on a mesh (``CheckpointManager(mesh=)`` and ``save(shardings=)``) every
+    rank gathers each leaf to its global value, rank 0 writes the files a
+    single device writes for those values (synchronously), and every rank
+    waits at a barrier; the ranks must share the directory's file system;
+  * **elastic restore** (``shardings=``, the reference's name): every rank
+    reads each global ``.npy`` (memory-mapped) and keeps the block the
+    current mesh's placement gives it (``sharding.shard_slices``), so a run
+    resumes on a mesh of another shape with no conversion step.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -64,13 +73,15 @@ def _to_numpy(x: Any) -> tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
-def _save_npy(path: str, arr: np.ndarray, dtype_name: str) -> None:
+def _save_npy(path, arr: np.ndarray, dtype_name: str) -> None:
+    """Write ``arr`` as a ``.npy`` to ``path`` (a file name or a binary file)."""
     if dtype_name != "bfloat16":
         np.save(path, arr)
         return
     # The header np.save writes for the reference's bfloat16 arrays: 2-byte
     # words whose descr is '<V2' (plain numpy would write '|V2').
-    with open(path, "wb") as f:
+    with open(path, "wb") if isinstance(path, (str, os.PathLike)) else \
+            contextlib.nullcontext(path) as f:
         np.lib.format.write_array_header_1_0(
             f, {"descr": "<V2", "fortran_order": False, "shape": arr.shape})
         f.write(np.require(arr, requirements="C").tobytes())
@@ -114,7 +125,8 @@ def save_tree(path: str, tree: Any, extra: dict | None = None) -> None:
 
 
 def restore_tree(path: str, like: Any, device: str | torch.device | None = None,
-                 missing_ok: tuple[str, ...] = ()) -> tuple[Any, dict]:
+                 missing_ok: tuple[str, ...] = (), *, shardings: Any = None,
+                 mesh=None) -> tuple[Any, dict]:
     """Restore into the structure of ``like``: each leaf as a tensor on the
     ``like`` leaf's device and dtype (``device``, if given, wins; a ``like``
     leaf without a device, such as a ``model.TensorSpec``, lands on the CPU).
@@ -123,11 +135,23 @@ def restore_tree(path: str, like: Any, device: str | torch.device | None = None,
     from an older checkpoint; they are filled with zeros of the ``like``
     leaf's shape/dtype instead of failing the restore (the ``phi_*``
     ``usage`` histograms: all-zero reads as "no histogram" to the policy).
-    Returns (tree, extra).
+
+    ``shardings`` (a tree of placements like ``like``'s) restores onto
+    ``mesh`` (default: the current mesh): each leaf is this rank's block of
+    the saved global array, ``like`` holding the rank's shards. Returns
+    (tree, extra).
     """
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     by_key = {m["key"]: m for m in manifest["leaves"]}
+    placed = None
+    if shardings is not None:
+        from repro_torch.distributed import sharding as shd
+
+        mesh = mesh if mesh is not None else shd.current_mesh()
+        if mesh is None:
+            raise ValueError("restore_tree: shardings without a mesh")
+        placed = dict(_flatten(shardings))
     out = {}
     for key, leaf in _flatten(like):
         dev = torch.device(device) if device is not None else getattr(leaf, "device", None)
@@ -140,10 +164,19 @@ def restore_tree(path: str, like: Any, device: str | torch.device | None = None,
                 log.info("checkpoint leaf %s absent (older schema): zero-filled", key)
                 continue
             raise KeyError(f"checkpoint missing leaf {key}")
-        arr = np.load(os.path.join(path, m["file"]))
-        want = tuple(getattr(leaf, "shape", arr.shape))
-        if tuple(arr.shape) != want:
-            raise ValueError(f"{key}: shape {arr.shape} != expected {want}")
+        if placed is None:
+            arr = np.load(os.path.join(path, m["file"]))
+            want = tuple(getattr(leaf, "shape", arr.shape))
+            if tuple(arr.shape) != want:
+                raise ValueError(f"{key}: shape {arr.shape} != expected {want}")
+        else:
+            arr = np.load(os.path.join(path, m["file"]), mmap_mode="r")
+            local = shd.local_shape(tuple(arr.shape), placed[key], mesh)
+            want = tuple(getattr(leaf, "shape", local))
+            if local != want:
+                raise ValueError(f"{key}: the shard {local} of {arr.shape} under "
+                                 f"{placed[key]} != expected {want}")
+            arr = np.array(arr[shd.shard_slices(tuple(arr.shape), placed[key], mesh)])
         t = _from_numpy(arr, m["dtype"])
         out[key] = t.to(device=dev, dtype=dtype if isinstance(dtype, torch.dtype) else None)
     return _unflatten(like, out), manifest["extra"]
@@ -152,10 +185,11 @@ def restore_tree(path: str, like: Any, device: str | torch.device | None = None,
 class CheckpointManager:
     """Step-indexed checkpoints with keep-N GC and async save."""
 
-    def __init__(self, root: str, keep: int = 3, async_save: bool = True):
+    def __init__(self, root: str, keep: int = 3, async_save: bool = True, mesh=None):
         self.root = root
         self.keep = keep
         self.async_save = async_save
+        self.mesh = mesh
         self._thread: threading.Thread | None = None
         self._error: BaseException | None = None
         os.makedirs(root, exist_ok=True)
@@ -183,8 +217,15 @@ class CheckpointManager:
             err, self._error = self._error, None
             raise err
 
-    def save(self, step: int, tree: Any, extra: dict | None = None) -> None:
+    def save(self, step: int, tree: Any, extra: dict | None = None,
+             shardings: Any = None) -> None:
+        """Save ``tree`` as step ``step``. With the manager's mesh and
+        ``shardings`` (``tree`` holding this rank's shards): every rank
+        gathers each leaf, rank 0 writes, all wait at a barrier."""
         self.wait()
+        if self.mesh is not None and shardings is not None:
+            self._save_from_mesh(step, tree, extra, shardings)
+            return
         # device -> host copy happens here so training can continue mutating
         host_tree = _host_copy(tree)
 
@@ -203,6 +244,27 @@ class CheckpointManager:
             _do()
             self.wait()
 
+    def _save_from_mesh(self, step: int, tree: Any, extra: dict | None,
+                        shardings: Any) -> None:
+        import torch.distributed as dist
+
+        from repro_torch.distributed import collectives as coll
+
+        placed = dict(_flatten(shardings))
+        host = {}
+        for key, leaf in _flatten(tree):
+            full = coll.gather_global(leaf.detach(), placed[key], self.mesh)
+            if self.mesh.rank == 0:
+                host[key] = full.to("cpu", copy=True)
+            del full
+        try:
+            if self.mesh.rank == 0:
+                save_tree(self._step_dir(step), _unflatten(tree, host), extra)
+                self._gc()
+                log.info("checkpoint saved @ step %d from the mesh", step)
+        finally:
+            dist.barrier()
+
     def latest_extra(self) -> dict:
         """The ``extra`` dict of the newest checkpoint without loading any
         array data — config-affecting metadata (e.g. the persisted Phi impl
@@ -214,12 +276,14 @@ class CheckpointManager:
             return json.load(f).get("extra", {})
 
     def restore_latest(self, like: Any, device: str | torch.device | None = None,
-                       missing_ok: tuple[str, ...] = ()):
-        """(step, tree, extra) of the newest checkpoint, or (None, None, {})."""
+                       missing_ok: tuple[str, ...] = (), shardings: Any = None):
+        """(step, tree, extra) of the newest checkpoint, or (None, None, {});
+        with ``shardings``, this rank's shards on the manager's mesh."""
         step = self.latest_step()
         if step is None:
             return None, None, {}
-        tree, extra = restore_tree(self._step_dir(step), like, device, missing_ok=missing_ok)
+        tree, extra = restore_tree(self._step_dir(step), like, device, missing_ok=missing_ok,
+                                   shardings=shardings, mesh=self.mesh)
         return step, tree, extra
 
     def _gc(self) -> None:

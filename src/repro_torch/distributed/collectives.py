@@ -7,17 +7,27 @@ of every tuple of axes, the device the rank computes on and the backend its
 world was set up with.
 
 Every collective of the port goes through :func:`all_reduce`,
-:func:`all_gather` and :func:`all_to_all`, each over a placement entry (one
-mesh axis, a tuple of them, or None: no collective). They run on the tensors
-where they lie, with the world's backend: NCCL where every rank has a card of
-its own, gloo otherwise (several ranks sharing one card, where NCCL refuses
-two ranks on a device). Gloo takes card tensors for all three and moves them
-through host memory itself; the mesh's ``transport`` says which case holds,
-and ``stats`` counts the calls and bytes of each collective so a caller can
-report them.
+:func:`all_gather`, :func:`all_to_all`, :func:`sum_grad` and the
+:func:`send` / :func:`recv` pair, each over a placement entry (one mesh axis,
+a tuple of them, or None: no collective). They run on the tensors where they
+lie, with the world's backend: NCCL where every rank has a card of its own,
+gloo otherwise (several ranks sharing one card, where NCCL refuses two ranks
+on a device). Gloo takes card tensors for the collectives and moves them
+through host memory itself; its send and recv read a tensor's pointer as
+host memory, so :func:`send` and :func:`recv` stage card tensors through
+host buffers themselves. The mesh's ``transport`` says which case holds, and
+``stats`` counts the calls and bytes of each collective, the backward's too,
+so a caller can report them.
 
-The collectives are inference only: they carry no gradient, and a tensor that
-requires one is refused (training on a mesh is not ported yet).
+The collectives carry gradients where autograd needs them, as Megatron's
+tensor-parallel regions do: a sum's backward is the identity (each rank
+holds the whole upstream gradient of a replicated result),
+:func:`sum_grad` is the conjugate (identity forward, the gradient summed:
+a replicated activation entering a sharded computation), an all-gather's
+backward is the reduce-scatter to the rank's slice, and an all-to-all's the
+inverse exchange (the same exchange). Under ``torch.no_grad()`` each runs the
+code it ran before gradients existed, so serving's bits do not move.
+:func:`send` and :func:`recv` move bits only and carry no gradient.
 """
 from __future__ import annotations
 
@@ -66,6 +76,15 @@ class Mesh:
         host memory)."""
         if self.backend == "gloo" and self.device.type == "cuda":
             return "gloo on card tensors (through host memory)"
+        return self.backend
+
+    @property
+    def p2p_transport(self) -> str:
+        """How :func:`send` and :func:`recv` move data: as ``transport``,
+        except that under gloo a card tensor is copied to a host buffer by
+        the helper (gloo's send and recv take host memory only)."""
+        if self.backend == "gloo" and self.device.type == "cuda":
+            return "gloo, card tensors staged through host buffers by send/recv"
         return self.backend
 
     def axes(self, ax) -> tuple[str, ...]:
@@ -127,48 +146,184 @@ def build_groups(axis_names: tuple[str, ...], shape: tuple[int, ...], per_axis: 
 
 
 # ----------------------------------------------------------- collectives ---
-def _begin(x: torch.Tensor, mesh: Mesh, op: str) -> torch.Tensor:
-    """The buffer a collective works on (a contiguous copy of ``x``), with the
-    call counted in ``mesh.stats``."""
-    if x.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError(f"{op} on the mesh carries no gradient: collectives are inference "
-                           "only (training on a mesh is not ported)")
+def _count(mesh: Mesh, op: str, x: torch.Tensor) -> None:
     calls = mesh.stats.setdefault(op, [0, 0])
     calls[0] += 1
     calls[1] += x.numel() * x.element_size()
+
+
+def _begin(x: torch.Tensor, mesh: Mesh, op: str) -> torch.Tensor:
+    """The buffer a collective works on (a contiguous copy of ``x``, never a
+    tensor autograd saved), with the call counted in ``mesh.stats``."""
+    _count(mesh, op, x)
     return x.detach().contiguous().clone()
 
 
-def all_reduce(x: torch.Tensor, mesh: Mesh | None, ax) -> torch.Tensor:
-    """Sum of ``x`` over the ranks of ``ax`` (a new tensor on ``x``'s device)."""
-    if mesh is None or mesh.extent(ax) == 1:
-        return x
-    buf = _begin(x, mesh, "all_reduce")
-    dist.all_reduce(buf, group=mesh.group(ax))
+def _needs_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+def _all_reduce(x: torch.Tensor, mesh: Mesh, ax, op: str = "sum",
+                name: str = "all_reduce") -> torch.Tensor:
+    buf = _begin(x, mesh, name)
+    dist.all_reduce(buf, op=_OPS[op], group=mesh.group(ax))
     return buf
 
 
-def all_gather(x: torch.Tensor, mesh: Mesh | None, ax, dim: int) -> torch.Tensor:
-    """The ranks' ``x`` of ``ax`` concatenated along ``dim`` in index order."""
-    if mesh is None or mesh.extent(ax) == 1:
-        return x
+def _all_gather(x: torch.Tensor, mesh: Mesh, ax, dim: int) -> torch.Tensor:
     buf = _begin(x, mesh, "all_gather")
     parts = [torch.empty_like(buf) for _ in range(mesh.extent(ax))]
     dist.all_gather(parts, buf, group=mesh.group(ax))
     return torch.cat(parts, dim=dim)
 
 
+def _all_to_all(x: torch.Tensor, mesh: Mesh, ax, name: str = "all_to_all") -> torch.Tensor:
+    buf = _begin(x, mesh, name)
+    out = torch.empty_like(buf)
+    dist.all_to_all_single(out, buf, group=mesh.group(ax))
+    return out
+
+
+def _reduce_scatter(g: torch.Tensor, mesh: Mesh, ax, dim: int) -> torch.Tensor:
+    """The sum over the ranks of ``ax`` of ``g``, of which this rank keeps its
+    block along ``dim``: an exchange of the blocks (gloo has no
+    reduce-scatter), then the ranks' blocks summed in rank order."""
+    n = mesh.extent(ax)
+    blocks = _all_to_all(g.movedim(dim, 0), mesh, ax, "reduce_scatter")
+    out = blocks.reshape(n, blocks.shape[0] // n, *blocks.shape[1:]).sum(0)
+    return out.movedim(0, dim)
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, ax):
+        return _all_reduce(x, mesh, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _SumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, ax):
+        ctx.mesh, ctx.ax = mesh, ax
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, ctx.mesh, ctx.ax), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, ax, dim):
+        ctx.mesh, ctx.ax, ctx.dim = mesh, ax, dim
+        return _all_gather(x, mesh, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.mesh, ctx.ax, ctx.dim), None, None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, ax):
+        ctx.mesh, ctx.ax = mesh, ax
+        return _all_to_all(x, mesh, ax)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.mesh, ctx.ax), None, None
+
+
+def all_reduce(x: torch.Tensor, mesh: Mesh | None, ax, op: str = "sum") -> torch.Tensor:
+    """Sum (or ``op="max"``: maximum) of ``x`` over the ranks of ``ax`` (a new
+    tensor on ``x``'s device). The sum's backward is the identity; the
+    maximum carries no gradient."""
+    if mesh is None or mesh.extent(ax) == 1:
+        return x
+    if op != "sum":
+        return _all_reduce(x, mesh, ax, op)
+    if _needs_grad(x):
+        return _AllReduce.apply(x, mesh, ax)
+    return _all_reduce(x, mesh, ax)
+
+
+def sum_grad(x: torch.Tensor, mesh: Mesh | None, ax) -> torch.Tensor:
+    """``x`` itself, whose gradient is summed over the ranks of ``ax``: where
+    an activation (or a leaf) replicated over ``ax`` enters a computation
+    each rank of ``ax`` does a part of. Off autograd, ``x`` unchanged."""
+    if mesh is None or mesh.extent(ax) == 1 or not _needs_grad(x):
+        return x
+    return _SumGrad.apply(x, mesh, ax)
+
+
+def all_gather(x: torch.Tensor, mesh: Mesh | None, ax, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` of ``ax`` concatenated along ``dim`` in index order.
+    Its backward is the reduce-scatter: the gradient summed over the ranks,
+    this rank's block kept."""
+    if mesh is None or mesh.extent(ax) == 1:
+        return x
+    if _needs_grad(x):
+        return _AllGather.apply(x, mesh, ax, dim % x.ndim)
+    return _all_gather(x, mesh, ax, dim)
+
+
 def all_to_all(x: torch.Tensor, mesh: Mesh | None, ax) -> torch.Tensor:
     """``x``'s dim 0 cut into one block per rank of ``ax``; block i goes to
     rank i, and the blocks received come back concatenated in rank order (the
-    reference's ``lax.all_to_all(x, ax, 0, 0, tiled=True)``)."""
+    reference's ``lax.all_to_all(x, ax, 0, 0, tiled=True)``). The exchange is
+    its own inverse, and so its own backward."""
     if mesh is None or mesh.extent(ax) == 1:
         return x
     if x.shape[0] % mesh.extent(ax):
         raise ValueError(f"all_to_all: dim 0 of {tuple(x.shape)} does not split "
                          f"{mesh.extent(ax)} ways")
-    buf = _begin(x, mesh, "all_to_all")
-    out = torch.empty_like(buf)
-    dist.all_to_all_single(out, buf, group=mesh.group(ax))
-    return out
+    if _needs_grad(x):
+        return _AllToAll.apply(x, mesh, ax)
+    return _all_to_all(x, mesh, ax)
 
+
+def gather_global(x: torch.Tensor, placement: tuple, mesh: Mesh | None) -> torch.Tensor:
+    """The global tensor whose shard under ``placement`` is this rank's
+    ``x``: :func:`all_gather` along every split dim (every rank of the mesh
+    must call it, and gets the whole)."""
+    for dim, ax in enumerate(placement):
+        if ax is not None:
+            x = all_gather(x, mesh, ax, dim)
+    return x
+
+
+def _peer(mesh: Mesh, ax, index: int) -> int:
+    """The world rank at ``index`` along ``ax`` that shares this rank's other
+    coordinates."""
+    return dist.get_global_rank(mesh.group(ax), index)
+
+
+def _staged(mesh: Mesh, x: torch.Tensor) -> bool:
+    return mesh.backend == "gloo" and x.device.type != "cpu"
+
+
+def send(x: torch.Tensor, mesh: Mesh, ax, index: int) -> None:
+    """Send ``x`` to the rank at ``index`` along ``ax`` (blocking; bits only,
+    no gradient). Under gloo a card tensor goes through a host copy."""
+    buf = _begin(x, mesh, "send")
+    if _staged(mesh, buf):
+        buf = buf.cpu()
+    dist.send(buf, dst=_peer(mesh, ax, index))
+
+
+def recv(like: torch.Tensor, mesh: Mesh, ax, index: int) -> torch.Tensor:
+    """A tensor shaped, typed and placed as ``like``, received from the rank
+    at ``index`` along ``ax`` (blocking). Under gloo a card tensor arrives in
+    a host buffer and is copied onto the card."""
+    _count(mesh, "recv", like)
+    staged = _staged(mesh, like)
+    buf = torch.empty(like.shape, dtype=like.dtype,
+                      device="cpu" if staged else like.device)
+    dist.recv(buf, src=_peer(mesh, ax, index))
+    return buf.to(like.device) if staged else buf

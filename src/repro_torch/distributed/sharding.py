@@ -210,24 +210,32 @@ def local_shape(shape: tuple[int, ...], placement: tuple, mesh) -> tuple[int, ..
     return tuple(d // axis_size(mesh, ax) for d, ax in zip(shape, ents))
 
 
-def local_shard(x: torch.Tensor, placement: tuple, mesh,
-                coords: dict[str, int] | None = None) -> torch.Tensor:
-    """The slice of the full tensor ``x`` that the rank at ``coords`` (default:
-    the mesh's own rank) holds under ``placement``: each split dim cut into
-    equal blocks, block index the rank's row-major index over that dim's mesh
-    axes. A view where the slices allow it; callers that keep a shard apart
-    from ``x`` copy it."""
+def shard_slices(shape: tuple[int, ...], placement: tuple, mesh,
+                 coords: dict[str, int] | None = None) -> tuple[slice, ...]:
+    """The index of the block of a global array of ``shape`` that the rank at
+    ``coords`` (default: the mesh's own rank) holds under ``placement``: each
+    split dim cut into equal blocks, block index the rank's row-major index
+    over that dim's mesh axes."""
     coords = mesh.coords if coords is None else coords
-    for dim, ax in enumerate(placement):
+    out = []
+    for dim, ax in enumerate(tuple(placement) + (None,) * (len(shape) - len(placement))):
         if ax is None:
+            out.append(slice(None))
             continue
-        n = axis_size(mesh, ax)
         idx = 0
         for a in axis_names_of(ax):
             idx = idx * mesh.shape[a] + coords[a]
-        size = x.shape[dim] // n
-        x = x.narrow(dim, idx * size, size)
-    return x
+        size = shape[dim] // axis_size(mesh, ax)
+        out.append(slice(idx * size, (idx + 1) * size))
+    return tuple(out)
+
+
+def local_shard(x: torch.Tensor, placement: tuple, mesh,
+                coords: dict[str, int] | None = None) -> torch.Tensor:
+    """The slice of the full tensor ``x`` that the rank at ``coords`` (default:
+    the mesh's own rank) holds under ``placement`` (:func:`shard_slices`). A
+    view; callers that keep a shard apart from ``x`` copy it."""
+    return x[shard_slices(tuple(x.shape), placement, mesh, coords)]
 
 
 def place(tree: Any, placements: Any, mesh, coords: dict[str, int] | None = None,

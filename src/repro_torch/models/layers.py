@@ -20,7 +20,8 @@ On a mesh a rank holds a block of the batch rows and the heads. The kernel
 sums each (row, head) alone, but the library contractions of the other
 paths sum in an order that depends on their batch and head counts, so a
 rank runs those inside one device's call shape (``block``,
-:func:`one_device_call`) and gets one device's bits.
+:func:`one_device_call`) and gets one device's bits. Under autograd
+(training, held to a tolerance) a rank runs its own rows and heads.
 """
 from __future__ import annotations
 
@@ -265,6 +266,8 @@ def attention_prefill(cfg: ModelConfig, layer_idx, q, k, v, *, layer_global: boo
 
         if q.device.type == "cuda":
             block = None      # the kernel sums each (row, head) alone; its plain version not
+    if flash_mod.under_autograd(q, k, v):
+        block = None          # training is held to a tolerance: the rank's rows and heads
     return one_device_call(run, block, q, k, v)
 
 

@@ -246,10 +246,15 @@ def param_shardings(cfg: ModelConfig, mesh, rules: dict | None = None) -> dict:
     weight by (k_ax, n_ax), its patterns' K-partitions with K, its PWP bank's
     with K and its columns with N, its usage histogram whole. The reference
     stores the banks split over ``data`` (``pwp_tiles``) and gathers them at
-    each call; a rank here keeps the slice its GEMM reads."""
+    each call; a rank here keeps the slice its GEMM reads.
+
+    These are the placements the forward reads, so no leaf is split over the
+    ZeRO-3 ``fsdp`` dim here (a no-op under ``SERVE_RULES``, where it is
+    None): under ``TRAIN_RULES`` the train step stores the trainable leaves
+    at ``specs_to_shardings`` and all-gathers that dim into these."""
     rules = rules or current_rules()
     specs = lm_specs(cfg)
-    out = specs_to_shardings(specs, mesh, rules)
+    out = specs_to_shardings(specs, mesh, dict(rules, fsdp=None))
 
     def walk(node, placed):
         for k, v in node.items():
@@ -318,6 +323,20 @@ def _tp_sum(cfg: ModelConfig, out: torch.Tensor, name: str, w: torch.Tensor) -> 
     return coll.all_reduce(out.to(torch.float32), mesh, k_ax).to(out.dtype)
 
 
+def _enter(cfg: ModelConfig, x: torch.Tensor, name: str, w: torch.Tensor) -> torch.Tensor:
+    """The input of a column-parallel GEMM (N split, K whole): replicated
+    over N's axis, each rank contracting it with its columns, so its
+    gradient is summed over that axis (``collectives.sum_grad``; identity
+    off autograd, off a mesh and for other weights)."""
+    mesh = current_mesh()
+    if mesh is None or name not in _WEIGHT_AXES:
+        return x
+    k_ax, n_ax = _gemm_axes(cfg, name, w)
+    if k_ax is not None or n_ax is None:
+        return x
+    return coll.sum_grad(x, mesh, n_ax)
+
+
 def _phi_sharded_matmul(cfg, spikes, w, patterns, pwp, name, budget, pwp_scale=None):
     """Phi matmul of one call site; the execution policy resolves the
     lowering (the model layer never names one, except through
@@ -356,7 +375,8 @@ def _mesh_dense_mm(cfg: ModelConfig):
     """The dense GEMM on a mesh: ``layers.default_mm`` with the row-parallel
     weights' partial products summed over their K axis."""
     def mm(a: torch.Tensor, p: dict, name: str) -> torch.Tensor:
-        return _tp_sum(cfg, ll.default_mm(a, p, name), name, p[name])
+        w = p[name]
+        return _tp_sum(cfg, ll.default_mm(_enter(cfg, a, name, w), p, name), name, w)
 
     return mm
 
@@ -374,7 +394,7 @@ def make_matmul(cfg: ModelConfig):
     def mm(x: torch.Tensor, p: dict, name: str) -> torch.Tensor:
         w = p[name]
         phi_p = p.get("phi_" + name)
-        spikes = rate_code(x, phi.timesteps, lif)                  # (T, ..., K)
+        spikes = rate_code(_enter(cfg, x, name, w), phi.timesteps, lif)   # (T, ..., K)
         if phi_p is None:
             out = _tp_sum(cfg, spikes.to(cfg.compute_dtype) @ w.to(cfg.compute_dtype), name, w)
         elif spike_impl != "phi":
@@ -406,7 +426,7 @@ def spiking_dense_matmul(cfg: ModelConfig):
     lif = LIFConfig()
 
     def mm(x: torch.Tensor, p: dict, name: str) -> torch.Tensor:
-        spikes = rate_code(x, phi.timesteps, lif)
+        spikes = rate_code(_enter(cfg, x, name, p[name]), phi.timesteps, lif)
         out = _tp_sum(cfg, spikes @ p[name].to(torch.float32), name, p[name])
         return (out.mean(0) * 2.0).to(x.dtype)
 
@@ -739,13 +759,46 @@ def train_logits(cfg: ModelConfig, params: dict, batch: dict, matmul=None) -> to
 
 
 def train_loss(cfg: ModelConfig, params: dict, batch: dict, matmul=None) -> torch.Tensor:
-    """Masked next-token cross-entropy. labels: (B, S_total) int, -1 = pad."""
+    """Masked next-token cross-entropy. labels: (B, S_total) int, -1 = pad.
+    On a mesh: :func:`_vocab_parallel_loss`."""
+    if current_mesh() is not None:
+        return _vocab_parallel_loss(cfg, params, batch, matmul)
     logits = train_logits(cfg, params, batch, matmul)
     labels = batch["labels"].long()
     logp = F.log_softmax(logits, dim=-1)
     take = torch.gather(logp, -1, torch.clamp(labels, min=0)[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
     return -(take * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def _vocab_parallel_loss(cfg: ModelConfig, params: dict, batch: dict,
+                         matmul=None) -> torch.Tensor:
+    """:func:`train_loss` on a mesh: the global batch's masked mean, the
+    same on every rank. A rank runs its rows (the ``batch`` axes) and
+    multiplies them by its block of a vocab-parallel head, never gathering
+    the logits: the row maxima, the sums of exponentials and the target
+    logits are reduced over the vocab axis (the maxima carry no gradient),
+    and the masked sum and the count over the batch axes. The head's input
+    is replicated over the vocab axis (``collectives.sum_grad``)."""
+    mesh = current_mesh()
+    bd, rows, local = _batch_rows(batch)
+    with rows:
+        x, _ = _forward(cfg, params, local, matmul)
+    w = params["head"].to(cfg.compute_dtype)
+    ax = _vocab_axis() if w.shape[1] != cfg.vocab else None
+    h = ll.apply_norm(cfg, params["ln_f"], x).to(cfg.compute_dtype)
+    logits = (coll.sum_grad(h, mesh, ax) @ w).to(torch.float32)        # (b, S, V / n)
+    top = coll.all_reduce(logits.detach().amax(-1), mesh, ax, op="max")
+    lse = top + torch.log(coll.all_reduce(torch.exp(logits - top[..., None]).sum(-1),
+                                          mesh, ax))
+    labels = local["labels"].long()
+    tgt = labels.clamp(min=0) - (mesh.index(ax) * w.shape[1] if ax is not None else 0)
+    hit = (tgt >= 0) & (tgt < w.shape[1])
+    take = torch.gather(logits, -1, tgt.clamp(0, w.shape[1] - 1)[..., None])[..., 0]
+    take = coll.all_reduce(take * hit.to(torch.float32), mesh, ax)
+    mask = (labels >= 0).to(torch.float32)
+    total = coll.all_reduce(((lse - take) * mask).sum(), mesh, bd)
+    return total / torch.clamp(coll.all_reduce(mask.sum(), mesh, bd), min=1.0)
 
 
 def prefill(cfg: ModelConfig, params: dict, batch: dict, matmul=None):

@@ -16,8 +16,9 @@ layer). Per rank:
 
 Capacity is static (ceil(k·tokens·cf/E)); tokens past it are dropped
 (standard token-dropping MoE): :func:`moe_ep` with ``capacity_factor`` large
-enough that nothing drops equals the dense path. Without a mesh it is the
-dense path, as the reference's. Experts are contracted by einsum, not
+enough that nothing drops equals the dense path, and under autograd so do
+its gradients (the collectives carry them; see :func:`moe_ep`). Without a
+mesh it is the dense path, as the reference's. Experts are contracted by einsum, not
 through the injectable GEMM, so they stay dense in Phi spiking mode, as in
 the reference.
 """
@@ -79,14 +80,18 @@ def _expert_ffn(cfg: ModelConfig, p: dict, toks: torch.Tensor) -> torch.Tensor:
 
 
 def _shared_expert(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """The always-on expert (a plain MLP). On a mesh its ``sw2`` is
-    row-parallel: the partial products are summed over its K axis."""
+    """The always-on expert (a plain MLP). On a mesh its ``sw1``/``sw3`` are
+    column-parallel (the input's gradient summed over their N axis) and its
+    ``sw2`` row-parallel: the partial products are summed over its K axis."""
     ct = cfg.compute_dtype
     xc = x.to(ct)
+    split = p["sw2"].shape[-2] != cfg.d_ff
+    if split:
+        ax = resolve_spec(("mlp",))[0]
+        xc = coll.sum_grad(xc, current_mesh(), ax)
     h = _act(cfg, xc @ p["sw1"].to(ct), lambda: xc @ p["sw3"].to(ct))
     out = h @ p["sw2"].to(ct)
-    if p["sw2"].shape[-2] != cfg.d_ff:
-        ax = resolve_spec(("mlp",))[0]
+    if split:
         out = coll.all_reduce(out.to(torch.float32), current_mesh(), ax).to(ct)
     return out
 
@@ -133,6 +138,19 @@ def _combine(out_buf: torch.Tensor, route, gates: torch.Tensor, N: int) -> torch
     return out.index_add_(0, src, vals)
 
 
+class _ScaleGrad(torch.autograd.Function):
+    """Identity forward; the gradient times ``factor``."""
+
+    @staticmethod
+    def forward(ctx, x, factor):
+        ctx.factor = factor
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.factor, None
+
+
 def moe_ep(cfg: ModelConfig, p: dict, x: torch.Tensor, stats: dict | None = None
            ) -> torch.Tensor:
     """Expert-parallel MoE on the current mesh. x (B, S, D): this rank's
@@ -161,6 +179,12 @@ def moe_ep(cfg: ModelConfig, p: dict, x: torch.Tensor, stats: dict | None = None
     buf = coll.all_to_all(buf.reshape(tp, e_loc, cap, D), mesh, "model")
     buf = buf.transpose(0, 1).reshape(e_loc, tp * cap, D)
     pp = {k: p[k] for k in ("w1", "w2", "w3") if k in p}
+    if torch.is_grad_enabled():
+        # every rank of 'model' holds its rows' tokens, so each token reaches
+        # its experts once from each of them: under autograd (a loss the same
+        # on every rank) the experts' weights take the mean of those tp
+        # gradients
+        pp = {k: _ScaleGrad.apply(w, 1.0 / tp) for k, w in pp.items()}
     if fsdp_ax is not None and mesh.shape[fsdp_ax] > 1:   # ZeRO-3 gather of the hidden dim
         pp = {k: coll.all_gather(w, mesh, fsdp_ax, dim=1 if k == "w2" else 2)
               for k, w in pp.items()}

@@ -25,7 +25,8 @@ its block of Q (and KV) heads, read from the local weights' widths, and its
 block of ``d_ff``; the row-parallel out-projections' partial sums are
 completed by the matmul (``models.model``). The head mask and replicated KV
 heads take the rank's block of the global head range, and attention runs on
-the rank's block inside one device's call shape (``layers.one_device_call``).
+the rank's block inside one device's call shape (``layers.one_device_call``);
+under autograd (training on a mesh) on the rank's own rows and heads.
 """
 from __future__ import annotations
 
@@ -33,7 +34,8 @@ import math
 
 import torch
 
-from repro_torch.distributed.sharding import ParamSpec, shard
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.sharding import ParamSpec, current_mesh, resolve_spec, shard
 from repro_torch.models import layers as ll
 from repro_torch.models import mamba2, moe
 from repro_torch.models.config import ModelConfig
@@ -135,8 +137,6 @@ def _head_block(cfg: ModelConfig, hq: int) -> int:
     (0 on one device, where ``hq`` is all of them)."""
     if hq == cfg.q_heads_padded:
         return 0
-    from repro_torch.distributed.sharding import current_mesh, resolve_spec
-
     mesh = current_mesh()
     if mesh is None:
         raise ValueError(f"{hq} of {cfg.q_heads_padded} Q heads outside a mesh")
@@ -185,6 +185,11 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, ma
     v = v.reshape(B, S, hkv_stored, cfg.hd)
     if hkv_stored < kv_local:  # replicate logical KV heads (the rank's block of them)
         first = _head_block(cfg, hq) * kv_local
+        if current_mesh() is not None:
+            # each rank reads its block of heads of replicated K, V: their
+            # gradients are summed over the heads' axis
+            k, v = (coll.sum_grad(t, current_mesh(), resolve_spec(("heads",))[0])
+                    for t in (k, v))
         k = ll._repeat_kv(k, cfg.kv_heads_padded // hkv_stored)[:, :, first:first + kv_local]
         v = ll._repeat_kv(v, cfg.kv_heads_padded // hkv_stored)[:, :, first:first + kv_local]
     q = shard(ll.rope(q, positions, cfg.rope_theta), "batch", "seq", "act_heads", None)

@@ -1369,3 +1369,69 @@ def test_collectives_on_card_tensors_in_a_two_rank_world(dev):
         np.testing.assert_array_equal(got["all_to_all"],
                                       np.concatenate([np.split(x0, 2)[rank],
                                                       np.split(x1, 2)[rank]]))
+
+
+# The gradient-carrying collectives on card tensors in the same 2-rank world,
+# each against one process's autograd of the function the ranks compute
+# together: a sum's result is replicated and feeds one loss (its backward
+# the identity); a replicated input or gathered result feeds each rank's own
+# part of the loss (the gradient summed over the ranks); the exchange's
+# blocks feed each rank's part. Exact, as above. Then send and recv of a
+# card tensor.
+def _weights(rank: int) -> np.ndarray:
+    return np.arange(16, dtype=np.float32).reshape(2, 8) * (rank + 2) - 3
+
+
+def _grad_rank(rank: int) -> dict:
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.launch.mesh import make_mesh
+
+    mesh = make_mesh((2,), ("model",))
+    dev = mesh.device
+    x = torch.from_numpy(_collective_input(rank)).to(dev).requires_grad_()
+    c = torch.from_numpy(_weights(rank)).to(dev)
+    shared = torch.from_numpy(_weights(0)).to(dev)       # the same on both ranks
+    out = {}
+    for op, loss_of in (
+            ("all_reduce", lambda: (coll.all_reduce(x, mesh, "model") * shared[0]).sum()),
+            ("sum_grad", lambda: (coll.sum_grad(x, mesh, "model") * c[0]).sum()),
+            ("all_gather", lambda: (coll.all_gather(x[None], mesh, "model", 0) * c).sum()),
+            ("all_to_all", lambda: (coll.all_to_all(x, mesh, "model") * c[0]).sum())):
+        (g,) = torch.autograd.grad(loss_of(), [x])
+        out[op] = g.cpu().numpy()
+    y = torch.arange(6, dtype=torch.float32, device=dev).reshape(2, 3) + 0.5
+    if rank == 0:
+        coll.send(y * 3, mesh, "model", 1)
+    else:
+        got = coll.recv(y, mesh, "model", 0)
+        out["recv"], out["recv_device"] = got.cpu().numpy(), str(got.device)
+    out["p2p_transport"] = mesh.p2p_transport
+    return out
+
+
+def test_gradient_collectives_and_send_recv_on_card_tensors(dev):
+    from repro_torch.launch.mesh import spawn_ranks
+
+    out = spawn_ranks(_grad_rank, 2, device="cuda", timeout=180)
+    xs = [torch.from_numpy(_collective_input(r)).requires_grad_() for r in range(2)]
+    cs = [torch.from_numpy(_weights(r)) for r in range(2)]
+    shared = cs[0]
+    want = {
+        "all_reduce": ((xs[0] + xs[1]) * shared[0]).sum(),
+        "sum_grad": sum((xs[0] * c[0]).sum() for c in cs),
+        "all_gather": sum((torch.stack(xs) * c).sum() for c in cs),
+        "all_to_all": sum((torch.cat([x.reshape(2, 4)[r] for x in xs]) * cs[r][0]).sum()
+                          for r in range(2)),
+    }
+    for op, loss in want.items():
+        if op == "sum_grad":       # x is replicated: rank 1 holds rank 0's copy
+            g = torch.autograd.grad(loss, [xs[0]])[0]
+            for rank in range(2):
+                np.testing.assert_array_equal(out[rank][op], g.numpy(), err_msg=op)
+            continue
+        gs = torch.autograd.grad(loss, xs)
+        for rank in range(2):
+            np.testing.assert_array_equal(out[rank][op], gs[rank].numpy(), err_msg=op)
+    np.testing.assert_array_equal(out[1]["recv"], (np.arange(6, dtype=np.float32)
+                                                   .reshape(2, 3) + 0.5) * 3)
+    assert out[1]["recv_device"].startswith("cuda")

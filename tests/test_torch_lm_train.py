@@ -245,9 +245,16 @@ def test_the_port_resumes_a_reference_checkpoint(fresh_policy):
 
 
 def test_train_loop_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="one device"):
+    """``train_loop`` trains on a mesh (``tests/test_torch_distributed_train.py``)
+    but refuses one whose batch axes do not split the global batch: each data
+    rank must run rows of its own. The mesh is built by hand (no world): the
+    refusal comes before any collective."""
+    from repro_torch.distributed.collectives import Mesh
+
+    mesh = Mesh(("data", "model"), (2, 1), rank=0, device="cpu", backend="gloo")
+    with pytest.raises(ValueError, match="does not split"):
         train_loop(get_config("olmo_1b", smoke=True), opt.OptConfig(), steps=1,
-                   global_batch=1, seq=8, mesh=object(), device="cpu")
+                   global_batch=1, seq=8, mesh=mesh, device="cpu")
 
 
 # ------------------------------------------------------- the launchers ---

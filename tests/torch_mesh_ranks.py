@@ -119,3 +119,175 @@ def world_rank(rank: int, lm_args: tuple, moe_args: tuple) -> dict:
     return {"lm": lm_rank(rank, *lm_args),
             "moe": [moe_run(shape, axes, cfg, p, x) for shape, axes, p, x in runs],
             "collectives": collectives_run()}
+
+
+# ------------------------------------------------------------- training ---
+def _np(tree):
+    if isinstance(tree, dict):
+        return {k: _np(v) for k, v in tree.items()}
+    return tree.detach().numpy()
+
+
+def _gather(tree, placements, mesh):
+    """The global numpy values of a tree of this rank's shards."""
+    from repro_torch.distributed import collectives as coll
+
+    if isinstance(tree, dict):
+        return {k: _gather(tree[k], placements[k], mesh) for k in tree}
+    return coll.gather_global(tree, placements, mesh).numpy()
+
+
+def train_steps(cfg, ocfg, params, batch, mesh, steps: int, rules=None) -> dict:
+    """On ``mesh`` under ``rules`` (default ``TRAIN_RULES``): step 1's loss
+    and gathered grads, the gathered trainable params after step 1, every
+    step's loss, this rank's trainable shards after ``steps`` steps, and the
+    policy's decisions."""
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_lib
+    from repro_torch.distributed.sharding import place
+
+    pol = dispatch.PhiExecutionPolicy()
+    prev = dispatch.set_policy(pol)
+    try:
+        bundle, _, _, _ = step_lib.make_train_step(cfg, ocfg, mesh, rules)
+        p_sh, _, _ = bundle.in_shardings
+        t_sh = model.split_phi_state(p_sh)[0]
+        local = place(params, p_sh, mesh)
+        loss, grads = bundle.grads(local, batch)
+        out = {"loss": float(loss), "grads": _gather(grads, t_sh, mesh), "losses": []}
+        state = opt.init(model.split_phi_state(local)[0], ocfg)
+        for i in range(steps):
+            local, state, loss = bundle.fn(local, state, batch)
+            out["losses"].append(float(loss))
+            if i == 0:
+                out["after"] = _gather(model.split_phi_state(local)[0], t_sh, mesh)
+        out["local"] = _np(model.split_phi_state(local)[0])
+        out["placements"] = t_sh
+        out["decisions"] = pol.decisions()
+    finally:
+        dispatch.set_policy(prev)
+    return out
+
+
+def compressed_run(inputs: dict) -> dict:
+    """``pod_compressed_grads`` on (pod 2, data 2, model 2): case c0 the
+    reference test's (a replicated leaf), case c1 a leaf split over
+    ``model`` with a loss that sums its columns' squares over ``model``."""
+    from repro_torch.distributed import collectives as coll
+    from repro_torch.distributed.sharding import local_shard
+    from repro_torch.train.grad_compress import pod_compressed_grads
+
+    mesh = make_mesh((2, 2, 2), ("pod", "data", "model"))
+    out = {}
+    for case, pl in (("c0", ()), ("c1", (None, "model"))):
+        w, x, ef = (torch.from_numpy(inputs[f"{case}_{k}"]) for k in ("w", "x", "ef"))
+        n_cols = w.shape[1]
+
+        def loss_fn(p, b):
+            y = b["x"] @ p["w"]
+            return coll.all_reduce((y ** 2).sum(), mesh, pl[1] if pl else None) / (
+                y.shape[0] * n_cols)
+
+        stats: dict = {}
+        with use_rules(TRAIN_RULES, mesh):
+            loss, grads, new_ef = pod_compressed_grads(
+                loss_fn, {"w": local_shard(w, pl, mesh).clone()}, {"x": x},
+                {"w": local_shard(ef, pl, mesh).clone()}, mesh, placements={"w": pl},
+                stats=stats)
+        out[case] = {"loss": float(loss),
+                     "grads": coll.gather_global(grads["w"], pl, mesh).numpy(),
+                     "new_ef": coll.gather_global(new_ef["w"], pl, mesh).numpy(),
+                     "scale": stats["w"]}
+    out["stats"] = {k: list(v) for k, v in mesh.stats.items()}
+    out["coords"] = mesh.coords
+    return out
+
+
+def pipeline_run(inputs: dict) -> np.ndarray:
+    """``pipeline_apply`` over pod = 4 on (pod 4, data 2), the reference
+    test's stage."""
+    from repro_torch.distributed.pipeline import pipeline_apply
+
+    mesh = make_mesh((4, 2), ("pod", "data"))
+    s = mesh.coords["pod"]
+    params = {k: torch.from_numpy(inputs[f"pipe_{k}"][s:s + 1]) for k in ("w", "b")}
+
+    def stage_fn(p, x):
+        return torch.tanh(x @ p["w"] + p["b"])
+
+    return pipeline_apply(stage_fn, params, torch.from_numpy(inputs["pipe_x"]), mesh,
+                          axis="pod").numpy()
+
+
+def checkpoint_run(ckpt: str) -> dict:
+    """The reference's elastic test: an (8, 8) leaf placed (data, model)
+    saved from (4, 2), restored placed (model, data) on (2, 4)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.distributed.sharding import local_shape, local_shard
+
+    tree = torch.arange(64, dtype=torch.float32).reshape(8, 8)
+    mesh1 = make_mesh((4, 2), ("data", "model"))
+    mgr = CheckpointManager(ckpt, keep=2, async_save=False, mesh=mesh1)
+    mgr.save(10, {"w": local_shard(tree, ("data", "model"), mesh1).clone()},
+             {"loader": {"step": 7}}, shardings={"w": ("data", "model")})
+    mesh2 = make_mesh((2, 4), ("data", "model"))
+    like = {"w": torch.zeros(local_shape((8, 8), ("model", "data"), mesh2))}
+    step, got, extra = CheckpointManager(ckpt, mesh=mesh2).restore_latest(
+        like, shardings={"w": ("model", "data")})
+    return {"step": step, "extra": extra, "w": got["w"].numpy(),
+            "want": local_shard(tree, ("model", "data"), mesh2).numpy()}
+
+
+def crash_resume_run(cfg, ocfg, ckpt: str, steps: int, crash: int) -> dict:
+    """``train_loop(mesh=)``: ``steps`` uninterrupted steps on (4, 2);
+    ``crash`` steps on (4, 2) checkpointed, resumed on (2, 4) to ``steps``."""
+    from repro_torch.launch.train import train_loop
+
+    kw = dict(global_batch=8, seq=32, log_every=0)
+    full = train_loop(cfg, ocfg, steps=steps, mesh=make_mesh((4, 2), ("data", "model")),
+                      **kw)[1]
+    first = train_loop(cfg, ocfg, steps=crash, ckpt_dir=ckpt, ckpt_every=100,
+                       mesh=make_mesh((4, 2), ("data", "model")), **kw)[1]
+    rest = train_loop(cfg, ocfg, steps=steps, ckpt_dir=ckpt,
+                      mesh=make_mesh((2, 4), ("data", "model")), **kw)[1]
+    return {"full": full, "resumed": first + rest}
+
+
+def moe_grad_run(cfg, p, x, g) -> dict:
+    """``moe_ep`` on (data 2, model 4) under autograd: the gradients of
+    sum(y * g) over this rank's rows with respect to its rows of ``x`` and
+    its shards of the weights (the shared expert's as its body reads them:
+    ``fsdp`` whole)."""
+    from repro_torch.distributed.sharding import place, specs_to_shardings
+
+    mesh = make_mesh((2, 4), ("data", "model"))
+    placed = specs_to_shardings(moe.moe_specs(cfg), mesh, dict(TRAIN_RULES, fsdp=None))
+    rows = x.shape[0] // 2
+    r0 = mesh.coords["data"] * rows
+    local = {k: v.requires_grad_() for k, v in place(p, placed, mesh).items()}
+    xl = x[r0:r0 + rows].clone().requires_grad_()
+    with use_rules(TRAIN_RULES, mesh):
+        y = moe.moe_ep(cfg, local, xl)
+    gs = torch.autograd.grad((y * g[r0:r0 + rows]).sum(), [xl, *local.values()])
+    return {"x": gs[0].numpy(), **{k: t.numpy() for k, t in zip(local, gs[1:])},
+            "placements": placed}
+
+
+def train_world(rank: int, dense_args: tuple, phi_args: tuple, inputs: dict, tmp: str,
+                moe_args: tuple, loop_args: tuple) -> dict:
+    """The training test world's body (8 ranks): dense and Phi steps on
+    (data 4, model 2), the compressed gradients, the pipeline, the elastic
+    checkpoint, a crash and resume through ``train_loop`` and ``moe_ep``'s
+    gradients."""
+    mesh = make_mesh((4, 2), ("data", "model"))
+    return {"coords": mesh.coords,
+            "dense": train_steps(*dense_args, mesh=mesh, steps=3),
+            # no ZeRO-3: every leaf replicated over data, updated on each replica
+            "dense_dp": train_steps(*dense_args, mesh=mesh, steps=3,
+                                    rules=dict(TRAIN_RULES, fsdp=None)),
+            "phi": train_steps(*phi_args, mesh=mesh, steps=1),
+            "compressed": compressed_run(inputs),
+            "pipeline": pipeline_run(inputs),
+            "checkpoint": checkpoint_run(f"{tmp}/elastic"),
+            "crash_resume": crash_resume_run(*loop_args, f"{tmp}/loop", 4, 2),
+            "moe": [moe_grad_run(*args) for args in moe_args]}
