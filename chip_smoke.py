@@ -65,15 +65,35 @@ phases, and the ``kernels`` summary:
   local operands; then one Arctic-480B MoE layer at full width, ``moe_dense``
   here and ``moe_ep`` over four ranks of 32 experts, within ``MOE_ULPS``
   bf16 ulps, no token dropped; per-rank times, collectives and peak memory);
-* hybrid serving — ``hybrid_serve`` (Zamba2-1.2B at full width and depth in
-  Phi spiking mode: 36 Mamba-2 layers in 6 sites, each followed by the
-  shared attention + MLP block with the site's LoRA on Q, then 2 tail
-  layers; ``lm_serve``'s calibration batch, prefill gate and requests; the
-  engine as Phi and spiking-dense runs, token- and logit-identical, a
-  one-slot Phi engine over two requests, token-identical, and a
-  ``paged=True`` engine that keeps dense slots; each kernel against its
-  plain version at layer 0's operands; prefill, decode and GEMM timings at
-  the wz, wB (N = 64) and wo sites; calibration seconds and peak memory);
+* hybrid serving — ``hybrid_serve`` (Zamba2-1.2B at full width in Phi
+  spiking mode, depth cut to ``HYB_LAYERS`` = 14 of its 38 layers: 12
+  Mamba-2 layers in 2 sites, each followed by the shared attention + MLP
+  block with the site's LoRA on Q, then the 2 tail layers; ``lm_serve``'s
+  calibration batch, prefill gate and requests; the engine as Phi and
+  spiking-dense runs, token- and logit-identical, a one-slot Phi engine
+  over two requests, token-identical, and a ``paged=True`` engine that
+  keeps dense slots; each kernel against its plain version at layer 0's
+  operands; prefill, decode and GEMM timings at the wz, wB (N = 64) and wo
+  sites; calibration seconds and peak memory);
+* the hybrid on a mesh — ``hybrid_mesh`` (``hybrid_serve``'s calibrated
+  params cut to the first site and the tail, 8 layers at full width, no
+  second calibration; on (data 2, model 2), four spawned ranks sharing the
+  card through gloo, shards through host shared memory: a 2 x 2048 Phi
+  prefill and 4 decode steps bitwise one device's, the engine over
+  ``hybrid_serve``'s requests token-identical to one device's engine,
+  every ``lm.*.spmd`` decision a fused kernel in the per-rank body with
+  ``shards`` 4, each rank's decode state at its placements' local shapes,
+  each rank's launches counted; rank 0's kernels against their plain
+  versions at its layer-0 local operands (LIF, streaming at wz and the
+  Mamba-2 wo, the first fused kernel at the shared wo, attention at 16
+  heads); then the same 8 layers dense at float32, 2 ZeRO-3 /
+  tensor-parallel steps through ``train_loop(mesh=)`` at S = 2048, global
+  batch 2, against one device's: step 1's loss within 2^-12, every
+  gathered gradient leaf within 2^-5 of its largest entry, the params
+  within 2 sum(lr); step 1 at the config's bf16 too, loss within 2^-12 and
+  gradients within 2^-2 of one device's bf16 ones, beside one device's own
+  bf16 gap to float32; per-rank ms beside one device's, collectives, peak
+  memory);
 * LM training and checkpoints — ``lm_train`` (OLMo-1B at full width,
   ``LM_TRAIN_LAYERS`` = 2 deep, through ``launch.train.train_loop`` at B = 1, S =
   2048, every layer's attention on the kernel with lse under autograd:
@@ -101,11 +121,12 @@ phases, and the ``kernels`` summary:
   one device's, peak memory and attention launches).
 
 Every ``*main_path`` phase, ``lm_serve``, ``mesh_serve``, ``hybrid_serve``,
-``lm_train`` and ``mesh_train`` print the policy's decisions (site, impl,
-reason, count). Each main path,
-``accel_sim``'s captures and ``phi_apply`` calls, each of the four training
-phases and the two serving phases' counted runs are driven with every
-kernel's launch count set to 0 just before and read just after. The card's
+``hybrid_mesh``, ``lm_train`` and ``mesh_train`` print the policy's
+decisions (site, impl, reason, count). Each main path, ``accel_sim``'s
+captures and ``phi_apply`` calls, each of the four training phases, the
+serving phases' counted runs and ``hybrid_mesh``'s serving and training
+runs on every rank are driven with every kernel's launch count set to 0
+just before and read just after. The card's
 ``nvidia-smi`` name and power limit sit on their own line before the
 summary; the last line is the result object.
 
@@ -2055,10 +2076,85 @@ def _host_shared(tree):
     return out.copy_(tree)
 
 
+def _card_memory(reset: bool = False) -> dict:
+    """This process's peak bytes allocated and reserved since the last reset,
+    its bytes reserved now, and the card's free and total bytes (every
+    process's use counted). With ``reset`` the cache is emptied and the
+    peaks reset after reading."""
+    import gc
+
+    import torch
+
+    torch.cuda.synchronize()
+    free, total = torch.cuda.mem_get_info()
+    out = {"peak_allocated": torch.cuda.max_memory_allocated(),
+           "peak_reserved": torch.cuda.max_memory_reserved(),
+           "reserved": torch.cuda.memory_reserved(), "card_free": free, "card_total": total}
+    if reset:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return out
+
+
+def _release_before_ranks() -> dict:
+    """Frees what this process no longer references and returns its cache to
+    the card before ranks are spawned onto it; what it still holds, and the
+    card's free bytes, are returned."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    return {"allocated": torch.cuda.memory_allocated(), "reserved": torch.cuda.memory_reserved(),
+            "card_free": free, "card_total": total}
+
+
 def _to_device(tree, dev):
     if isinstance(tree, dict):
         return {k: _to_device(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+def timed_into(times: dict):
+    """``timed(name, fn)``: ``fn()`` between two card syncs, its ms appended
+    to ``times[name]``."""
+    import torch
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    return timed
+
+
+def greedy_run(cfg, params, batch, steps: int, timed) -> tuple[list, list]:
+    """The prefill of ``batch`` and ``steps`` greedy decode steps, each call
+    through ``timed`` ("prefill_ms", "decode_ms"): every step's logits
+    (numpy) and the decode state's shapes. On a mesh, in the caller's
+    ``use_rules``."""
+    import torch
+
+    from repro_torch.models import model
+
+    B, S = batch["tokens"].shape
+    logits, caches = timed("prefill_ms", lambda: model.prefill(cfg, params, batch))
+    caches = model.extend_caches(cfg, caches, S + steps + 1)
+    outs = [logits.cpu().numpy()]
+    tok = logits.argmax(-1).to(torch.int32)
+    for i in range(steps):
+        pos = torch.full((B,), S + i, dtype=torch.int32, device=tok.device)
+        logits, caches = timed("decode_ms", lambda: model.decode_step(cfg, params, tok, pos,
+                                                                      caches))
+        outs.append(logits.cpu().numpy())
+        tok = logits.argmax(-1).to(torch.int32)
+    return outs, [tuple(x.shape) for x in model.state_leaves(caches)]
 
 
 def _bf16_ulp(v: float) -> float:
@@ -2108,9 +2204,10 @@ def _first_attention_operands(fn):
 
 def _record_layer0(params, cfg, batch, mesh) -> dict:
     """Every rank: a prefill of ``batch`` on the mesh (its collectives need
-    every rank) that records this rank's layer-0 local operands: each Phi
-    site's first GEMM (spikes, weight, patterns, bank, usage), the first LIF
-    current and the first attention call's q, k, v."""
+    every rank) that records this rank's layer-0 local operands: the first
+    GEMM of each Phi site and local K (spikes, weight, patterns, bank, usage,
+    the kernel the policy chose), the first LIF current and the first
+    attention call's q, k, v."""
     import torch
 
     from repro_torch.distributed.sharding import SERVE_RULES, use_rules
@@ -2123,8 +2220,10 @@ def _record_layer0(params, cfg, batch, mesh) -> dict:
             self.first = {}
 
         def matmul(self, a, w, patterns, pwp, **kw):
-            self.first.setdefault(kw["site"], (a, w, patterns, pwp, kw.get("usage")))
-            return super().matmul(a, w, patterns, pwp, **kw)
+            out = super().matmul(a, w, patterns, pwp, **kw)
+            self.first.setdefault((kw["site"], w.shape[0]), (
+                a, w, patterns, pwp, kw.get("usage"), self.last_decision(kw["site"]).impl))
+            return out
 
     rec = Recording()
     prev = dispatch.set_policy(rec)
@@ -2140,30 +2239,35 @@ def _record_layer0(params, cfg, batch, mesh) -> dict:
     return {"policy": rec, "gemms": rec.first, "lif": held["lif"], "qkv": held["qkv"]}
 
 
-def _mesh_rank_checks(policy, rec) -> dict:
+# OLMo's sites on the mesh: w1 column-parallel, w2 and wo row-parallel (wo's
+# local T = 64 takes the first fused kernel at model = 2).
+OLMO_MESH_SITES = {"lm.w1.spmd": ("lm.w1.spmd", None), "lm.w2.spmd": ("lm.w2.spmd", None),
+                   "lm.wo.spmd": ("lm.wo.spmd", None)}
+
+
+def _mesh_rank_checks(policy, rec, sites=OLMO_MESH_SITES) -> dict:
     """Rank 0, after the counted run, while the other ranks wait: each kernel
     the ranks launched against its plain version at this rank's layer-0
-    local operands (``rec``), and their times. The card is this rank's alone
-    then."""
+    local operands (``rec``), and their times. ``sites`` maps a label to
+    (site, local K), K None for the site's first GEMM. The card is this
+    rank's alone then."""
     import torch
 
     from repro_torch.core.patterns import active_pattern_sets
     from repro_torch.kernels.phi_fused import pack_patterns
 
     out = {"gemms": [], "l2_entries_256_rows": {}}
-    # w1 column-parallel, w2 and wo row-parallel (wo's local T = 64 takes
-    # the first fused kernel at model = 2)
-    for site in ("lm.w1.spmd", "lm.w2.spmd", "lm.wo.spmd"):
-        a, w, pats, pwp, usage = rec["gemms"][site]
+    for label, (site, k_local) in sites.items():
+        a, w, pats, pwp, usage, route = next(
+            v for (s, K), v in rec["gemms"].items() if s == site and k_local in (None, K))
         args = [a[:256].contiguous(), pats, pwp, torch.ones(pwp.shape[:2], device=a.device), w]
         sets, _ = active_pattern_sets(usage) if usage is not None else (None, 1.0)
         p_active = None if sets is None else int(sets.shape[-1])
         packed = pack_patterns(pats)
-        out["l2_entries_256_rows"][site] = fused_checks(f"mesh {site}", args, packed,
-                                                        active_sets(args, p_active))
-        route = policy.last_decision(site).impl
+        out["l2_entries_256_rows"][label] = fused_checks(f"mesh {label}", args, packed,
+                                                         active_sets(args, p_active))
         targs = [a[:1024].contiguous()] + args[1:]
-        row = fused_timing(site, targs, packed, route, active_sets(targs, p_active),
+        row = fused_timing(label, targs, packed, route, active_sets(targs, p_active),
                            plain_runs=1)
         b_ms, o_ms = needed_bound_ms(targs[0], pats, w.shape[1])
         row.update(bytes_ms=b_ms, ops_ms=o_ms, bound_ms=max(b_ms, o_ms),
@@ -2193,7 +2297,6 @@ def mesh_lm_rank(rank, cfg, params, batch, short, prompts, check: bool) -> dict:
     from repro_torch.distributed.sharding import SERVE_RULES, use_rules
     from repro_torch.kernels import dispatch
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import model
     from repro_torch.serve.engine import Engine, Request
     from repro_torch.utils import log
 
@@ -2205,29 +2308,10 @@ def mesh_lm_rank(rank, cfg, params, batch, short, prompts, check: bool) -> dict:
     dispatch.set_policy(policy)
     dispatch.register_usage_from_params(params)
     times: dict = {}
-
-    def timed(name, fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        times.setdefault(name, []).append((time.perf_counter() - t0) * 1e3)
-        return res
+    timed = timed_into(times)
 
     def greedy(c, b, steps, label):
-        B, S = b["tokens"].shape
-        logits, caches = timed(f"{label}_prefill_ms", lambda: model.prefill(c, params, b))
-        caches = model.extend_caches(c, caches, S + steps + 1)
-        outs = [logits.cpu().numpy()]
-        tok = logits.argmax(-1).to(torch.int32)
-        for i in range(steps):
-            pos = torch.full((B,), S + i, dtype=torch.int32, device=mesh.device)
-            logits, caches = timed(f"{label}_decode_ms", lambda: model.decode_step(
-                c, params, tok, pos, caches))
-            outs.append(logits.cpu().numpy())
-            tok = logits.argmax(-1).to(torch.int32)
-        shapes = [tuple(x.shape) for x in model.state_leaves(caches)]
-        return outs, shapes
+        return greedy_run(c, params, b, steps, lambda name, fn: timed(f"{label}_{name}", fn))
 
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
@@ -2359,27 +2443,11 @@ def mesh_serve_phase(dev, smi, lm) -> dict:
                                   torch.Generator().manual_seed(SEED + 2), dev)
         short = model.dummy_batch(cfg, *MESH_SHORT, False,
                                   torch.Generator().manual_seed(SEED + 3), dev)
-        single, single_ms = [], {"prefill": [], "decode": []}
+        ms: dict = {}
         with torch.no_grad():
-            B, S = MESH_PREFILL
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, caches = model.prefill(cfg, params, batch)
-            torch.cuda.synchronize()
-            single_ms["prefill"].append((time.perf_counter() - t0) * 1e3)
-            caches = model.extend_caches(cfg, caches, S + MESH_DECODE_STEPS + 1)
-            single.append(logits.cpu().numpy())
-            tok = logits.argmax(-1).to(torch.int32)
-            for i in range(MESH_DECODE_STEPS):
-                pos = torch.full((B,), S + i, dtype=torch.int32, device=dev)
-                t0 = time.perf_counter()
-                logits, caches = model.decode_step(cfg, params, tok, pos, caches)
-                torch.cuda.synchronize()
-                single_ms["decode"].append((time.perf_counter() - t0) * 1e3)
-                single.append(logits.cpu().numpy())
-                tok = logits.argmax(-1).to(torch.int32)
-            single_shapes = [tuple(x.shape) for x in model.state_leaves(caches)]
-            del caches, logits
+            single, single_shapes = greedy_run(cfg, params, batch, MESH_DECODE_STEPS,
+                                               timed_into(ms))
+        single_ms = {"prefill": ms["prefill_ms"], "decode": ms["decode_ms"]}
         torch.cuda.empty_cache()
     finally:
         dispatch.set_policy(prev_policy)
@@ -2529,10 +2597,14 @@ def mesh_serve_phase(dev, smi, lm) -> dict:
 
 
 # The hybrid serving path: Zamba2-1.2B (src/repro_torch/configs/zamba2_1p2b.py)
-# at full width and depth in Phi spiking mode, with lm_serve's calibration,
-# prefill gate, requests and engine sizes.
+# at full width in Phi spiking mode, with lm_serve's calibration, prefill
+# gate, requests and engine sizes. Its depth is cut to HYB_LAYERS = 14 of 38:
+# the first 2 of its 6 sites (6 Mamba-2 layers and the shared block each) and
+# the 2 tail layers. It ran all 38 until hybrid_mesh joined the script; the
+# cut pays for that phase (the calibration alone took 139-157 s at 38).
 HYB_ARCH = "zamba2_1p2b"
 HYB_SMOKE = False          # the smoke cut, for rehearsing the phase on the CPU
+HYB_LAYERS = 14            # of Zamba2-1.2B's 38 layers
 HYB_SOLO = 2               # requests the one-slot engine serves again
 MAMBA_GEMMS = ("wz", "wx", "wB", "wC", "wdt", "wo")
 SHARED_GEMMS = {"attn": ("wq", "wk", "wv", "wo"), "mlp": ("w1", "w3", "w2")}
@@ -2554,20 +2626,22 @@ def hybrid_sites(decoder) -> dict:
 
 
 def hybrid_serve_phase(dev, smi) -> dict:
-    """The ``hybrid_serve`` phase: Zamba2-1.2B in Phi spiking mode, full width
-    and depth (36 Mamba-2 layers in 6 sites, each followed by the shared
-    attention + MLP block with the site's LoRA on Q, then 2 tail layers), on
-    the card. With every kernel's launch count set to 0 just before and read
+    """The ``hybrid_serve`` phase: Zamba2-1.2B in Phi spiking mode, full width,
+    HYB_LAYERS deep (12 Mamba-2 layers in 2 sites, each followed by the
+    shared attention + MLP block with the site's LoRA on Q, then 2 tail
+    layers), on the card. With every kernel's launch count set to 0 just before and read
     just after: params from a seeded generator on the card, rounded onto the
     2^-10 grid; ``calibrate_lm_phi`` on 2 x 128 tokens; the prefill gate
     (``train_logits`` at B = 1, S = 2048, Phi bitwise the spiking-dense arm,
-    the attention kernel at all 6 sites); the engine over 8 requests and 4
+    the attention kernel at every site); the engine over 8 requests and 4
     slots as Phi and spiking-dense, token- and logit-identical; a one-slot
     Phi engine over two of them, token-identical (each admission writes its
     slot's states at their own batch axis); a ``paged=True`` engine keeping
     dense slots. Then, outside the counted run: every kernel the phase
     launched against its plain version at layer 0's operands; prefill,
-    decode-step and GEMM timings beside their bounds; peak memory."""
+    decode-step and GEMM timings beside their bounds; peak memory. Returns
+    the launches and errors, and the calibrated config, params and requests
+    (``hybrid_mesh`` takes them)."""
     import dataclasses
 
     import numpy as np
@@ -2584,7 +2658,7 @@ def hybrid_serve_phase(dev, smi) -> dict:
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = phi_variant(get_config(HYB_ARCH, smoke=HYB_SMOKE))
+    cfg = phi_variant(get_config(HYB_ARCH, smoke=HYB_SMOKE)).with_(n_layers=HYB_LAYERS)
     n_sites = cfg.n_layers // cfg.hybrid_attn_every
     policy = dispatch.PhiExecutionPolicy()
     prev_policy = dispatch.set_policy(policy)
@@ -2781,9 +2855,383 @@ def hybrid_serve_phase(dev, smi) -> dict:
           **timing, "serve": serve_rows, "pwp_bytes": pwp_bytes, "weight_bytes": weight_bytes,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "seconds": time.perf_counter() - t_phase})
-    del params, runs, paged
+    del runs, paged, captured, split
     torch.cuda.empty_cache()
-    return {"launches": launches, "lif_err": lif_err, "attn_err": attn_row["max_abs_err"]}
+    return {"launches": launches, "lif_err": lif_err, "attn_err": attn_row["max_abs_err"],
+            "cfg": cfg, "params": params, "prompts": prompts}
+
+
+# The hybrid on a mesh: hybrid_serve's calibrated Zamba2-1.2B cut to its
+# first site (6 Mamba-2 layers and the shared block) and its 2 tail layers, 8
+# of 38 layers at full width, on four ranks sharing the card through gloo;
+# then the same 8 layers dense, trained on that mesh. No second calibration:
+# the cut keeps the first site's layers of hybrid_serve's banks.
+HM_MESH = (2, 2)                   # (data, model)
+HM_PREFILL = (2, 2048)             # B, S: S > 1024 takes the attention kernel
+HM_DECODE_STEPS = 4
+HM_TRAIN_STEPS = 2
+HM_TRAIN_BATCH = 2                 # global rows: one a data rank
+# Training runs twice; mesh_train's gates hold the float32 arm. The config's own
+# bf16 arm takes step 1 only: at bf16 one device's gradients lie up to 29.6%
+# of a leaf's largest entry from its own float32 ones (mamba_tail/wB), and
+# the mesh's up to 20.5% from one device's (mamba/D; ln/w 8.9%) and within
+# 1.44x one device's bf16 gap from float32 (H100, seed 0). Its gradients are
+# held to one device's within HM_BF16_GRAD_REL, between those two readings.
+HM_BF16_GRAD_REL = 2.0 ** -2
+
+
+def hybrid_first_site(cfg, params):
+    """(config, params) of ``cfg``'s first site and tail: the main stack's
+    first ``hybrid_attn_every`` layers (their Phi state with them), the shared
+    block, the first site's LoRA and the whole tail, copied so that the rest
+    can be let go."""
+    g = cfg.hybrid_attn_every
+    tail = cfg.n_layers - (cfg.n_layers // g) * g
+
+    def lead(tree, n):
+        if isinstance(tree, dict):
+            return {k: lead(v, n) for k, v in tree.items()}
+        return tree[:n].clone()
+
+    dec = dict(params["decoder"])
+    dec["mamba"], dec["ln"] = lead(dec["mamba"], g), lead(dec["ln"], g)
+    dec["lora_a"], dec["lora_b"] = lead(dec["lora_a"], 1), lead(dec["lora_b"], 1)
+    return cfg.with_(n_layers=g + tail), dict(params, decoder=dec)
+
+
+def hybrid_mesh_rank(rank, cfg, params, batch, prompts, dcfg, bcfg, ocfg, params0, single,
+                     check: bool) -> dict:
+    """One rank of the hybrid mesh. Serving: every kernel's launch count set
+    to 0, the prefill of ``batch`` and HM_DECODE_STEPS greedy decode steps
+    and the engine over ``prompts``, the counts read; rank 0 (``check``)
+    then holds the kernels against their plain versions at its layer-0 local
+    operands. Training: the counts set to 0, step 1's loss and gradients of
+    ``dcfg`` (float32) and of ``bcfg`` (bf16) from ``params0``, gathered and
+    held against ``single``'s, then HM_TRAIN_STEPS steps of ``dcfg`` through
+    ``train_loop(mesh=)`` from the same seed, the counts read."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import DataConfig, ShardedLoader
+    from repro_torch.distributed.sharding import SERVE_RULES, place, use_rules
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train as train_launch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.train import step as step_lib
+    from repro_torch.utils import log
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    log.setLevel("WARNING")
+    mesh = make_mesh(HM_MESH, ("data", "model"))
+    dev = mesh.device
+    params, batch = _to_device(params, dev), _to_device(batch, dev)
+    policy = dispatch.PhiExecutionPolicy()
+    dispatch.set_policy(policy)
+    dispatch.register_usage_from_params(params)
+    times: dict = {}
+    timed = timed_into(times)
+    B, S = batch["tokens"].shape
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with torch.no_grad(), use_rules(SERVE_RULES, mesh):
+        outs, cache_shapes = greedy_run(cfg, params, batch, HM_DECODE_STEPS, timed)
+    want_state, _ = step_lib.init_decode_state(cfg, B, S + HM_DECODE_STEPS + 1, mesh)
+    want_shapes = [tuple(x.shape) for x in model.state_leaves(want_state)]
+    del want_state
+    eng = Engine(cfg, params, batch_slots=LM_SLOTS, max_context=LM_MAX_CONTEXT, mesh=mesh,
+                 wall_time=True)
+    for rid, toks in enumerate(prompts):
+        eng.submit(Request(rid=rid, tokens=toks, max_new_tokens=LM_MAX_NEW))
+    tokens = {r.rid: list(r.tokens) for r in timed("engine_ms", eng.run)}
+    launches = read_launches()
+    spmd = sorted({site for site, _, _ in policy.decisions() if site.endswith(".spmd")})
+    out = {"rank": rank, "coords": mesh.coords, "backend": mesh.backend,
+           "transport": mesh.transport, "logits": outs, "cache_shapes": cache_shapes,
+           "want_cache_shapes": want_shapes, "tokens": tokens, "launches": launches,
+           "engine_ticks": eng.ticks, "decoded_tokens": eng.decoded_tokens,
+           "serve_collectives": {op: {"calls": c, "bytes": b}
+                                 for op, (c, b) in mesh.stats.items()},
+           "serve_peak_memory": torch.cuda.max_memory_allocated(),
+           "decisions": [[*key, n] for key, n in sorted(policy.decisions().items())],
+           "last": {site: {k: v for k, v in dataclasses.asdict(policy.last_decision(site)).items()
+                           if k != "runtime_sets"} for site in spmd}}
+    del eng
+    rec = _record_layer0(params, cfg, batch, mesh)
+    if check:
+        out["checks"] = _mesh_rank_checks(policy, rec, {
+            "lm.wz.spmd": ("lm.wz.spmd", None),
+            "lm.wo.spmd mamba": ("lm.wo.spmd", cfg.d_inner // HM_MESH[1]),
+            "lm.wo.spmd shared": ("lm.wo.spmd", cfg.q_heads_padded * cfg.hd // HM_MESH[1])})
+    del rec, params
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ training ---
+    loader = iter(ShardedLoader(DataConfig(vocab=dcfg.vocab, seq_len=S,
+                                           global_batch=HM_TRAIN_BATCH, seed=SEED)))
+    batch0 = {k: torch.from_numpy(v).to(dev) for k, v in next(loader).items()}
+    dist.barrier()                 # rank 0's checks done: the steps' times are the steps'
+    mesh.stats.clear()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    bundle, _, _, _ = step_lib.make_train_step(dcfg, ocfg, mesh)
+    p_sh = bundle.in_shardings[0]
+    t_sh = model.split_phi_state(p_sh)[0]
+    local = _to_device(place(params0, p_sh, mesh), dev)
+    loss1, grads = timed("grads_ms", lambda: bundle.grads(local, batch0))
+    out["loss1"] = float(loss1)
+    out["grad_errs"] = _gathered_errs(grads, t_sh, mesh, single["grads"])[0]
+    del grads
+    bundle, _, _, _ = step_lib.make_train_step(bcfg, ocfg, mesh)
+    loss1, grads = timed("grads_bf16_ms", lambda: bundle.grads(local, batch0))
+    out["loss1_bf16"] = float(loss1)
+    out["grad_errs_bf16"], out["grad_errs_bf16_f32"] = _gathered_errs(
+        grads, t_sh, mesh, single["grads_bf16"], single["grads"])
+    del grads, local, bundle
+    p_full, losses = timed("train_loop_ms", lambda: train_launch.train_loop(
+        dcfg, ocfg, steps=HM_TRAIN_STEPS, global_batch=HM_TRAIN_BATCH, seq=S, seed=SEED,
+        log_every=0, mesh=mesh))
+    out["losses"] = losses
+    out["param_errs"] = _gathered_errs(model.split_phi_state(p_full)[0], t_sh, mesh,
+                                       single["params"])[0]
+    del p_full
+    out["train_launches"] = read_launches()
+    out["train_collectives"] = {op: {"calls": c, "bytes": b} for op, (c, b) in mesh.stats.items()}
+    out["train_peak_memory"] = torch.cuda.max_memory_allocated()
+    out["times_ms"] = times
+    return out
+
+
+def hybrid_mesh_phase(dev, smi, hyb) -> dict:
+    """The ``hybrid_mesh`` phase. Serving: ``hybrid_serve``'s calibrated
+    Zamba2-1.2B cut to its first site and tail (:func:`hybrid_first_site`);
+    on one device (this process) a Phi prefill at HM_PREFILL, HM_DECODE_STEPS
+    greedy decode steps and the engine over ``hybrid_serve``'s requests;
+    every rank's shards (``model.param_shardings``) through host shared
+    memory to four spawned ranks on this card, which run the same. Gates, all
+    bitwise: the mesh's logits against one device's, its engine's tokens
+    against one device's engine's; every ``lm.*.spmd`` decision a fused
+    kernel in the per-rank body with ``shards`` 4, every rank's decode state
+    its placements' local shapes, the attention kernel at the prefill's one
+    site. Training: the same 8 layers dense at float32 (``train_loop``'s
+    seeded params and batches), one device's step 1 and HM_TRAIN_STEPS
+    steps here, the ranks' on (data 2, model 2): step 1's loss within
+    BF16_LOSS_REL, every gathered gradient leaf within BF16_GRAD_REL of its
+    largest entry, the params after the steps within 2 Σlr (mean within
+    Σlr / 20); the config's
+    bf16 step 1: loss within BF16_LOSS_REL and gradients within
+    HM_BF16_GRAD_REL of one device's bf16 ones, whose own gap to its float32
+    ones is printed beside them."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, ShardedLoader
+    from repro_torch.distributed.sharding import SERVE_RULES, init_params, place
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train as train_launch
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import model
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import step as step_lib
+
+    t_phase = time.perf_counter()
+    cfg, params = hybrid_first_site(hyb["cfg"], hyb.pop("params"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    prompts = hyb["prompts"]
+    times: dict = {}
+    stage = timed_into(times)
+
+    # ------------------------------------------ one device's references ---
+    policy = dispatch.PhiExecutionPolicy()
+    prev_policy = dispatch.set_policy(policy)
+    try:
+        dispatch.register_usage_from_params(params)
+        batch = model.dummy_batch(cfg, *HM_PREFILL, False,
+                                  torch.Generator().manual_seed(SEED + 2), dev)
+        B, S = HM_PREFILL
+        with torch.no_grad():
+            single, _ = greedy_run(cfg, params, batch, HM_DECODE_STEPS, stage)
+            eng = Engine(cfg, params, batch_slots=LM_SLOTS, max_context=LM_MAX_CONTEXT)
+            for rid, toks in enumerate(prompts):
+                eng.submit(Request(rid=rid, tokens=toks, max_new_tokens=LM_MAX_NEW))
+            single_tokens = {r.rid: list(r.tokens) for r in stage("engine_ms", eng.run)}
+            del eng
+    finally:
+        dispatch.set_policy(prev_policy)
+    axes = ("data", "model")
+    grid = types.SimpleNamespace(axis_names=axes, shape=dict(zip(axes, HM_MESH)))
+    placements = model.param_shardings(cfg, grid, SERVE_RULES)
+    # each model index's shards, which its data ranks share, in host shared memory
+    by_model = {m: _host_shared(place(params, placements, grid, {"data": 0, "model": m},
+                                      copy=False))
+                for m in range(HM_MESH[1])}
+    shard_bytes = {m: sum(t.numel() * t.element_size() for t in tree_leaves(sh))
+                   for m, sh in by_model.items()}
+    full_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    serve_peak = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+
+    # dense training: train_loop's seeded params, one device's step 1 at
+    # float32 and at the config's bf16, and its steps at float32
+    bcfg = get_config(HYB_ARCH, smoke=HYB_SMOKE).with_(n_layers=cfg.n_layers)
+    dcfg = bcfg.with_(compute_dtype=torch.float32)
+    ocfg = opt.OptConfig(**LM_TRAIN_OPT)
+    loader = iter(ShardedLoader(DataConfig(vocab=dcfg.vocab, seq_len=S,
+                                           global_batch=HM_TRAIN_BATCH, seed=SEED)))
+    batch0 = {k: torch.from_numpy(v).to(dev) for k, v in next(loader).items()}
+    torch.cuda.reset_peak_memory_stats()
+    params0 = init_params(model.lm_specs(dcfg), torch.Generator(device=dev).manual_seed(SEED),
+                          dev)
+    bundle, _, _ = step_lib.make_train_step(dcfg, ocfg)
+    loss1, grads = stage("grads_ms", lambda: bundle.grads(params0, batch0))
+    bundle, _, _ = step_lib.make_train_step(bcfg, ocfg)
+    loss1_bf16, grads_bf16 = stage("grads_bf16_ms", lambda: bundle.grads(params0, batch0))
+    # one device's own bf16 gap: its bf16 gradients against its float32 ones
+    bf16_noise = {k: float((g - w).abs().max() / w.abs().max().clamp_min(1e-30))
+                  for (k, g), (_, w) in zip(_flat_leaves(grads_bf16), _flat_leaves(grads))}
+    ref = {"grads": _host_shared(grads), "grads_bf16": _host_shared(grads_bf16)}
+    del grads, grads_bf16, bundle
+    host_params0 = _host_shared(params0)
+    del params0
+    p_end, single_losses = stage("train_loop_ms", lambda: train_launch.train_loop(
+        dcfg, ocfg, steps=HM_TRAIN_STEPS, global_batch=HM_TRAIN_BATCH, seq=S, seed=SEED,
+        log_every=0, device=dev))
+    ref["params"] = _host_shared(p_end)
+    del p_end
+    train_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.empty_cache()
+
+    # ----------------------------------------------------------- the ranks ---
+    world = HM_MESH[0] * HM_MESH[1]
+    parent_memory = _release_before_ranks()
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(hybrid_mesh_rank, world,
+                        [(cfg, by_model[r % HM_MESH[1]], _host_shared(batch), prompts, dcfg,
+                          bcfg, ocfg, host_params0, ref, r == 0) for r in range(world)],
+                        device="cuda", timeout=MESH_TIMEOUT, threads=2)
+    times["ranks_s"] = time.perf_counter() - t0
+    del by_model, host_params0, ref
+
+    # ------------------------------------------------------------ report ---
+    lr_sum = _lr_sum(ocfg, HM_TRAIN_STEPS)
+    checks = ranks[0].get("checks", {})
+    launches = {k: sum(r["launches"][k] + r["train_launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
+
+    def rank_row(r):
+        return {k: r[k] for k in ("rank", "coords", "backend", "transport", "times_ms",
+                                  "engine_ticks", "decoded_tokens", "serve_collectives",
+                                  "train_collectives", "serve_peak_memory",
+                                  "train_peak_memory", "launches", "train_launches",
+                                  "loss1", "loss1_bf16", "losses")}
+
+    def worst(key):
+        return {k: max(r[key][k][0] / max(r[key][k][2], 1e-30) for r in ranks)
+                for k in ranks[0][key]}
+
+    emit({"phase": "hybrid_mesh", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+          "note": "ranks are processes sharing one card: their times include each other's work",
+          "config": {"arch": HYB_ARCH, "n_layers": cfg.n_layers,
+                     "sites": cfg.n_layers // cfg.hybrid_attn_every,
+                     "mesh": dict(zip(axes, HM_MESH)), "prefill": HM_PREFILL,
+                     "decode_steps": HM_DECODE_STEPS, "requests": len(prompts),
+                     "train_steps": HM_TRAIN_STEPS, "train_batch": HM_TRAIN_BATCH,
+                     "train_seq": S, "train_dtype": str(dcfg.compute_dtype),
+                     "bf16_dtype": str(bcfg.compute_dtype), "opt": LM_TRAIN_OPT,
+                     "nnz_budget": cfg.phi.nnz_budget},
+          "full_param_bytes": full_bytes, "shard_bytes_by_model_index": shard_bytes,
+          "parent_memory_before_ranks": parent_memory,
+          "single_device": {"times_ms": times, "serve_peak_memory": serve_peak,
+                            "train_peak_memory": train_peak, "loss1": float(loss1),
+                            "loss1_bf16": float(loss1_bf16), "losses": single_losses},
+          "ranks": [rank_row(r) for r in ranks],
+          "decisions_rank0": ranks[0]["decisions"],
+          "last_decisions_rank0": {s: [d["impl"], d["reason"], d["shards"], d["shape"]]
+                                   for s, d in ranks[0]["last"].items()},
+          "grad_rel_err_max": worst("grad_errs"),
+          "bf16_grad_rel_err_max": {"mesh_vs_one_device": worst("grad_errs_bf16"),
+                                    "one_device_vs_float32": bf16_noise,
+                                    "mesh_vs_float32": worst("grad_errs_bf16_f32")},
+          "param_err_max": {k: max(r["param_errs"][k][0] for r in ranks)
+                            for k in ranks[0]["param_errs"]},
+          "tolerances": {"loss_rel": BF16_LOSS_REL, "grad_rel": BF16_GRAD_REL,
+                         "bf16_grad_rel": HM_BF16_GRAD_REL,
+                         "param_abs": 2 * lr_sum, "param_mean_abs": lr_sum / 20},
+          "checks_rank0": checks,
+          "gates": ["prefill_and_decode_bitwise_one_device", "engine_tokens_equal_one_device",
+                    "spmd_local_fused_shards", "train_within_tolerances"],
+          "seconds": time.perf_counter() - t_phase})
+
+    # ------------------------------------------------------------ gates ---
+    names = {f"lm.{n}.spmd" for n in MAMBA_GEMMS + SHARED_GEMMS["attn"] + SHARED_GEMMS["mlp"]}
+    for r in ranks:
+        rk = r["rank"]
+        got = r["logits"]
+        if len(got) != len(single) or any(g.shape != (B, cfg.vocab) for g in got):
+            raise AssertionError(f"hybrid_mesh rank {rk}: logits {[g.shape for g in got]}")
+        for i, (g, w) in enumerate(zip(got, single)):
+            if not np.array_equal(g, w):
+                raise AssertionError(f"hybrid_mesh rank {rk} step {i}: mesh logits differ from "
+                                     f"one device's, max |diff| {float(np.abs(g - w).max())}")
+        if r["tokens"] != single_tokens:
+            raise AssertionError(f"hybrid_mesh rank {rk}: engine tokens differ from one "
+                                 "device's engine's")
+        if r["cache_shapes"] != r["want_cache_shapes"]:
+            raise AssertionError(f"hybrid_mesh rank {rk}: decode state {r['cache_shapes']} != "
+                                 f"{r['want_cache_shapes']}")
+        if set(r["last"]) != names:
+            raise AssertionError(f"hybrid_mesh rank {rk}: spmd sites {sorted(r['last'])}")
+        for site, impl, reason, _ in r["decisions"]:
+            if site.endswith(".spmd") and (
+                    impl not in ("fused", "fused_stream", "fused_prefetch")
+                    or not reason.startswith("spmd_local_")):
+                raise AssertionError(f"hybrid_mesh rank {rk} {site}: {impl} {reason}")
+        if any(d["shards"] != world for d in r["last"].values()):
+            raise AssertionError(f"hybrid_mesh rank {rk}: shards "
+                                 f"{ {s: d['shards'] for s, d in r['last'].items()} }")
+        lc = r["launches"]
+        for impl in ("fused", "fused_stream", "fused_prefetch"):
+            n = sum(c for site, i, _, c in r["decisions"] if i == impl and site in names)
+            if lc[f"phi_{impl}_cuda"] != n:
+                raise AssertionError(f"hybrid_mesh rank {rk}: phi_{impl} launched "
+                                     f"{lc[f'phi_{impl}_cuda']} times for {n} decisions")
+        if lc["phi_fused_stream_cuda"] <= 0 or lc["phi_fused_cuda"] <= 0 or \
+                lc["lif_sequence_cuda"] <= 0 or lc["flash_attention_cuda"] != 1:
+            raise AssertionError(f"hybrid_mesh rank {rk}: launches {lc}")
+        if r["train_launches"]["flash_attention_cuda_lse"] <= 0:
+            raise AssertionError(f"hybrid_mesh rank {rk}: train launches {r['train_launches']}")
+        if abs(r["loss1"] - float(loss1)) > BF16_LOSS_REL * abs(float(loss1)):
+            raise AssertionError(f"hybrid_mesh rank {rk}: step 1 loss {r['loss1']} vs {loss1}")
+        for k, (d, _, w) in r["grad_errs"].items():
+            if d > BF16_GRAD_REL * w:
+                raise AssertionError(f"hybrid_mesh rank {rk}: grad {k} off by {d} of {w}")
+        if abs(r["loss1_bf16"] - float(loss1_bf16)) > BF16_LOSS_REL * abs(float(loss1_bf16)):
+            raise AssertionError(f"hybrid_mesh rank {rk}: bf16 step 1 loss {r['loss1_bf16']} "
+                                 f"vs {loss1_bf16}")
+        for k, (d, _, w) in r["grad_errs_bf16"].items():
+            if d > HM_BF16_GRAD_REL * w:
+                raise AssertionError(f"hybrid_mesh rank {rk}: bf16 grad {k} off by {d} of {w}")
+        if len(r["losses"]) != HM_TRAIN_STEPS or not np.allclose(
+                r["losses"], single_losses, rtol=HM_TRAIN_STEPS * BF16_LOSS_REL, atol=0):
+            raise AssertionError(f"hybrid_mesh rank {rk}: losses {r['losses']} vs "
+                                 f"{single_losses}")
+        for k, (d, mean, _) in r["param_errs"].items():
+            if d > 2 * lr_sum or mean > lr_sum / 20:
+                raise AssertionError(f"hybrid_mesh rank {rk}: params {k} max {d} mean {mean}")
+    if float(np.std(single[0])) == 0 or not np.isfinite(single[0]).all():
+        raise AssertionError("hybrid_mesh: constant or non-finite prefill logits")
+
+    return {"launches": launches, "lif_err": checks["lif_max_abs_err"],
+            "attn_err": checks["attention"]["max_abs_err"]}
 
 
 # LM training and checkpoints: OLMo-1B (lm_serve's config, LM_TRAIN_LAYERS
@@ -3292,19 +3740,23 @@ def _checkpoint_bytes_equal(path, tree, extra) -> int:
     return compared
 
 
-def _gathered_errs(tree, placements, mesh, want):
-    """{leaf: (max |diff|, mean |diff|, max |want|)} of a tree of this rank's
-    shards, gathered leaf by leaf, against the global values ``want``."""
+def _gathered_errs(tree, placements, mesh, *wants) -> list:
+    """For each tree of global values in ``wants``, {leaf: (max |diff|,
+    mean |diff|, max |want|)} of a tree of this rank's shards, gathered leaf
+    by leaf once, against it."""
     from repro_torch.distributed import collectives as coll
 
-    pls, ws = dict(_flat_leaves(placements)), dict(_flat_leaves(want))
-    out = {}
+    pls = dict(_flat_leaves(placements))
+    ws = [dict(_flat_leaves(want)) for want in wants]
+    out = [{} for _ in wants]
     for key, leaf in _flat_leaves(tree):
         full = coll.gather_global(leaf.detach(), pls[key], mesh).float()
-        w = ws[key].to(full.device).float()
-        d = (full - w).abs()
-        out[key] = (float(d.max()), float(d.mean()), float(w.abs().max()))
-        del full, w, d
+        for errs, w in zip(out, ws):
+            w = w[key].to(full.device).float()
+            d = (full - w).abs()
+            errs[key] = (float(d.max()), float(d.mean()), float(w.abs().max()))
+            del w, d
+        del full
     return out
 
 
@@ -3390,14 +3842,14 @@ def mesh_train_rank(rank, cfg, phi_cfg, ocfg, seq, params0, phi_params, single, 
     loss1, grads = held.pop("out")
     out["grad_stats"] = {op: list(v) for op, v in mesh.stats.items()}
     out["loss1"] = float(loss1)
-    out["grad_errs"] = _gathered_errs(grads, t_sh, mesh, single["grads"])
-    del grads
+    out["grad_errs"] = _gathered_errs(grads, t_sh, mesh, single["grads"])[0]
+    del grads, local            # placed again from params0 for the timed steps
     ckpt = f"{tmp}/ckpt"
     p_full, full = timed("train_loop_s", lambda: train_launch.train_loop(
         cfg, ocfg, steps=MT_STEPS, mesh=mesh, **kw))
     out["losses"] = full
     out["param_errs"] = _gathered_errs(model.split_phi_state(p_full)[0], t_sh, mesh,
-                                       single["params"])
+                                       single["params"])[0]
     del p_full
     # the crash and the elastic resume at float32 activations (see MT_RESUME_DTYPE)
     cfg32 = cfg.with_(compute_dtype=getattr(torch, MT_RESUME_DTYPE))
@@ -3432,6 +3884,7 @@ def mesh_train_rank(rank, cfg, phi_cfg, ocfg, seq, params0, phi_params, single, 
 
     # --------------------------------------------------- arm D: Phi mesh ---
     times["arm_a_s"] = time.perf_counter() - t_rank
+    memory = {"arm_a": _card_memory(reset=True)}
     phi_policy = dispatch.PhiExecutionPolicy()
     dispatch.set_policy(phi_policy)
     dispatch.register_usage_from_params(phi_params)
@@ -3441,7 +3894,7 @@ def mesh_train_rank(rank, cfg, phi_cfg, ocfg, seq, params0, phi_params, single, 
     ploss1, pgrads = timed("phi_grads_s", lambda: pbundle.grads(plocal, gpu[0]))
     out["phi_loss1"] = float(ploss1)
     out["phi_grad_errs"] = _gathered_errs(pgrads, model.split_phi_state(pp_sh)[0], mesh,
-                                          single["phi_grads"])
+                                          single["phi_grads"])[0]
     del pgrads
     pstate = opt.init(model.split_phi_state(plocal)[0], ocfg)
     out["phi_losses"] = []
@@ -3453,6 +3906,7 @@ def mesh_train_rank(rank, cfg, phi_cfg, ocfg, seq, params0, phi_params, single, 
     steps_run["phi_mesh"] = 1 + MT_PHI_STEPS
     dispatch.set_policy(policy)
     times["arm_d_s"] = time.perf_counter() - t_rank - times["arm_a_s"]
+    memory["arm_d"] = _card_memory(reset=True)
 
     # ------------------------------------- arm B: compressed gradients ---
     pmesh = make_mesh(MT_POD_MESH, ("pod", "data", "model"))
@@ -3477,27 +3931,34 @@ def mesh_train_rank(rank, cfg, phi_cfg, ocfg, seq, params0, phi_params, single, 
                        "ef_abs_max": max(float(e.abs().max()) for _, e in
                                          _flat_leaves(new_ef))}
     del ugrads, cgrads, new_ef
-    ustate = opt.init(clocal, ocfg)
+    # the compressed steps, then the uncompressed ones from the same params:
+    # one run's params and AdamW state on the card at a time
     ulocal = clocal
     out["compress"]["losses"], out["compress"]["uncompressed_losses"] = [], []
     for i in range(MT_COMPRESS_STEPS):
         clocal, cstate, l = cbundle.fn(clocal, cstate, gpu[i])
         out["compress"]["losses"].append(float(l))
-        ulocal, ustate, l = ubundle.fn(ulocal, ustate, gpu[i])
-        out["compress"]["uncompressed_losses"].append(float(l))
     out["compress"]["ef_after_abs_max"] = max(float(e.abs().max()) for _, e in
                                               _flat_leaves(cstate["ef"]))
-    del clocal, cstate, ulocal, ustate
+    del clocal, cstate
+    ustate = opt.init(ulocal, ocfg)
+    for i in range(MT_COMPRESS_STEPS):
+        ulocal, ustate, l = ubundle.fn(ulocal, ustate, gpu[i])
+        out["compress"]["uncompressed_losses"].append(float(l))
+    del ulocal, ustate
     steps_run["compressed_mesh"] = 2 + 2 * MT_COMPRESS_STEPS
     torch.cuda.synchronize()
     times["arm_b_s"] = time.perf_counter() - t_rank - times["arm_a_s"] - times["arm_d_s"]
     out["launches"] = read_launches()
     out["steps_run"] = steps_run
-    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    memory["arm_b"] = _card_memory(reset=True)
+    out["memory"] = memory
+    out["max_memory_allocated"] = max(m["peak_allocated"] for m in memory.values())
     out["train_step_records"] = sum(r["kind"] == "train_step" for r in sink.records)
     obs.set_tracer(None)
 
     # -------------------------------------------- timed steps, (2, 2) ---
+    local = _to_device(place(params0, p_sh, mesh), dev)
     state = opt.init(model.split_phi_state(local)[0], ocfg)
     mesh.stats.clear()
     step_ms = []
@@ -3688,6 +4149,7 @@ def mesh_train_phase(dev, smi) -> dict:
     # ----------------------------------------------------------- the ranks ---
     tmp = tempfile.mkdtemp(prefix="mesh_train_")
     world = MT_MESH[0] * MT_MESH[1]
+    parent_memory = _release_before_ranks()
     try:
         t0 = time.perf_counter()
         ranks = spawn_ranks(mesh_train_rank, world,
@@ -3724,11 +4186,12 @@ def mesh_train_phase(dev, smi) -> dict:
         "single": {"loss1": float(loss1), "losses": single_losses, "step_ms": single_step_ms,
                    "phi_loss1": float(ploss1), "phi_losses": phi_losses,
                    "peak_memory": single_peak, "launches_calibration": parent_launches},
+        "parent_memory_before_ranks": parent_memory,
         "ranks": [{k: r[k] for k in ("rank", "loss1", "losses", "losses_f32", "resumed",
                                      "phi_loss1",
                                      "phi_losses", "step_ms", "step_collectives", "backend",
                                      "transport", "p2p_transport", "max_memory_allocated",
-                                     "launches", "steps_run", "times_s", "grad_stats",
+                                     "memory", "launches", "steps_run", "times_s", "grad_stats",
                                      "train_step_records")} for r in ranks],
         "grad_rel_err_max": {k: max(r["grad_errs"][k][0] / max(r["grad_errs"][k][2], 1e-30)
                                     for r in ranks) for k in r0["grad_errs"]},
@@ -4079,6 +4542,7 @@ def main() -> int:
     lm = lm_serve_phase(dev, smi)
     mesh = mesh_serve_phase(dev, smi, lm)
     hyb = hybrid_serve_phase(dev, smi)
+    hmesh = hybrid_mesh_phase(dev, smi, hyb)
 
     # ------------------------------------------------------ LM training ---
     lm_tr = lm_train_phase(dev, smi)
@@ -4086,7 +4550,8 @@ def main() -> int:
     later = {"accel_sim": accel["launches"], "train": trained["launches"],
              "paft": paft_run["launches"], "spikformer_train": spk_train["launches"],
              "lm": lm["launches"], "mesh_serve": mesh["launches"], "hybrid": hyb["launches"],
-             "lm_train": lm_tr["launches"], "mesh_train": mesh_tr["launches"]}
+             "hybrid_mesh": hmesh["launches"], "lm_train": lm_tr["launches"],
+             "mesh_train": mesh_tr["launches"]}
 
     # ------------------------------------------------------------ summary ---
     # Times are per batch of the main paths: the sum over the calls one
@@ -4126,7 +4591,7 @@ def main() -> int:
          "launches_by_path": {"vgg": launches["lif_sequence_cuda"],
                               "spikformer": spk_launches["lif_sequence_cuda"]},
          "max_abs_err": max(lif_err, spk["lif_err"], lm["lif_err"], mesh["lif_err"],
-                            hyb["lif_err"], lm_tr["lif_err"]),
+                            hyb["lif_err"], hmesh["lif_err"], lm_tr["lif_err"]),
          "ms": sum(r["ms"] for r in all_lif), "device_ms": device_sum(all_lif),
          "plain_ms": sum(r["plain_ms"] for r in all_lif),
          "bound_ms": lif_bound, "bound_by": lif_by, "library_ms": None},
@@ -4149,11 +4614,13 @@ def main() -> int:
     attn = entries[2]
     attn["lse_max_abs_err"] = max(spk_train["lse_err"], lm_tr["lse_err"], mesh_tr["lse_err"])
     attn["dense_lse_launches"] = sum(later[path]["flash_attention_cuda_lse"]
-                                     for path in ("spikformer_train", "lm_train", "mesh_train"))
+                                     for path in ("spikformer_train", "hybrid_mesh", "lm_train",
+                                                  "mesh_train"))
     attn["dense_instantiation_launches"] += sum(c["flash_attention_cuda"] for c in later.values())
     attn["lm_dense_max_abs_err"] = lm["attn_err"]
     attn["mesh_dense_max_abs_err"] = mesh["attn_err"]
     attn["hybrid_dense_max_abs_err"] = hyb["attn_err"]
+    attn["hybrid_mesh_dense_max_abs_err"] = hmesh["attn_err"]
     attn["lm_train_dense_max_abs_err"] = lm_tr["attn_err"]
     attn["mesh_train_dense_max_abs_err"] = mesh_tr["attn_err"]
     emit({"kernels": entries})

@@ -190,8 +190,8 @@ class PhiExecutionPolicy:
         self._call_skew: dict[str, tuple[Any, int | None, float]] = {}
         # site -> (runtime sets, the same on the card), copied once per change
         self._sets_on_device: dict[str, tuple[np.ndarray, torch.Tensor]] = {}
-        # (site, shards) -> the registered usage's per-shard view
-        self._shard_usage: dict[tuple[str, int], Any] = {}
+        # (site, shards, local T) -> the registered usage's per-shard view
+        self._shard_usage: dict[tuple[str, int, int], Any] = {}
 
     # --------------------------------------------------------------- usage --
     def register_usage(self, site: str, usage: Any) -> None:
@@ -214,15 +214,22 @@ class PhiExecutionPolicy:
         with self._lock:
             return self._usage.get(site)
 
-    def shard_usage_for(self, site: str, shards: int) -> np.ndarray | None:
-        """:func:`shard_usage_histogram` of ``site``'s registered usage,
-        computed once per registration (the same object every call, so its
-        skew is computed once too)."""
-        key = (site, shards)
+    def shard_usage_for(self, site: str, shards: int, local_t: int) -> np.ndarray | None:
+        """:func:`shard_usage_histogram` of ``site``'s registered usage for a
+        rank holding ``local_t`` of a bank's K-partitions, computed once per
+        registration (the same object every call, so its skew is computed
+        once too). A histogram of another length than ``shards`` ×
+        ``local_t`` gives None: one site may name banks of several lengths
+        (Zamba2's Mamba-2 and shared ``wo`` are both ``lm.wo``), and the
+        registered one then belongs to another bank, as the single-device
+        runtime sets are guarded by their shape."""
+        key = (site, shards, local_t)
         with self._lock:
             if key in self._shard_usage:
                 return self._shard_usage[key]
             usage = self._usage.get(site)
+        if usage is not None and np.shape(usage)[0] != shards * local_t:
+            usage = None
         view = shard_usage_histogram(usage, shards)
         with self._lock:
             self._shard_usage[key] = view

@@ -89,36 +89,44 @@ def _repeat_kv(k: torch.Tensor, rep: int) -> torch.Tensor:
 
 
 def one_device_call(fn, block: tuple | None, q: torch.Tensor, *kv: torch.Tensor,
-                    pos: torch.Tensor | None = None) -> torch.Tensor:
-    """``fn(q, *kv[, pos])`` for this rank's block of one device's call.
+                    rows_only: torch.Tensor | None = None, head_axis: int = 2) -> torch.Tensor:
+    """``fn(q, *kv[, rows_only])`` for this rank's block of one device's call.
 
     ``block`` is (rows, row0, heads, head0): the global batch rows and Q
     heads, and the first of this rank's (None: the call is one device's).
-    q (b, S, hq, D) and each of ``kv`` (b, S', h, D) are written into zeros
-    of the global shape (``kv``'s heads scaled by h / hq), ``pos`` (b,) into
-    zeros of (rows,); the call is made and this rank's block of its
-    (rows, S, heads, D) output returned. Every output entry depends on its
-    own row and head alone, so the zeros change no bit of the block; they
-    cost the rest of one device's work.
+    q and each of ``kv`` have their rows on axis 0 and their heads on
+    ``head_axis`` (attention's (b, S, h, D)); they are written into zeros of
+    the global shape (``kv``'s heads scaled by h / hq), ``rows_only`` (b, ...),
+    which has no heads (attention's positions), into zeros of (rows, ...); the call is made and this
+    rank's block of its output (rows and heads on the same axes) returned.
+    Every output entry depends on its own row and head alone, so the zeros
+    change no bit of the block; they cost the rest of one device's work.
     """
-    args = [q, *kv] + ([] if pos is None else [pos])
-    if block is None or (q.shape[0], q.shape[2]) == (block[0], block[2]):
+    args = [q, *kv] + ([] if rows_only is None else [rows_only])
+    if block is None or (q.shape[0], q.shape[head_axis]) == (block[0], block[2]):
         return fn(*args)
     rows, row0, heads, head0 = block
-    b, hq = q.shape[0], q.shape[2]
+    b, hq = q.shape[0], q.shape[head_axis]
 
     def place(x: torch.Tensor) -> torch.Tensor:
-        h, h0 = x.shape[2] * heads // hq, x.shape[2] * head0 // hq
-        full = x.new_zeros((rows, x.shape[1], h, x.shape[3]))
-        full[row0:row0 + b, :, h0:h0 + x.shape[2]] = x
+        h, h0 = x.shape[head_axis] * heads // hq, x.shape[head_axis] * head0 // hq
+        shape = list(x.shape)
+        shape[0], shape[head_axis] = rows, h
+        full = x.new_zeros(shape)
+        idx = [slice(None)] * x.dim()
+        idx[0], idx[head_axis] = slice(row0, row0 + b), slice(h0, h0 + x.shape[head_axis])
+        full[tuple(idx)] = x
         return full
 
     args = [place(x) for x in (q, *kv)]
-    if pos is not None:
-        full_pos = pos.new_zeros((rows,))
-        full_pos[row0:row0 + b] = pos
-        args.append(full_pos)
-    return fn(*args)[row0:row0 + b, :, head0:head0 + hq]
+    if rows_only is not None:
+        full = rows_only.new_zeros((rows,) + rows_only.shape[1:])
+        full[row0:row0 + b] = rows_only
+        args.append(full)
+    out = fn(*args)
+    idx = [slice(None)] * out.dim()
+    idx[0], idx[head_axis] = slice(row0, row0 + b), slice(head0, head0 + hq)
+    return out[tuple(idx)]
 
 
 def _softmax_rows(s: torch.Tensor) -> torch.Tensor:
@@ -288,7 +296,7 @@ def attention_decode(q, k_cache, v_cache, pos, *, mode: str = "full",
     """
     if block is not None:
         return one_device_call(functools.partial(attention_decode, mode=mode), block,
-                               q, k_cache, v_cache, pos=pos)
+                               q, k_cache, v_cache, rows_only=pos)
     rep = q.shape[2] // k_cache.shape[2]
     k = _repeat_kv(k_cache, rep)
     v = _repeat_kv(v_cache, rep)

@@ -29,8 +29,8 @@ sliding-window, chunked-local/global), the patch and frame frontends (stub
 embeddings, as in the reference), Mamba-2 (``ssm``), the Zamba2 hybrid and
 MoE layers.
 
-On a mesh (``sharding.use_rules(rules, mesh)``), the attention families
-serve from per-rank shards (``param_shardings``; ``sharding.place`` cuts
+On a mesh (``sharding.use_rules(rules, mesh)``), every family serves and
+trains from per-rank shards (``param_shardings``; ``sharding.place`` cuts
 them): the entry points take the global batch, run this rank's rows (the
 ``batch`` axis; a batch it does not divide is replicated) on its heads and
 its slice of ``d_ff``, and return the logits gathered over both. Collectives
@@ -44,8 +44,12 @@ local shape. On dyadic weights every partial sum is exact. The library
 contractions (materialised attention, the head) sum in an order that
 depends on their shapes, so a rank makes one device's call with zeros in
 place of the other ranks' rows, heads and vocab (``layers.one_device_call``,
-:func:`_logits`): the mesh's logits equal one device's bitwise. Mamba-2 and
-the hybrid run on one device only.
+:func:`_logits`): the mesh's logits equal one device's bitwise. Mamba-2
+(``ssm``) and the Zamba2 hybrid serve and train on a mesh too: a rank runs
+its block of the SSM heads (``models.mamba2``), the shared block as the
+attention families run theirs, and :func:`_layout` tells the Mamba-2 and
+shared ``wo`` apart by their local shapes. The paged engine and
+``moe_impl="dense"`` refuse a mesh.
 """
 from __future__ import annotations
 
@@ -281,8 +285,11 @@ _LAYOUTS: dict = {}
 
 def _layout(cfg: ModelConfig, mesh, rules) -> dict:
     """{(weight name, local (K, N)): (k_ax, n_ax)} of ``cfg`` on ``mesh``:
-    how a rank tells its local GEMM weights apart. Built once per config,
-    mesh shape and rule table."""
+    how a rank tells its local GEMM weights apart (Zamba2's Mamba-2 ``wo``,
+    d_inner → d_model, and its shared block's, heads × hd → d_model, are both
+    row-parallel ``wo``s of other local K). Two weights of one name and local
+    shape placed differently raise. Built once per config, mesh shape and
+    rule table."""
     key = (cfg, tuple(mesh.axis_names), tuple(mesh.shape.items()),
            tuple(sorted((k, v) for k, v in rules.items())))
     table = _LAYOUTS.get(key)
@@ -351,7 +358,8 @@ def _phi_sharded_matmul(cfg, spikes, w, patterns, pwp, name, budget, pwp_scale=N
     cast, completes it: the Phi analogue of Megatron row-parallelism. The
     call runs in a per-rank body (``dispatch.spmd_body``, the mesh's size),
     at site ``lm.{name}.spmd``, with the calibration histogram sliced to the
-    local K-partitions (``dispatch.shard_usage_histogram``)."""
+    local K-partitions (``dispatch.shard_usage_histogram``), or none where the
+    site's registered histogram belongs to a bank of another length."""
     override = cfg.phi.impl if cfg.phi is not None else None
     mesh = current_mesh()
     if mesh is None:
@@ -359,7 +367,8 @@ def _phi_sharded_matmul(cfg, spikes, w, patterns, pwp, name, budget, pwp_scale=N
                                    config_override=override, nnz_budget=budget,
                                    gather_dtype=cfg.compute_dtype, pwp_scale=pwp_scale)
     k_ax, _ = _gemm_axes(cfg, name, w)
-    usage = dispatch.get_policy().shard_usage_for(f"lm.{name}", axis_size(mesh, k_ax))
+    usage = dispatch.get_policy().shard_usage_for(f"lm.{name}", axis_size(mesh, k_ax),
+                                                  patterns.shape[-3])
     flat = spikes.reshape(-1, spikes.shape[-1])
     with dispatch.spmd_body(mesh.size):
         out = dispatch.phi_matmul(flat, w, patterns, pwp, site=f"lm.{name}.spmd",

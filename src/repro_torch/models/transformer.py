@@ -13,8 +13,9 @@ The Mamba-2 stack (``ssm``) loops over its layers; the hybrid (Zamba2) runs
 ``n_layers // hybrid_attn_every`` sites of that many Mamba-2 layers, each
 followed by the one shared attention + MLP block with the site's LoRA on Q,
 then the tail layers. Decode writes every state it is given in place: KV
-caches, SSM states and conv rings. MoE layers take ``moe.moe_apply`` (the
-single-device dense branch; ``moe_impl="ep"`` raises).
+caches, SSM states and conv rings. MoE layers take ``moe.moe_apply``: the
+dense branch on one device, ``moe_impl="ep"`` expert-parallel on a mesh
+(``moe_impl="dense"`` refuses a mesh).
 
 GQA under TP with awkward head counts keeps the reference's exact math:
 padded Q heads are zero-masked before the out-projection, and logical KV
@@ -26,7 +27,11 @@ block of ``d_ff``; the row-parallel out-projections' partial sums are
 completed by the matmul (``models.model``). The head mask and replicated KV
 heads take the rank's block of the global head range, and attention runs on
 the rank's block inside one device's call shape (``layers.one_device_call``);
-under autograd (training on a mesh) on the rank's own rows and heads.
+under autograd (training on a mesh) on the rank's own rows and heads. The
+Mamba-2 layers of ``ssm`` and the hybrid run on the rank's SSM heads
+(``mamba2``); the hybrid's shared block runs as the attention families' do,
+its site LoRA on Q with ``lora_b`` split over the heads and ``lora_a`` whole
+when serving.
 """
 from __future__ import annotations
 
@@ -170,7 +175,11 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, ma
     q = mm(x, p, "wq")
     if lora is not None:  # zamba2 per-site adaptation of the shared block
         a, b = lora
-        q = q + (x @ a.to(x.dtype)) @ b.to(x.dtype)
+        t = x @ a.to(x.dtype)
+        if b.shape[-1] != cfg.q_heads_padded * cfg.hd:
+            # whole on every rank, it meets only the rank's columns of lora_b
+            t = coll.sum_grad(t, current_mesh(), resolve_spec(("heads",))[0])
+        q = q + t @ b.to(x.dtype)
     k = mm(x, p, "wk")
     v = mm(x, p, "wv")
     if cfg.qkv_bias:

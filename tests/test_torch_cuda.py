@@ -1203,6 +1203,60 @@ def test_ssd_chunked_on_the_card_matches_the_cpu(dev):
             assert float((got.cpu() - want).abs().max()) <= tol, chunk
 
 
+def test_mamba_body_at_a_ranks_rows_and_heads_gives_one_devices_bits(dev, monkeypatch):
+    """Zamba2-1.2B's widths on (data 2, model 2): each rank's block of the
+    SSD (its row and 32 of the 64 heads; y and the final state), of the
+    gated norm (``mamba2._gated_norm``: its rows gathered whole, here by a
+    stand-in for the all-gather, its 2048 of the 4096 channels kept) and of
+    the decode step's read of the state (``mamba2._read_state``, in one
+    device's call shape) is one device's, bitwise."""
+    import types
+
+    from repro_torch.distributed.sharding import SERVE_RULES, use_batch_rows, use_rules
+    from repro_torch.models import mamba2
+    from repro_torch.models.config import ModelConfig
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, S, H, P, N, Q = 2, 2048, 64, 64, 64, 128
+    bf = torch.bfloat16
+    x = torch.randn((B, S, H, P), generator=g, device=dev).to(bf)
+    dt = torch.nn.functional.softplus(torch.randn((B, S, H), generator=g, device=dev))
+    A = -torch.exp(torch.randn((H,), generator=g, device=dev) * 0.5)
+    Bm, Cm = (torch.randn((B, S, N), generator=g, device=dev).to(bf) for _ in range(2))
+    y, st = mamba2.ssd_chunked(x, dt, A, Bm, Cm, Q)
+    w = torch.randn((H * P,), generator=g, device=dev)
+    z = torch.randn((B, S, H * P), generator=g, device=dev).to(bf)
+    cfg = ModelConfig(name="z", family="hybrid", n_layers=1, d_model=2048, n_heads=32,
+                      n_kv_heads=32, d_ff=8192, vocab=32, ssm_state=N, ssm_headdim=P)
+    yf = y.reshape(B, S, H * P)
+    normed = mamba2._gated_norm(cfg, yf, z, w)
+    slots = 4
+    ssm = torch.randn((slots, H, P, N), generator=g, device=dev)
+    c = torch.randn((slots, N), generator=g, device=dev)
+    read = torch.einsum("bn,bhpn->bhp", c, ssm)
+    for r in range(4):
+        d, m = divmod(r, 2)
+        rows, heads = slice(d, d + 1), slice(32 * m, 32 * m + 32)
+        yl, sl = mamba2.ssd_chunked(x[rows, :, heads].contiguous(),
+                                    dt[rows, :, heads].contiguous(), A[heads].contiguous(),
+                                    Bm[rows].contiguous(), Cm[rows].contiguous(), Q)
+        assert torch.equal(yl, y[rows, :, heads]) and torch.equal(sl, st[rows, heads]), r
+        mesh = types.SimpleNamespace(axis_names=("data", "model"),
+                                     shape={"data": 2, "model": 2},
+                                     index=lambda ax, m=m: m)
+        cols = slice(32 * m * P, 32 * (m + 1) * P)
+        monkeypatch.setattr(mamba2.coll, "all_gather",
+                            lambda x, mesh, ax, dim, whole=yf[rows]: whole)
+        with use_rules(SERVE_RULES, mesh):
+            got = mamba2._gated_norm(cfg, yf[rows, :, cols], z[rows, :, cols], w[cols])
+        assert torch.equal(got, normed[rows, :, cols]), r
+        srows = slice(2 * d, 2 * d + 2)
+        with use_rules(SERVE_RULES, mesh), use_batch_rows(slots, 2 * d):
+            got = mamba2._read_state(cfg, c[srows].contiguous(),
+                                     ssm[srows, heads].contiguous())
+        assert torch.equal(got, read[srows, heads]), r
+
+
 def test_hybrid_engine_two_slots_equal_one_slot_on_the_card(dev):
     """Zamba2 smoke in Phi mode: a two-slot engine gives each request the
     tokens of a one-slot engine serving them in turn (each admission writes

@@ -57,7 +57,7 @@ from repro_torch.train import step as step_lib
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import torch_mesh_ranks as ranks  # noqa: E402
-from torch_parity_util import np_tree  # noqa: E402
+from torch_parity_util import np_tree, ref_spiking_dense_mm  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 WORLD_TIMEOUT = 240.0
@@ -338,7 +338,7 @@ def world(tmp_path_factory):
         single_tokens = ranks.serve(cfg, params, prompts, **serve_kw)
     finally:
         dispatch.set_policy(prev)
-    x, _ = ref_model._forward(rcfg, rp, rbatch, matmul=_ref_dense_mm(rcfg))
+    x, _ = ref_model._forward(rcfg, rp, rbatch, matmul=ref_spiking_dense_mm(rcfg))
     ref_prefill = np.asarray(ref_model._logits(rcfg, rp, x[:, -1:]))[:, 0]
 
     shape, axes = (2, 4), ("data", "model")
@@ -368,24 +368,6 @@ def world(tmp_path_factory):
     return dict(ranks=out, single=single, single_wide=single_wide, single_shapes=single_shapes,
                 single_tokens=single_tokens, ref_prefill=ref_prefill,
                 moe_dense=dense, moe_ref=_reference_moe_ep(tmp), cfg=cfg)
-
-
-def _ref_dense_mm(cfg):
-    from repro.snn.lif import LIFConfig, lif_update
-    lif = LIFConfig()
-
-    def dense_mm(x, p, name):
-        xf = x.astype(jnp.float32)
-
-        def step(v, _):
-            s, v2 = lif_update(v, xf, lif)
-            return v2, s
-
-        _, spikes = jax.lax.scan(step, jnp.zeros_like(xf), None, length=cfg.phi.timesteps)
-        out = jnp.einsum("t...k,kn->t...n", spikes, p[name].astype(jnp.float32))
-        return (out.mean(0) * 2.0).astype(x.dtype)
-
-    return dense_mm
 
 
 def test_mesh_prefill_and_decode_equal_one_device_bitwise(world):

@@ -40,7 +40,7 @@ from repro_torch.distributed.sharding import init_params, is_spec, param_bytes
 from repro_torch.kernels import dispatch
 from repro_torch.models import layers as ll
 from repro_torch.models import model
-from torch_parity_util import np_tree, reference_init_idx, t
+from torch_parity_util import np_tree, ref_spiking_dense_mm, reference_init_idx, t
 
 ATOL = 1e-5
 LOGIT_ATOL = 1e-4
@@ -304,24 +304,6 @@ def _ref_phi_setup(arch="olmo_1b", seed=0):
     return rcfg, rp, batch
 
 
-def _ref_dense_mm(cfg):
-    from repro.snn.lif import LIFConfig, lif_update
-    lif = LIFConfig()
-
-    def dense_mm(x, p, name):
-        xf = x.astype(jnp.float32)
-
-        def step(v, _):
-            s, v2 = lif_update(v, xf, lif)
-            return v2, s
-
-        _, spikes = jax.lax.scan(step, jnp.zeros_like(xf), None, length=cfg.phi.timesteps)
-        out = jnp.einsum("t...k,kn->t...n", spikes, p[name].astype(jnp.float32))
-        return (out.mean(0) * 2.0).astype(x.dtype)
-
-    return dense_mm
-
-
 # Phi sites: seven a layer group; Mamba-2's six; Zamba2's six main, seven
 # shared and six tail.
 PHI_SITES = {"olmo_1b": 7, "yi_34b": 7, "mamba2_2p7b": 6, "zamba2_1p2b": 19}
@@ -334,7 +316,7 @@ def test_phi_mode_on_reference_calibrated_params(arch, fresh_policy):
     with the reference's spiking-dense forward to LOGIT_ATOL."""
     rcfg, rp, batch = _ref_phi_setup(arch)
     rp, _ = ref_model.calibrate_lm_phi(rcfg, rp, batch)
-    x, _ = ref_model._forward(rcfg, rp, batch, matmul=_ref_dense_mm(rcfg))
+    x, _ = ref_model._forward(rcfg, rp, batch, matmul=ref_spiking_dense_mm(rcfg))
     want = ref_model._logits(rcfg, rp, x)
     cfg = phi_variant(get_config(arch, smoke=True), timesteps=2, q=16)
     params = _port_params(rp)

@@ -1,4 +1,4 @@
-"""Rank bodies of the mesh tests (``tests/test_torch_distributed.py``).
+"""Rank bodies of the mesh tests (``tests/test_torch_distributed*.py``).
 
 ``launch.mesh.spawn_ranks`` runs these in new processes; they import the
 port only (no JAX), so each rank starts in a second or two. Each takes its
@@ -18,18 +18,19 @@ from repro_torch.models import model, moe
 from repro_torch.serve.engine import Engine, Request
 
 
-def decode_run(cfg, params, batch, steps: int, mesh=None):
+def decode_run(cfg, params, batch, steps: int, mesh=None, matmul=None):
     """Prefill ``batch`` and ``steps`` greedy decode steps: every step's
-    logits (numpy), and the caches' local shapes."""
+    logits (numpy), and the caches' local shapes. ``matmul`` as the entry
+    points take it (default: the config's own)."""
     B, S = batch["tokens"].shape
     with torch.no_grad(), use_rules(SERVE_RULES, mesh):
-        logits, caches = model.prefill(cfg, params, batch)
+        logits, caches = model.prefill(cfg, params, batch, matmul=matmul)
         caches = model.extend_caches(cfg, caches, S + steps + 1)
         outs = [logits.numpy()]
         tok = logits.argmax(-1).to(torch.int32)
         for t in range(steps):
             pos = torch.full((B,), S + t, dtype=torch.int32)
-            logits, caches = model.decode_step(cfg, params, tok, pos, caches)
+            logits, caches = model.decode_step(cfg, params, tok, pos, caches, matmul=matmul)
             outs.append(logits.numpy())
             tok = logits.argmax(-1).to(torch.int32)
     return outs, [tuple(c.shape) for c in model.state_leaves(caches)]
@@ -52,9 +53,11 @@ def builders_run(cfg, params, batch, mesh):
     return [logits.numpy(), step.numpy()], placements
 
 
-def serve(cfg, params, prompts, slots: int, max_new: int, max_context: int, mesh=None):
+def serve(cfg, params, prompts, slots: int, max_new: int, max_context: int, mesh=None,
+          matmul=None):
     """Greedy tokens of each request through the contiguous engine."""
-    eng = Engine(cfg, params, batch_slots=slots, max_context=max_context, mesh=mesh)
+    eng = Engine(cfg, params, batch_slots=slots, max_context=max_context, mesh=mesh,
+                 matmul=matmul)
     for rid, toks in enumerate(prompts):
         eng.submit(Request(rid=rid, tokens=toks, max_new_tokens=max_new))
     return {r.rid: list(r.tokens) for r in eng.run()}
@@ -238,18 +241,20 @@ def checkpoint_run(ckpt: str) -> dict:
             "want": local_shard(tree, ("model", "data"), mesh2).numpy()}
 
 
-def crash_resume_run(cfg, ocfg, ckpt: str, steps: int, crash: int) -> dict:
-    """``train_loop(mesh=)``: ``steps`` uninterrupted steps on (4, 2);
-    ``crash`` steps on (4, 2) checkpointed, resumed on (2, 4) to ``steps``."""
+def crash_resume_run(cfg, ocfg, ckpt: str, steps: int, crash: int,
+                     meshes=((4, 2), (2, 4)), global_batch: int = 8) -> dict:
+    """``train_loop(mesh=)``: ``steps`` uninterrupted steps on the first of
+    ``meshes`` ((data, model) shapes); ``crash`` steps on it checkpointed,
+    resumed on the second to ``steps``."""
     from repro_torch.launch.train import train_loop
 
-    kw = dict(global_batch=8, seq=32, log_every=0)
-    full = train_loop(cfg, ocfg, steps=steps, mesh=make_mesh((4, 2), ("data", "model")),
+    kw = dict(global_batch=global_batch, seq=32, log_every=0)
+    full = train_loop(cfg, ocfg, steps=steps, mesh=make_mesh(meshes[0], ("data", "model")),
                       **kw)[1]
     first = train_loop(cfg, ocfg, steps=crash, ckpt_dir=ckpt, ckpt_every=100,
-                       mesh=make_mesh((4, 2), ("data", "model")), **kw)[1]
+                       mesh=make_mesh(meshes[0], ("data", "model")), **kw)[1]
     rest = train_loop(cfg, ocfg, steps=steps, ckpt_dir=ckpt,
-                      mesh=make_mesh((2, 4), ("data", "model")), **kw)[1]
+                      mesh=make_mesh(meshes[1], ("data", "model")), **kw)[1]
     return {"full": full, "resumed": first + rest}
 
 
@@ -291,3 +296,50 @@ def train_world(rank: int, dense_args: tuple, phi_args: tuple, inputs: dict, tmp
             "checkpoint": checkpoint_run(f"{tmp}/elastic"),
             "crash_resume": crash_resume_run(*loop_args, f"{tmp}/loop", 4, 2),
             "moe": [moe_grad_run(*args) for args in moe_args]}
+
+
+# ------------------------------------------------- the recurrent families ---
+def ssm_serve(shape, runs: list) -> dict:
+    """On a new (data, model) ``shape`` mesh, each of ``runs`` = (label, cfg,
+    params (global), arm, batch, prompts): the rank's shards placed, then
+    ``decode_run`` (prefill and 2 decode steps) and the engine's greedy
+    tokens under the arm's GEMM (``phi``: the config's own through the
+    policy; ``spiking_dense``; ``dense``: a config without spiking), the
+    caches' local shapes and the policy's decisions."""
+    from repro_torch.distributed.sharding import place
+
+    mesh = make_mesh(shape, ("data", "model"))
+    out = {}
+    for label, cfg, params, arm, batch, prompts in runs:
+        pol = dispatch.PhiExecutionPolicy()
+        prev = dispatch.set_policy(pol)
+        try:
+            local = place(params, model.param_shardings(cfg, mesh, SERVE_RULES), mesh)
+            dispatch.register_usage_from_params(local)
+            mm = model.spiking_dense_matmul(cfg) if arm == "spiking_dense" else None
+            logits, shapes = decode_run(cfg, local, batch, 2, mesh, matmul=mm)
+            tokens = serve(cfg, local, prompts, slots=4, max_new=4, max_context=32, mesh=mesh,
+                           matmul=mm)
+            out[label] = {"logits": logits, "cache_shapes": shapes, "tokens": tokens,
+                          "decisions": pol.decisions(),
+                          "shards": {s: pol.last_decision(s).shards
+                                     for s in {k[0] for k in pol.decisions()}}}
+        finally:
+            dispatch.set_policy(prev)
+    return out
+
+
+def ssm_world(rank: int, serve_runs: dict, train_runs: list, loop_args: tuple,
+              tmp: str) -> dict:
+    """The recurrent families' test world (4 ranks): ``serve_runs`` (mesh
+    shape -> its runs) on (data 2, model 2) and (data 1, model 4), each train
+    run (label, cfg, ocfg, params, batch) one step on (data 2, model 2), and
+    a ``train_loop`` crashed on (data 2, model 2) and resumed on (data 1,
+    model 4)."""
+    mesh = make_mesh((2, 2), ("data", "model"))
+    return {"coords": mesh.coords,
+            "serve": {shape: ssm_serve(shape, runs) for shape, runs in serve_runs.items()},
+            "train": {label: train_steps(cfg, ocfg, params, batch, mesh, steps=1)
+                      for label, cfg, ocfg, params, batch in train_runs},
+            "crash_resume": crash_resume_run(*loop_args, f"{tmp}/ssm_loop", 4, 2,
+                                             meshes=((2, 2), (1, 4)), global_batch=4)}

@@ -96,3 +96,25 @@ def assert_loss_close(got, want):
     """A loss within LOSS_REL of the reference's."""
     assert abs(float(got) - float(want)) <= LOSS_REL * abs(float(want)), (float(got),
                                                                           float(want))
+
+
+def ref_spiking_dense_mm(cfg):
+    """The reference's spiking-dense ``matmul`` (``tests/test_archs.py``'s
+    oracle): each operand rate-coded by its LIF over ``phi.timesteps`` steps,
+    a float32 matmul of the spikes with the weight, the mean rescaled."""
+    from repro.snn.lif import LIFConfig, lif_update
+
+    lif = LIFConfig()
+
+    def dense_mm(x, p, name):
+        xf = x.astype(jnp.float32)
+
+        def step(v, _):
+            s, v2 = lif_update(v, xf, lif)
+            return v2, s
+
+        _, spikes = jax.lax.scan(step, jnp.zeros_like(xf), None, length=cfg.phi.timesteps)
+        out = jnp.einsum("t...k,kn->t...n", spikes, p[name].astype(jnp.float32))
+        return (out.mean(0) * 2.0).astype(x.dtype)
+
+    return dense_mm
