@@ -59,7 +59,10 @@ phases, and the ``kernels`` summary:
   through gloo, each holding its shards (cut here, passed through host
   shared memory): a 2 x 2048 Phi prefill and 4 decode steps bitwise one device's,
   a short prompt's forced-``coo`` run bitwise the policy's, the engine over
-  ``lm_serve``'s requests token-identical, the w1 and w2 decisions a fused
+  ``lm_serve``'s requests token-identical, a paged engine from
+  ``lm_serve``'s undersized pool (each rank's pools its KV heads and every
+  page) preempting, token-identical and logit-identical to ``lm_serve``'s
+  paged engine from that pool, the w1 and w2 decisions a fused
   kernel in the per-rank body with ``shards`` 4, each rank's launches
   counted; rank 0's kernels against their plain versions at its layer-0
   local operands; then one Arctic-480B MoE layer at full width, ``moe_dense``
@@ -2031,10 +2034,13 @@ def lm_serve_phase(dev, smi) -> dict:
           "pwp_bytes": pwp_bytes, "weight_bytes": weight_bytes,
           "max_memory_allocated": torch.cuda.max_memory_allocated(),
           "seconds": time.perf_counter() - t_phase})
+    paged_tight = runs["paged_tight"][0]
     del runs
     torch.cuda.empty_cache()
     return {"launches": launches, "lif_err": lif_err, "attn_err": attn_row["max_abs_err"],
-            "cfg": cfg, "params": params, "prompts": prompts, "tokens": want}
+            "cfg": cfg, "params": params, "prompts": prompts, "tokens": want,
+            "paged_logits": {rid: torch.from_numpy(np.stack(rows)) for rid, rows in
+                             paged_tight.logit_trace.items()}}
 
 
 # Serving on a mesh of ranks. OLMo-1B in Phi spiking mode, lm_serve's
@@ -2283,12 +2289,15 @@ def _mesh_rank_checks(policy, rec, sites=OLMO_MESH_SITES) -> dict:
     return out
 
 
-def mesh_lm_rank(rank, cfg, params, batch, short, prompts, check: bool) -> dict:
+def mesh_lm_rank(rank, cfg, params, batch, short, prompts, paged_logits, check: bool) -> dict:
     """One rank of the OLMo mesh: every kernel's launch count set to 0, then
     the prefill of ``batch`` and MESH_DECODE_STEPS greedy decode steps, the
     short prompt's run under the policy and with ``impl="coo"`` forced, and
-    the engine over ``prompts``; the counts read. Rank 0 (``check``) then
-    holds the kernels against their plain versions."""
+    the engine over ``prompts``; the counts read. Then, counted on their
+    own, the same requests through a paged engine from lm_serve's undersized
+    pool (LM_PAGE, LM_TIGHT_PAGES), which preempts, its logits rows held
+    against ``paged_logits``, lm_serve's from the same pool. Rank 0
+    (``check``) then holds the kernels against their plain versions."""
     import dataclasses
 
     import numpy as np
@@ -2297,6 +2306,8 @@ def mesh_lm_rank(rank, cfg, params, batch, short, prompts, check: bool) -> dict:
     from repro_torch.distributed.sharding import SERVE_RULES, use_rules
     from repro_torch.kernels import dispatch
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model
+    from repro_torch.obs import ListSink, Tracer
     from repro_torch.serve.engine import Engine, Request
     from repro_torch.utils import log
 
@@ -2326,12 +2337,34 @@ def mesh_lm_rank(rank, cfg, params, batch, short, prompts, check: bool) -> dict:
         eng.submit(Request(rid=rid, tokens=toks, max_new_tokens=LM_MAX_NEW))
     tokens = {r.rid: list(r.tokens) for r in timed("engine_ms", eng.run)}
     launches = read_launches()
+    sink = ListSink()
+    paged = Engine(cfg, params, batch_slots=LM_SLOTS, max_context=LM_MAX_CONTEXT, mesh=mesh,
+                   paged=True, page_size=LM_PAGE, num_pages=LM_TIGHT_PAGES, wall_time=True,
+                   tracer=Tracer(sink), record_logits=True)
+    for rid, toks in enumerate(prompts):
+        paged.submit(Request(rid=rid, tokens=toks, max_new_tokens=LM_MAX_NEW))
+    zero_launches()
+    paged_tokens = {r.rid: list(r.tokens) for r in timed("paged_engine_ms", paged.run)}
+    paged_launches = read_launches()
+    rows = {rid: np.stack(r) for rid, r in paged.logit_trace.items()}
+    logit_diff = [float(np.abs(rows[rid] - w.numpy()).max()) if rows[rid].shape == w.shape
+                  else float("inf") for rid, w in paged_logits.items()]
+    paged.logit_trace.clear()
     out = {"rank": rank, "coords": mesh.coords, "backend": mesh.backend,
            "transport": mesh.transport,
            "collectives": {op: {"calls": c, "bytes": b} for op, (c, b) in mesh.stats.items()},
            "logits": logits, "cache_shapes": cache_shapes, "short_policy": short_policy,
            "short_coo": short_coo, "tokens": tokens, "launches": launches, "times_ms": times,
            "engine_ticks": eng.ticks, "decoded_tokens": eng.decoded_tokens,
+           "paged": {"tokens": paged_tokens, "launches": paged_launches,
+                     "engine_ms": times["paged_engine_ms"][0], "ticks": paged.ticks,
+                     "decoded_tokens": paged.decoded_tokens,
+                     "logits_bitwise": sorted(rows) == sorted(paged_logits) and max(logit_diff) == 0,
+                     "logits_max_abs_diff": max(logit_diff),
+                     "preempted": sorted(r["rid"] for r in sink.records
+                                         if r["kind"] == "preempt"),
+                     "pool_shapes": [tuple(t.shape) for t in model.state_leaves(paged.pools)],
+                     "cache": paged.cache_report(), "contig_cache": eng.cache_report()},
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "decisions": [[*key, n] for key, n in sorted(policy.decisions().items())],
            "last": {site: dataclasses.asdict(policy.last_decision(site))
@@ -2414,9 +2447,14 @@ def mesh_serve_phase(dev, smi, lm) -> dict:
     (``model.param_shardings``), passed through host shared memory to
     MESH_SHAPE spawned ranks on this card; on the ranks the same prefill and steps, a
     short prompt's run under the policy and with ``coo`` forced, and
-    ``lm_serve``'s requests through the mesh engine. Gates, all bitwise:
-    the mesh logits against one device's, the coo run against the policy's,
-    the engine's tokens against ``lm_serve``'s Phi engine's; the decisions
+    ``lm_serve``'s requests through the mesh engine, then through a paged
+    mesh engine from the undersized pool. Gates, all bitwise: the mesh
+    logits against one device's, the coo run against the policy's, both
+    engines' tokens against ``lm_serve``'s Phi engine's, the paged engine's
+    every logits row against ``lm_serve``'s paged engine's from the same
+    pool; the paged engine preempting, its pool leaves holding ``H / model``
+    KV heads, its own launches counting the streaming and LIF kernels; the
+    decisions
     at w1 and w2 a fused kernel in the per-rank body with every rank
     counted. Arctic-480B: one MoE layer at full width, ``moe_dense`` here,
     then ``moe_ep`` on MOE_MESH ranks of 32 experts each (each draws its
@@ -2466,11 +2504,13 @@ def mesh_serve_phase(dev, smi, lm) -> dict:
     times["cut_shards_s"] = time.perf_counter() - t0
     shard_bytes = {m: sum(t.numel() * t.element_size() for t in tree_leaves(sh))
                    for m, sh in by_model.items()}
+    paged_logits = _host_shared(lm["paged_logits"])
     full_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     t0 = time.perf_counter()
     ranks = spawn_ranks(mesh_lm_rank, world,
                         [(cfg, by_model[r % MESH_SHAPE[1]], _host_shared(batch),
-                          _host_shared(short), lm["prompts"], r == 0) for r in range(world)],
+                          _host_shared(short), lm["prompts"], paged_logits, r == 0)
+                         for r in range(world)],
                         device="cuda", timeout=MESH_TIMEOUT, threads=2)
     times["olmo_ranks_s"] = time.perf_counter() - t0
     del by_model
@@ -2507,10 +2547,27 @@ def mesh_serve_phase(dev, smi, lm) -> dict:
         if lc["phi_fused_stream_cuda"] <= 0 or lc["lif_sequence_cuda"] <= 0 or \
                 lc["flash_attention_cuda"] != cfg.n_layers:
             raise AssertionError(f"rank {r['rank']}: launches {lc}")
+        pg = r["paged"]
+        if pg["tokens"] != lm["tokens"]:
+            raise AssertionError(f"rank {r['rank']}: paged mesh engine tokens differ from "
+                                 "lm_serve's")
+        if not pg["preempted"]:
+            raise AssertionError(f"rank {r['rank']}: the paged engine never preempted")
+        if not pg["logits_bitwise"]:
+            raise AssertionError(f"rank {r['rank']}: paged mesh logits differ from lm_serve's "
+                                 f"paged engine's, max |diff| {pg['logits_max_abs_diff']}")
+        H, hd = cfg.kv_heads_padded, cfg.hd
+        want_pools = [(cfg.n_layers, LM_TIGHT_PAGES + 1, LM_PAGE, H // MESH_SHAPE[1], hd)] * 2
+        if pg["pool_shapes"] != want_pools:
+            raise AssertionError(f"rank {r['rank']}: pools {pg['pool_shapes']} != {want_pools}")
+        if pg["launches"]["phi_fused_stream_cuda"] <= 0 or \
+                pg["launches"]["lif_sequence_cuda"] <= 0:
+            raise AssertionError(f"rank {r['rank']}: paged engine launches {pg['launches']}")
     if float(np.std(single[0])) == 0 or not np.isfinite(single[0]).all():
         raise AssertionError("mesh_serve: constant or non-finite prefill logits")
     checks = ranks[0]["checks"]
-    launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    launches = {k: sum(r["launches"][k] + r["paged"]["launches"][k] for r in ranks)
+                for k in ranks[0]["launches"]}
 
     # ----------------------------------------------- Arctic MoE, EP over 4 ---
     mcfg = get_config(MOE_ARCH).with_(capacity_factor=MOE_CF)
@@ -2562,7 +2619,8 @@ def mesh_serve_phase(dev, smi, lm) -> dict:
                 "transport": r["transport"], "collectives": r["collectives"],
                 "times_ms": r["times_ms"], "engine_ticks": r["engine_ticks"],
                 "decoded_tokens": r["decoded_tokens"],
-                "max_memory_allocated": r["max_memory_allocated"], "launches": r["launches"]}
+                "max_memory_allocated": r["max_memory_allocated"], "launches": r["launches"],
+                "paged": {k: v for k, v in r["paged"].items() if k != "tokens"}}
 
     emit({"phase": "mesh_serve", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
           "note": "ranks are processes sharing one card: their times include each other's work",
@@ -2579,7 +2637,13 @@ def mesh_serve_phase(dev, smi, lm) -> dict:
                    "gates": {"prefill_and_decode_bitwise_one_device": True,
                              "forced_coo_bitwise_policy": True,
                              "engine_tokens_equal_lm_serve": True,
-                             "w1_w2_spmd_local_fused_shards": world}},
+                             "paged_engine_tokens_equal_lm_serve": True,
+                             "paged_engine_logits_bitwise_lm_serve_paged": True,
+                             "paged_engine_preempted": True,
+                             "paged_pool_kv_heads_a_rank": cfg.kv_heads_padded // MESH_SHAPE[1],
+                             "w1_w2_spmd_local_fused_shards": world},
+                   "paged": {"page": LM_PAGE, "pages": LM_TIGHT_PAGES,
+                             "layout": "KV heads over model, every page on every rank"}},
           "moe": {"arch": MOE_ARCH, "mesh": dict(zip(axes, MOE_MESH)),
                   "d_model": mcfg.d_model, "d_ff": mcfg.d_ff, "experts": mcfg.n_experts,
                   "top_k": mcfg.top_k, "tokens": MOE_TOKENS, "capacity_factor": MOE_CF,

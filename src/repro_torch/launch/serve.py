@@ -196,12 +196,15 @@ def _report(eng, cfg, args, results, dt, tracer, mesh) -> None:
     rep = eng.serve_report()
     log.info("scheduler decisions: %s", rep["scheduler_decisions"])
     cache = rep["cache"]
+    whose = f" ({cache['bytes_of']}'s bytes)" if "bytes_of" in cache else ""
     if rep["paged"]:
-        log.info("paged cache: %d pages x %d tokens, hwm %d pages "
-                 "(%d bytes) vs contiguous %d bytes",
-                 cache["num_pages"], cache["page_size"],
+        log.info("paged cache%s: %d pages x %d tokens, pools %d bytes, hwm %d pages "
+                 "(%d bytes) vs contiguous %d bytes", whose,
+                 cache["num_pages"], cache["page_size"], cache["pool_bytes"],
                  cache["hwm_pages"], cache["page_hwm_bytes"],
                  cache["contig_cache_bytes"])
+    else:
+        log.info("contiguous cache%s: %d bytes", whose, cache["contig_cache_bytes"])
     if mesh is not None:
         log.info("collectives (calls, bytes) on rank 0: %s", mesh.stats)
     if args.obs:

@@ -48,8 +48,10 @@ place of the other ranks' rows, heads and vocab (``layers.one_device_call``,
 (``ssm``) and the Zamba2 hybrid serve and train on a mesh too: a rank runs
 its block of the SSM heads (``models.mamba2``), the shared block as the
 attention families run theirs, and :func:`_layout` tells the Mamba-2 and
-shared ``wo`` apart by their local shapes. The paged engine and
-``moe_impl="dense"`` refuse a mesh.
+shared ``wo`` apart by their local shapes. Paged decode runs on a mesh
+from page pools that hold the rank's KV heads and every page
+(:func:`init_paged_state`), each rank reading its rows' pages through its
+rows of the global page table.
 """
 from __future__ import annotations
 
@@ -65,8 +67,8 @@ from repro_torch.core.assign import PhiStats
 from repro_torch.core.patterns import PhiConfig
 from repro_torch.distributed import collectives as coll
 from repro_torch.distributed.sharding import (
-    ParamSpec, axis_names_of, axis_size, current_mesh, current_rules, is_spec, resolve_spec,
-    shard, specs_to_shardings, use_batch_rows)
+    SERVE_RULES, ParamSpec, axis_names_of, axis_size, current_mesh, current_rules, is_spec,
+    local_shape, resolve_spec, shard, specs_to_shardings, use_batch_rows)
 from repro_torch.kernels import dispatch
 from repro_torch.models import layers as ll
 from repro_torch.models import transformer
@@ -217,6 +219,16 @@ def _gemm_spec_axes(shape: tuple, logical: tuple, mesh, rules) -> tuple:
     return k_ax, n_ax
 
 
+def _weight_axes(name: str, spec: ParamSpec) -> tuple:
+    """The logical (K, N) axes of the GEMM weight ``name`` of ``spec``:
+    ``_WEIGHT_AXES``', replicated where the spec replicates the dim (``wk``,
+    ``wv`` of a config with fewer KV heads than its TP degree store the
+    logical heads, whole on every rank; ``transformer._qkv`` then takes the
+    rank's block of their padded copies)."""
+    return tuple(w if s is not None else None
+                 for w, s in zip(_WEIGHT_AXES[name], spec.axes[-2:]))
+
+
 def _gemm_weights(specs: Any):
     """(node, name, spec) of every GEMM weight named in _WEIGHT_AXES: 2-D or
     stacked on a leading ``layers`` axis."""
@@ -265,7 +277,7 @@ def param_shardings(cfg: ModelConfig, mesh, rules: dict | None = None) -> dict:
             if isinstance(v, dict) and not k.startswith("phi_"):
                 walk(v, placed[k])
             elif k in _WEIGHT_AXES and _is_gemm_weight(v):
-                k_ax, n_ax = _gemm_spec_axes(v.shape, _WEIGHT_AXES[k], mesh, rules)
+                k_ax, n_ax = _gemm_spec_axes(v.shape, _weight_axes(k, v), mesh, rules)
                 lead = _lead(v, mesh, rules)
                 placed[k] = _trim(lead + (k_ax, n_ax))
                 if "phi_" + k in node:
@@ -296,7 +308,7 @@ def _layout(cfg: ModelConfig, mesh, rules) -> dict:
     if table is None:
         table = {}
         for _, name, spec in _gemm_weights(lm_specs(cfg)):
-            k_ax, n_ax = _gemm_spec_axes(spec.shape, _WEIGHT_AXES[name], mesh, rules)
+            k_ax, n_ax = _gemm_spec_axes(spec.shape, _weight_axes(name, spec), mesh, rules)
             K, N = spec.shape[-2:]
             loc = (name, K // axis_size(mesh, k_ax), N // axis_size(mesh, n_ax))
             if table.setdefault(loc, (k_ax, n_ax)) != (k_ax, n_ax):
@@ -871,17 +883,20 @@ def decode_step_paged(cfg: ModelConfig, params: dict, token: torch.Tensor,
     page pools from ``init_paged_state`` plus the engine's page table
     ((B, logical_pages) int32, -1 = unmapped) — see
     ``serve/page_manager.py`` for the layout and the bitwise-exactness
-    contract. Full-attention families only, one device only. The pools are
-    written in place.
+    contract. Full-attention families only. The pools are written in place.
+    On a mesh, ``token``, ``pos`` and ``page_table`` are global and the
+    pools this rank's; its rows of the table are cut as ``token``'s.
     """
-    if current_mesh() is not None:
-        raise NotImplementedError("paged decode runs on one device")
-    x = params["embed"][token.long()][:, None].to(cfg.compute_dtype)
+    rows = token.shape[0]
+    bd = batch_axis(rows)
+    token, pos, page_table = (local_rows(t, bd) for t in (token, pos, page_table))
+    x = _embed_tokens(cfg, params, token)[:, None].to(cfg.compute_dtype)
     x = shard(x, "batch", None, "act_embed")
     mm = matmul if matmul is not None else make_matmul(cfg)
-    x, new_pools = transformer.stack_decode_paged(
-        cfg, params["decoder"], x, pos, pools, page_table, matmul=mm)
-    logits = _logits(cfg, params, x)
+    with _row_block(bd, rows):
+        x, new_pools = transformer.stack_decode_paged(
+            cfg, params["decoder"], x, pos, pools, page_table, matmul=mm)
+    logits = _logits(cfg, params, x, bd)
     return logits[:, 0], new_pools
 
 
@@ -1059,7 +1074,43 @@ def paged_state_specs(cfg: ModelConfig, num_pages: int, page_size: int) -> Any:
     return map_state(mk, specs)
 
 
+def paged_state_shardings(cfg: ModelConfig, specs: Any, mesh, rules: dict) -> list[tuple]:
+    """The placement of each pool leaf, (n_groups, P + 1, page_size, Hkv,
+    hd), in ``state_leaves`` order: its KV heads as the contiguous cache
+    places them (``train.step.state_sharding_for_leaf``), every page on
+    every rank. The page table is global and the same on every rank, and a
+    rank reads only its rows' pages: the pages the other ``data`` ranks'
+    slots write go stale here, behind the attention mask. Raises where the
+    heads' axis does not split the KV heads (a rank's K and V hold its
+    block of them)."""
+    from repro_torch.train.step import state_sharding_for_leaf
+
+    tp = (resolve_spec(("heads",), rules, mesh) or (None,))[0]
+
+    def one(s):
+        place = list(state_sharding_for_leaf(cfg, tuple(s.shape), mesh, rules,
+                                             s.shape[1], batch_dim=1))
+        if place[3] is None and axis_size(mesh, tp) > 1:
+            raise ValueError(f"{cfg.name}: {cfg.kv_heads_padded} KV heads do not split over "
+                             f"{tp} = {axis_size(mesh, tp)}; the page pools cannot be placed")
+        place[1] = None
+        return tuple(place)
+
+    return [one(s) for s in state_leaves(specs)]
+
+
 def init_paged_state(cfg: ModelConfig, num_pages: int, page_size: int,
-                     device: str | torch.device | None = None) -> Any:
-    """Concrete zero-initialised page pools (paged serving cold start)."""
-    return _zeros(paged_state_specs(cfg, num_pages, page_size), resolve_device(device))
+                     device: str | torch.device | None = None, mesh=None,
+                     rules: dict | None = None) -> tuple[Any, list | None]:
+    """Zero page pools (paged serving cold start): on a mesh, this rank's
+    shard of each (:func:`paged_state_shardings`). Returns (pools, the
+    leaves' placements in ``state_leaves`` order), the placements None off
+    a mesh."""
+    specs = paged_state_specs(cfg, num_pages, page_size)
+    if mesh is None:
+        return _zeros(specs, resolve_device(device)), None
+    placements = paged_state_shardings(cfg, specs, mesh, rules or SERVE_RULES)
+    it = iter(placements)
+    local = map_state(lambda s: TensorSpec(local_shape(s.shape, next(it), mesh), s.dtype),
+                      specs)
+    return _zeros(local, mesh.device if device is None else device), placements

@@ -2,8 +2,18 @@
 ``repro/models/moe.py``).
 
 ``moe_impl="dense"`` — every expert evaluated densely, outputs combined by
-the gates. Exact (infinite capacity) and mesh-free: the correctness oracle
-and the smoke-test path.
+the gates. Exact (infinite capacity): the correctness oracle and the
+smoke-test path. On a mesh a rank holds only its shards of the layer (its
+experts over ``model``, their hidden dim over ``data``, the shared expert's
+hidden dim over ``model``); :func:`moe_apply` then makes one device's call
+(:func:`_moe_dense_on_mesh`): every leaf all-gathered whole and the rows
+gathered over the batch axes, the rank keeping its rows of the output. So
+a rank's rows are bitwise one device's, at the cost of the whole layer on
+every rank (only the smoke configs run it; the full configs run ``ep``).
+The gathers carry the gradients (``collectives.all_gather``: the
+reduce-scatter back), a leaf gathered over an axis whose ranks hold the
+same rows taking the mean of their equal gradients, as :func:`moe_ep`'s
+experts do.
 
 ``moe_impl="ep"`` — expert parallelism on a mesh of ranks. Tokens stay on
 their rank's rows (the ``pod``/``data`` axes); experts are split over
@@ -30,7 +40,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import collectives as coll
-from repro_torch.distributed.sharding import ParamSpec, current_mesh, resolve_spec
+from repro_torch.distributed.sharding import (
+    ParamSpec, axis_names_of, batch_rows, current_mesh, resolve_spec)
 from repro_torch.models.config import ModelConfig
 
 
@@ -198,11 +209,35 @@ def moe_ep(cfg: ModelConfig, p: dict, x: torch.Tensor, stats: dict | None = None
     return y
 
 
+def _moe_dense_on_mesh(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """:func:`moe_dense` of this rank's rows ``x`` from its shards ``p`` on
+    the current mesh, as one device's call (see the module docstring)."""
+    mesh = current_mesh()
+    bd = (resolve_spec(("batch",)) or (None,))[0]
+    batch_axes = set(axis_names_of(bd))
+    specs = moe_specs(cfg)
+    whole = {}
+    for k, w in p.items():
+        spec = specs[k]
+        for dim, (n, logical) in enumerate(zip(spec.shape, spec.axes)):
+            if w.shape[dim] == n:
+                continue
+            ax = resolve_spec((logical,))[0]
+            same_rows = [a for a in axis_names_of(ax) if a not in batch_axes]
+            if same_rows and torch.is_grad_enabled():
+                w = _ScaleGrad.apply(w, 1.0 / math.prod(mesh.shape[a] for a in same_rows))
+            w = coll.all_gather(w, mesh, ax, dim)
+        whole[k] = w
+    block = batch_rows()
+    if block is None or block[0] == x.shape[0]:
+        return moe_dense(cfg, whole, x)
+    rows = coll.all_gather(x, mesh, bd, dim=0)
+    return moe_dense(cfg, whole, rows)[block[1]:block[1] + x.shape[0]]
+
+
 def moe_apply(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     if cfg.moe_impl == "ep":
         return moe_ep(cfg, p, x)
     if current_mesh() is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: moe_impl='dense' on a mesh: a rank holds only its experts; "
-            "moe_impl='ep' runs them there")
+        return _moe_dense_on_mesh(cfg, p, x)
     return moe_dense(cfg, p, x)

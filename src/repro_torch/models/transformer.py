@@ -14,8 +14,8 @@ The Mamba-2 stack (``ssm``) loops over its layers; the hybrid (Zamba2) runs
 followed by the one shared attention + MLP block with the site's LoRA on Q,
 then the tail layers. Decode writes every state it is given in place: KV
 caches, SSM states and conv rings. MoE layers take ``moe.moe_apply``: the
-dense branch on one device, ``moe_impl="ep"`` expert-parallel on a mesh
-(``moe_impl="dense"`` refuses a mesh).
+dense branch (on a mesh as one device's call) or ``moe_impl="ep"``,
+expert-parallel on a mesh.
 
 GQA under TP with awkward head counts keeps the reference's exact math:
 padded Q heads are zero-masked before the out-projection, and logical KV
@@ -192,11 +192,12 @@ def _qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, positions: torch.Tensor, ma
     q = q.reshape(B, S, hq, cfg.hd)
     k = k.reshape(B, S, hkv_stored, cfg.hd)
     v = v.reshape(B, S, hkv_stored, cfg.hd)
-    if hkv_stored < kv_local:  # replicate logical KV heads (the rank's block of them)
+    if _kv_replicated(cfg):  # replicate logical KV heads (the rank's block of them)
         first = _head_block(cfg, hq) * kv_local
         if current_mesh() is not None:
-            # each rank reads its block of heads of replicated K, V: their
-            # gradients are summed over the heads' axis
+            # the logical heads are whole on every rank, each reading its
+            # block of their padded copies: their gradients are summed over
+            # the heads' axis
             k, v = (coll.sum_grad(t, current_mesh(), resolve_spec(("heads",))[0])
                     for t in (k, v))
         k = ll._repeat_kv(k, cfg.kv_heads_padded // hkv_stored)[:, :, first:first + kv_local]
@@ -280,7 +281,10 @@ def attn_block_decode_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,
     contiguous path does. Unmapped logical pages read physical page 0 in the
     view; every position they cover satisfies ``kpos > pos`` and is masked to
     an exact zero by the softmax, which is what makes paged decode bitwise
-    identical to contiguous decode (see ``serve/page_manager.py``).
+    identical to contiguous decode (see ``serve/page_manager.py``). On a
+    mesh the pools hold the rank's KV heads and the table its rows, so the
+    view has the contiguous cache's local shape and the attention makes the
+    same one-device call (``block``).
     """
     mm = matmul or ll.default_mm
     h = ll.apply_norm(cfg, p["ln1"], x)
@@ -301,7 +305,8 @@ def attn_block_decode_paged(cfg: ModelConfig, p: dict, x: torch.Tensor,
         g = pool[view_table]                      # (B, Lp, ps, Hkv, hd)
         return g.reshape(g.shape[0], -1, g.shape[3], g.shape[4])
 
-    o = ll.attention_decode(q, view(k_pool), view(v_pool), pos, mode="full")
+    o = ll.attention_decode(q, view(k_pool), view(v_pool), pos, mode="full",
+                            block=_call_block(cfg, q))
     return _out_proj(cfg, p, x, o, mm), (k_pool, v_pool)
 
 

@@ -40,7 +40,11 @@ shards of the decode state (``train.step.init_decode_state``: slots over
 prefilled on every rank (batch 1 replicates over ``data``), and its state is
 written only on the ``data`` rank that owns the slot. The calls run under
 ``sharding.use_rules(SERVE_RULES, mesh)`` (:meth:`Engine._ctx`), so each Phi
-GEMM re-gates on its local shape. The paged engine runs on one device only.
+GEMM re-gates on its local shape. Paged, a rank's pools hold its KV heads
+and every page (``model.init_paged_state``): the page manager, preemption
+and the table stay host-side and the same on every rank, every rank splices
+each prefill into its pages, and the decode step reads a rank's rows of the
+table. A rank's pools are the one device's divided by ``model`` only.
 """
 from __future__ import annotations
 
@@ -53,7 +57,7 @@ from typing import Any
 import numpy as np
 import torch
 
-from repro_torch.distributed.sharding import SERVE_RULES, use_rules
+from repro_torch.distributed.sharding import SERVE_RULES, local_shape, use_rules
 from repro_torch.models import model
 from repro_torch.models.config import ModelConfig
 from repro_torch.obs.metrics import DEFAULT_BUCKETS, TICK_BUCKETS, MetricsRegistry
@@ -178,15 +182,13 @@ class Engine:
 
         self.pm: PageManager | None = None
         self._placements = None
-        if self.paged and mesh is not None:
-            raise NotImplementedError("the paged engine runs on one device; on a mesh "
-                                      "serve from contiguous slots (paged=False)")
         if self.paged:
             if num_pages is None:
                 num_pages = batch_slots * (max_context // page_size)
             self.pm = PageManager(num_pages=num_pages, page_size=page_size,
                                   slots=batch_slots, max_context=max_context)
-            self.pools = model.init_paged_state(cfg, num_pages, page_size, self.device)
+            self.pools, _ = model.init_paged_state(
+                cfg, num_pages, page_size, self.device, mesh, SERVE_RULES)
             self.state = None
         else:
             from repro_torch.train.step import init_decode_state
@@ -254,7 +256,8 @@ class Engine:
         slot's physical pages, in place: the sequence axis is padded to a
         whole number of pages and chopped into page chunks. Junk in the pad
         tail is exactly the junk the contiguous engine keeps past the prompt
-        — masked, then progressively overwritten by decode."""
+        — masked, then progressively overwritten by decode. On a mesh every
+        rank splices its KV heads: every rank holds every page."""
         idx = torch.as_tensor(pages, dtype=torch.long, device=self.device)
         for pool_kv, new_kv in zip(self.pools, new_state):
             for pool, n in zip(pool_kv, new_kv):
@@ -422,12 +425,12 @@ class Engine:
         pos = torch.as_tensor(self.pos.astype(np.int32), device=self.device)
         n_active = int(self.active.sum())
         t0 = time.perf_counter() if self.wall_time else 0.0
-        if self.paged:
-            table = torch.as_tensor(self.pm.tables, device=self.device)
-            logits, self.pools = model.decode_step_paged(
-                self.cfg, self.params, last_t, pos, self.pools, table, matmul=self.matmul)
-        else:
-            with self._ctx():
+        with self._ctx():
+            if self.paged:
+                table = torch.as_tensor(self.pm.tables, device=self.device)
+                logits, self.pools = model.decode_step_paged(
+                    self.cfg, self.params, last_t, pos, self.pools, table, matmul=self.matmul)
+            else:
                 logits, self.state = model.decode_step(self.cfg, self.params, last_t, pos,
                                                        self.state, matmul=self.matmul)
         logits = logits.to(torch.float32).cpu()       # waits for the card
@@ -512,10 +515,21 @@ class Engine:
     def cache_report(self) -> dict:
         """Cache-memory accounting: the contiguous allocation this
         configuration would need, and (paged mode) the pool size and the
-        high-water mark actually touched."""
+        high-water mark actually touched. On a mesh the bytes are this
+        rank's, and ``bytes_of`` says so (one device's report is the
+        reference's)."""
         specs = model.decode_state_specs(self.cfg, self.B, self.max_context)
-        contig = sum(math.prod(s.shape) * s.dtype.itemsize for s in model.state_leaves(specs))
+        shapes = [s.shape for s in model.state_leaves(specs)]
+        if self.mesh is not None:
+            from repro_torch.train.step import _leaf_shardings
+
+            places = _leaf_shardings(self.cfg, specs, self.mesh, SERVE_RULES, self.B)
+            shapes = [local_shape(sh, pl, self.mesh) for sh, pl in zip(shapes, places)]
+        contig = sum(math.prod(sh) * s.dtype.itemsize
+                     for sh, s in zip(shapes, model.state_leaves(specs)))
         out: dict[str, Any] = {"contig_cache_bytes": int(contig)}
+        if self.mesh is not None:
+            out["bytes_of"] = f"rank {self.mesh.rank}"
         if self.paged:
             pool_bytes = sum(t.numel() * t.element_size() for t in model.state_leaves(self.pools))
             per_page = pool_bytes // (self.pm.num_pages + 1)

@@ -20,7 +20,12 @@ engine's tokens equal to one device's. The same world runs ``moe_ep`` on a
 gather), each against the reference's ``moe_ep`` on an 8-device mesh (a
 subprocess with ``XLA_FLAGS``, as ``tests/test_distributed.py`` runs it) and
 the port's ``moe_dense``, at the reference test's rtol/atol 2e-4 in float32;
-and the collectives on a 2 × 2 × 2 mesh against their definitions.
+``moe_impl="dense"`` of the Arctic and Llama-4 smoke layers on the 2 × 4
+mesh bitwise one device's; and the collectives on a 2 × 2 × 2 mesh against
+their definitions. The world's OLMo rank also serves the requests through
+two paged engines (``torch_mesh_ranks.PAGED_RUNS``: the default pool and one
+that preempts), bitwise one device's paged engines and the mesh's
+contiguous engine.
 """
 from __future__ import annotations
 
@@ -269,6 +274,18 @@ def _moe_inputs():
 
 
 MOE_MESHES = [((2, 4), ("data", "model")), ((1, 8), ("data", "model"))]
+# moe_impl="dense" on a mesh: the smoke configs that run it (Llama-4's has the
+# shared expert), their layer on (data 2, model 4), a batch of 4 x 6 rows.
+MOE_DENSE_ARCHS = ["arctic_480b", "llama4_maverick"]
+MOE_DENSE_MESH = ((2, 4), ("data", "model"))
+
+
+def _moe_dense_inputs(arch: str):
+    """(cfg, one layer's params drawn from a seed, a (4, 6, D) batch)."""
+    cfg = get_config(arch, smoke=True)
+    p = shd.init_params(moe.moe_specs(cfg), torch.Generator().manual_seed(13), "cpu")
+    x = np.random.default_rng(13).normal(0, 1, (4, 6, cfg.d_model)).astype(np.float32)
+    return cfg, p, torch.from_numpy(x)
 
 
 def _reference_moe_ep(tmp_path) -> list[np.ndarray]:
@@ -332,10 +349,14 @@ def world(tmp_path_factory):
         wide = {"tokens": torch.from_numpy(
             np.random.default_rng(4).integers(3, cfg.vocab, (WIDE_ROWS, 6)).astype(np.int32))}
         single_wide, _ = ranks.decode_run(cfg, params, wide, 1)
+        single_wide_paged = ranks.paged_decode_run(cfg, params, wide, 4)
         rng = np.random.default_rng(3)
         prompts = [rng.integers(3, cfg.vocab, int(n)) for n in rng.integers(3, 10, 6)]
         serve_kw = dict(slots=4, max_new=4, max_context=32)
         single_tokens = ranks.serve(cfg, params, prompts, **serve_kw)
+        single_paged = {name: ranks.engine_run(cfg, params, prompts, paged=True, **serve_kw,
+                                               **kw)
+                        for name, kw in ranks.PAGED_RUNS.items()}
     finally:
         dispatch.set_policy(prev)
     x, _ = ref_model._forward(rcfg, rp, rbatch, matmul=ref_spiking_dense_mm(rcfg))
@@ -348,9 +369,19 @@ def world(tmp_path_factory):
     mp, mx = _moe_inputs()
     mp = {k: torch.from_numpy(v) for k, v in mp.items()}
     mx = torch.from_numpy(mx)
+    dshape, daxes = MOE_DENSE_MESH
+    dgrid = types.SimpleNamespace(axis_names=daxes, shape=dict(zip(daxes, dshape)))
+    dense_inputs = {arch: _moe_dense_inputs(arch) for arch in MOE_DENSE_ARCHS}
     args = []
     for r in range(8):
         coords = dict(zip(axes, np.unravel_index(r, shape)))
+        dc = dict(zip(daxes, np.unravel_index(r, dshape)))
+        dense_runs = []
+        for arch, (dcfg, dp, dx) in dense_inputs.items():
+            dpl = shd.specs_to_shardings(moe.moe_specs(dcfg), dgrid, shd.SERVE_RULES)
+            n = dx.shape[0] // dshape[0]
+            dense_runs.append((arch, dshape, daxes, dcfg, shd.place(dp, dpl, dgrid, dc),
+                               dx[dc["data"] * n:(dc["data"] + 1) * n].clone(), dx.shape[0]))
         moe_runs = []
         for mshape, maxes in MOE_MESHES:
             mgrid = types.SimpleNamespace(axis_names=maxes, shape=dict(zip(maxes, mshape)))
@@ -360,14 +391,18 @@ def world(tmp_path_factory):
             moe_runs.append((mshape, maxes, shd.place(mp, mpl, mgrid, mc),
                              mx[mc["data"] * rows:(mc["data"] + 1) * rows].clone()))
         args.append(((shape, axes, cfg, shd.place(params, placed, grid, coords), batch, 2,
-                      prompts, serve_kw, wide), (mcfg, moe_runs)))
+                      prompts, serve_kw, wide), (mcfg, moe_runs, dense_runs)))
     out = mesh_lib.spawn_ranks(ranks.world_rank, 8, args, device="cpu",
                                timeout=WORLD_TIMEOUT)
     with torch.no_grad():
         dense = moe.moe_dense(mcfg, mp, mx).numpy()
-    return dict(ranks=out, single=single, single_wide=single_wide, single_shapes=single_shapes,
-                single_tokens=single_tokens, ref_prefill=ref_prefill,
-                moe_dense=dense, moe_ref=_reference_moe_ep(tmp), cfg=cfg)
+        dense_one = {arch: moe.moe_dense(c, p, x).numpy()
+                     for arch, (c, p, x) in dense_inputs.items()}
+    return dict(ranks=out, single=single, single_wide=single_wide,
+                single_wide_paged=single_wide_paged, single_shapes=single_shapes,
+                single_tokens=single_tokens, single_paged=single_paged, ref_prefill=ref_prefill,
+                moe_dense=dense, moe_dense_one=dense_one, moe_ref=_reference_moe_ep(tmp),
+                cfg=cfg)
 
 
 def test_mesh_prefill_and_decode_equal_one_device_bitwise(world):
@@ -442,6 +477,125 @@ def test_mesh_engine_tokens_equal_one_devices(world):
         assert out["lm"]["tokens"] == world["single_tokens"]
 
 
+def _same_rows(got: dict, want: dict, skip=()) -> None:
+    """Every request's recorded logits rows bitwise equal (but ``skip``'s)."""
+    assert sorted(got) == sorted(want)
+    for rid in want:
+        if rid not in skip:
+            assert got[rid].shape == want[rid].shape
+            assert np.array_equal(got[rid], want[rid]), (rid, np.abs(got[rid] - want[rid]).max())
+
+
+def test_mesh_paged_decode_equals_one_devices_at_many_rows(world):
+    """A paged decode step at 72 rows (36 a data rank), from pools holding a
+    rank's KV heads and every page: bitwise one device's paged step and one
+    device's contiguous step (the attention makes one device's call at the
+    gathered view's shape)."""
+    want = world["single_wide_paged"]
+    assert np.array_equal(want, world["single_wide"][1])
+    for r, out in enumerate(world["ranks"]):
+        got = out["lm"]["wide_paged"]
+        assert got.shape == want.shape == (WIDE_ROWS, world["cfg"].vocab)
+        assert np.array_equal(got, want), (r, np.abs(got - want).max())
+
+
+@pytest.mark.parametrize("run", list(ranks.PAGED_RUNS))
+def test_mesh_paged_engine_equals_one_devices_paged_engine_bitwise(world, run):
+    """The paged engine on (data 2, model 4), each rank from its pools,
+    against one device's paged engine with the same pool: the tokens and
+    every recorded logits row bitwise, the same requests preempted."""
+    want = world["single_paged"][run]
+    assert want["paged"] and len(want["tokens"]) == 6
+    for r, out in enumerate(world["ranks"]):
+        got = out["lm"]["paged"][run]
+        assert got["paged"], r
+        assert got["tokens"] == want["tokens"] == world["single_tokens"], r
+        assert got["preempted"] == want["preempted"], r
+        _same_rows(got["logits"], want["logits"])
+
+
+@pytest.mark.parametrize("run", list(ranks.PAGED_RUNS))
+def test_mesh_paged_engine_equals_the_mesh_contiguous_engine(world, run):
+    """Against the mesh's contiguous engine: the tokens, and every logits
+    row bitwise but a preempted request's (it resumes with a prefill over
+    its prompt and prefix, whose row for the next token is the prefill's,
+    not a decode step's)."""
+    for r, out in enumerate(world["ranks"]):
+        got, want = out["lm"]["paged"][run], out["lm"]["engine"]
+        assert not want["paged"] and not want["preempted"]
+        assert got["tokens"] == want["tokens"], r
+        _same_rows(got["logits"], want["logits"], skip=got["preempted"])
+
+
+def test_mesh_tight_pool_preempts_and_the_default_does_not(world):
+    """One full lane of pages for 4 slots: the page manager, host-side and
+    the same on every rank, preempts; the default pool never does. Pages
+    freed by one data rank's slots (0, 1 on data 0; 2, 3 on data 1) go to
+    the other's, whose copies of them are stale."""
+    for out in world["ranks"]:
+        paged = out["lm"]["paged"]
+        assert len(paged["tight"]["preempted"]) >= 1
+        assert paged["default"]["preempted"] == []
+        assert paged["tight"]["cache"]["hwm_pages"] == 4
+        assert paged["tight"]["page_slots"] == world["single_paged"]["tight"]["page_slots"]
+    assert world["single_paged"]["tight"]["preempted"] == \
+        world["ranks"][0]["lm"]["paged"]["tight"]["preempted"]
+    crossed = [page for page, slots in world["single_paged"]["tight"]["page_slots"].items()
+               if len({s // 2 for s in slots}) == 2]
+    assert crossed, world["single_paged"]["tight"]["page_slots"]
+
+
+def test_mesh_pools_hold_the_ranks_kv_heads_and_every_page(world):
+    """Each pool leaf (n_groups, P + 1, page_size, Hkv, hd) on a rank: its
+    KV heads (4 over model 4) and every page, the scratch page too, as
+    ``paged_state_shardings`` places it; the cache report says the bytes are
+    the rank's."""
+    grid = _grid((2, 4), ("data", "model"))
+    specs = model.paged_state_specs(world["cfg"], 4, 8)
+    assert model.paged_state_shardings(world["cfg"], specs, grid, shd.SERVE_RULES) == \
+        [(None, None, None, "model", None)] * 2
+    for run, kw in ranks.PAGED_RUNS.items():
+        one = world["single_paged"][run]
+        for r, out in enumerate(world["ranks"]):
+            got = out["lm"]["paged"][run]
+            assert got["pool_shapes"] == [(L, P1, ps, H // 4, hd)
+                                          for (L, P1, ps, H, hd) in one["pool_shapes"]], r
+            L, P1, ps, H, hd = one["pool_shapes"][0]
+            assert P1 == got["cache"]["num_pages"] + 1 and ps == kw["page_size"]
+            assert got["cache"]["bytes_of"] == f"rank {r}"
+            assert got["cache"]["pool_bytes"] * 4 == one["cache"]["pool_bytes"]
+            assert "bytes_of" not in one["cache"]
+            contig = out["lm"]["engine"]["cache"]["contig_cache_bytes"]
+            assert got["cache"]["contig_cache_bytes"] == contig
+            assert contig * 8 == one["cache"]["contig_cache_bytes"]
+
+
+def test_paged_pools_refuse_kv_heads_the_model_axis_does_not_split():
+    """OLMo smoke's 4 KV heads over model 8: no rank's block of heads, so
+    the pools cannot be placed (a paged mesh engine places them here)."""
+    cfg = get_config("olmo_1b", smoke=True)
+    specs = model.paged_state_specs(cfg, 4, 8)
+    with pytest.raises(ValueError, match="4 KV heads do not split over model = 8"):
+        model.paged_state_shardings(cfg, specs, _grid((1, 8), ("data", "model")),
+                                    shd.SERVE_RULES)
+
+
+@pytest.mark.parametrize("arch", MOE_DENSE_ARCHS)
+def test_moe_dense_on_a_mesh_is_one_devices_bitwise(world, arch):
+    """``moe_impl="dense"`` on (data 2, model 4) under the serving rules: a
+    rank holds 1 of 4 experts and half their hidden dim (Llama-4's shared
+    expert a quarter of its own); it gathers the layer and the rows and
+    makes one device's call, so its rows are bitwise one device's."""
+    want = world["moe_dense_one"][arch]
+    n = want.shape[0] // MOE_DENSE_MESH[0][0]
+    for r, out in enumerate(world["ranks"]):
+        d = np.unravel_index(r, MOE_DENSE_MESH[0])[0]
+        got = out["moe_dense"][arch]
+        assert got.shape == (n,) + want.shape[1:]
+        assert np.array_equal(got, want[d * n:(d + 1) * n]), (r, np.abs(
+            got - want[d * n:(d + 1) * n]).max())
+
+
 @pytest.mark.parametrize("which", range(len(MOE_MESHES)),
                          ids=["2x4_gathers_expert_mlp", "1x8"])
 def test_moe_ep_matches_the_references_and_dense(world, which):
@@ -491,13 +645,16 @@ def test_serve_launcher_on_a_mesh_of_host_ranks_gives_one_devices_tokens(fresh_p
         serve_launch.main(flags + ["--host-devices", "4", "--mesh-model", "3"])
 
 
-def test_paged_engine_refuses_a_mesh():
-    from repro_torch.serve.engine import Engine
-
-    cfg = get_config("olmo_1b", smoke=True)
-    params = shd.init_params(model.lm_specs(cfg), torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="one device"):
-        Engine(cfg, params, paged=True, mesh=object())
+def test_serve_launcher_serves_paged_on_a_mesh_with_one_devices_tokens(fresh_policy):
+    """``--paged`` with ``--host-devices 4 --mesh-model 2``, from a pool of
+    one full lane: the tokens one device's paged launcher gives."""
+    flags = ["--arch", "olmo_1b", "--smoke", "--phi", "--device", "cpu", "--requests", "6",
+             "--max-new", "6", "--max-context", "32", "--paged", "--page-size", "8",
+             "--pages", "4"]
+    one = serve_launch.main(flags)
+    mesh = serve_launch.main(flags + ["--host-devices", "4", "--mesh-model", "2",
+                                      "--timeout", str(WORLD_TIMEOUT)])
+    assert len(one) == 6 and mesh == one
 
 
 # ----------------------------------------------------------- the SPMD rows ---

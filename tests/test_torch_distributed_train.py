@@ -16,6 +16,10 @@ the Phi config calibrated) and handed to both.
   one; after 3 steps every leaf's replicas bitwise equal.
 * Phi step: ``phi_variant(timesteps=2, q=16)``, batch 8 × 16, the same
   checks; every ``lm.*.spmd`` decision ``coo`` with the reference's reason.
+* Arctic step: Arctic-480B smoke ``.with_(tp=2)`` (``moe_impl="dense"``:
+  each rank gathers the experts and the rows), batch 8 × 16, its loss,
+  gradients and params after one step against the port's single-device
+  step.
 * ``pod_compressed_grads`` on (pod 2, data 2, model 2): the reference
   test's case and a leaf split over ``model`` whose columns differ in scale
   by 64×: loss, grads and ``new_ef`` within one quantisation step.
@@ -188,6 +192,13 @@ def _inputs():
         out[f"{name}_batch_tokens"], out[f"{name}_batch_labels"] = tok, lab
         torch_side[name] = (cfg, p, {"tokens": torch.from_numpy(tok),
                                      "labels": torch.from_numpy(lab)})
+    acfg = get_config("arctic_480b", smoke=True).with_(tp=2)
+    arng = np.random.default_rng(2)
+    tok, lab = (arng.integers(0, acfg.vocab, (8, 16)).astype(np.int32) for _ in range(2))
+    lab[:, -3:] = -1
+    torch_side["arctic"] = (acfg, shd.init_params(model.lm_specs(acfg),
+                                                  torch.Generator().manual_seed(2), "cpu"),
+                            {"tokens": torch.from_numpy(tok), "labels": torch.from_numpy(lab)})
     out["c0_w"] = np.full((4, 8), 0.5, np.float32)
     out["c0_x"] = rng.normal(size=(8, 4)).astype(np.float32)
     out["c0_ef"] = np.zeros((4, 8), np.float32)
@@ -246,7 +257,8 @@ def world(tmp_path_factory):
         loop_ocfg = opt.OptConfig(lr=1e-3, warmup_steps=1, decay_steps=4)
         args = [(side["dense"][0], OCFG, side["dense"][1], side["dense"][2]),
                 (side["phi"][0], OCFG, side["phi"][1], side["phi"][2]),
-                inputs, str(tmp), moe_args, (loop_cfg, loop_ocfg)]
+                inputs, str(tmp), moe_args, (loop_cfg, loop_ocfg),
+                (side["arctic"][0], OCFG, side["arctic"][1], side["arctic"][2])]
         out = mesh_lib.spawn_ranks(ranks.train_world, 8, [tuple(args)] * 8, device="cpu",
                                    timeout=WORLD_TIMEOUT)
         _, err = oracle.communicate(timeout=WORLD_TIMEOUT)
@@ -287,7 +299,7 @@ def test_mesh_step_matches_the_references_sharded_step(world, name):
             assert d < PARAM_TOL, (r, key, d)
 
 
-@pytest.mark.parametrize("name", ["dense", "phi"])
+@pytest.mark.parametrize("name", ["dense", "phi", "arctic"])
 def test_mesh_step_matches_one_device_leaf_by_leaf(world, name):
     """Step 1's loss, every gradient leaf (gathered to its global value) and
     every leaf after the step against the port's single-device step."""

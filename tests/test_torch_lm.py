@@ -136,8 +136,10 @@ def test_lm_specs_match_the_reference(arch):
 def test_unported_families_raise_not_implemented():
     """Expert parallelism (the full MoE configs' ``moe_impl="ep"``) without a
     mesh runs the dense branch, as the reference's ``moe_ep`` does: logits
-    bitwise ``moe_impl="dense"``'s. What stays unported raises: the dense
-    branch on a mesh (a rank holds only its experts)."""
+    bitwise ``moe_impl="dense"``'s. The dense branch on a mesh no longer
+    raises: given whole leaves and the global rows it gathers nothing and is
+    ``moe_dense`` itself (the sharded case runs in a world of ranks,
+    ``tests/test_torch_distributed.py``)."""
     import types
 
     from repro_torch.distributed.sharding import SERVE_RULES, use_rules
@@ -154,11 +156,14 @@ def test_unported_families_raise_not_implemented():
         assert torch.equal(ep, dense) and torch.isfinite(ep).all()
         grid = types.SimpleNamespace(axis_names=("data", "model"),
                                      shape={"data": 1, "model": 2})
-        x = torch.zeros((1, 4, cfg.d_model))
+        x = torch.randn((1, 4, cfg.d_model), generator=torch.Generator().manual_seed(1))
         p = next(pos["moe"] for pos in params["decoder"]["stack"].values() if "moe" in pos)
-        with use_rules(SERVE_RULES, grid), \
-                pytest.raises(NotImplementedError, match="a rank holds only its experts"):
-            moe.moe_apply(cfg.with_(moe_impl="dense"), {k: v[0] for k, v in p.items()}, x)
+        layer = {k: v[0] for k, v in p.items()}
+        dcfg = cfg.with_(moe_impl="dense")
+        with torch.no_grad():
+            with use_rules(SERVE_RULES, grid):
+                got = moe.moe_apply(dcfg, layer, x)
+            assert torch.equal(got, moe.moe_dense(dcfg, layer, x))
 
 
 def test_init_params_laws_and_order():

@@ -36,6 +36,26 @@ def decode_run(cfg, params, batch, steps: int, mesh=None, matmul=None):
     return outs, [tuple(c.shape) for c in model.state_leaves(caches)]
 
 
+def paged_decode_run(cfg, params, batch, page_size: int, mesh=None) -> np.ndarray:
+    """Prefill ``batch`` (B, S), splice each row's caches into its pages of
+    fresh pools (row b's logical pages at physical b·Lp to (b + 1)·Lp - 1,
+    Lp·page_size = S + 2, the contiguous ``decode_run``'s one-step cache) and
+    take one greedy step through ``decode_step_paged``: its logits."""
+    B, S = batch["tokens"].shape
+    lp = (S + 2) // page_size
+    table = torch.arange(B * lp, dtype=torch.int32).reshape(B, lp)
+    with torch.no_grad(), use_rules(SERVE_RULES, mesh):
+        logits, caches = model.prefill(cfg, params, batch)
+        pools, _ = model.init_paged_state(cfg, B * lp, page_size, "cpu", mesh)
+        rows = model.local_rows(table, model.batch_axis(B)).long()
+        for pool, c in zip(model.state_leaves(pools), model.state_leaves(caches)):
+            c = torch.nn.functional.pad(c, [0, 0, 0, 0, 0, lp * page_size - S])
+            pool[:, rows] = c.reshape(c.shape[:2] + (lp, page_size) + c.shape[3:])
+        step, _ = model.decode_step_paged(cfg, params, logits.argmax(-1).to(torch.int32),
+                                          torch.full((B,), S, dtype=torch.int32), pools, table)
+    return step.numpy()
+
+
 def builders_run(cfg, params, batch, mesh):
     """``train.step``'s serving builders on the mesh: the prefill's logits
     and one greedy decode step's, and their placements."""
@@ -56,11 +76,51 @@ def builders_run(cfg, params, batch, mesh):
 def serve(cfg, params, prompts, slots: int, max_new: int, max_context: int, mesh=None,
           matmul=None):
     """Greedy tokens of each request through the contiguous engine."""
+    return engine_run(cfg, params, prompts, slots, max_new, max_context, mesh=mesh,
+                      matmul=matmul)["tokens"]
+
+
+# The paged engine runs of the mesh tests: the default pool (every slot's
+# full lane) and one full lane, which preempts.
+PAGED_RUNS = {"default": dict(page_size=8), "tight": dict(page_size=8, num_pages=4)}
+
+
+def engine_run(cfg, params, prompts, slots: int, max_new: int, max_context: int, mesh=None,
+               **engine_kw) -> dict:
+    """The engine (``engine_kw``: its paging) over ``prompts``: each request's
+    greedy tokens and recorded logits rows, the preempted requests, the
+    pool leaves' local shapes and the slots each physical page was mapped to,
+    in order (paged), and the cache report."""
+    from repro_torch.obs import ListSink, Tracer
+
+    sink = ListSink()
     eng = Engine(cfg, params, batch_slots=slots, max_context=max_context, mesh=mesh,
-                 matmul=matmul)
+                 record_logits=True, tracer=Tracer(sink), **engine_kw)
+    page_slots: dict = {}
+    if eng.paged:
+        def mapping(fn):
+            def call(slot, *args):
+                out = fn(slot, *args)
+                for page in eng.pm.tables[slot][eng.pm.tables[slot] >= 0]:
+                    seen = page_slots.setdefault(int(page), [])
+                    if not seen or seen[-1] != slot:
+                        seen.append(slot)
+                return out
+            return call
+
+        eng.pm.reserve_prefill = mapping(eng.pm.reserve_prefill)
+        eng.pm.ensure = mapping(eng.pm.ensure)
     for rid, toks in enumerate(prompts):
         eng.submit(Request(rid=rid, tokens=toks, max_new_tokens=max_new))
-    return {r.rid: list(r.tokens) for r in eng.run()}
+    tokens = {r.rid: list(r.tokens) for r in eng.run()}
+    return {"tokens": tokens, "logits": {rid: np.stack(rows)
+                                         for rid, rows in eng.logit_trace.items()},
+            "preempted": sorted(r["rid"] for r in sink.records if r["kind"] == "preempt"),
+            "paged": eng.paged,
+            "pool_shapes": ([tuple(t.shape) for t in model.state_leaves(eng.pools)]
+                            if eng.paged else None),
+            "page_slots": page_slots,
+            "cache": eng.cache_report()}
 
 
 def lm_rank(rank: int, shape, axes, cfg, params, batch, steps, prompts, serve_kw, wide):
@@ -77,10 +137,15 @@ def lm_rank(rank: int, shape, axes, cfg, params, batch, steps, prompts, serve_kw
     out["coo"], _ = decode_run(coo, params, batch, steps, mesh)
     out["builders"], out["builder_placements"] = builders_run(cfg, params, batch, mesh)
     out["wide"], _ = decode_run(cfg, params, wide, 1, mesh)
+    out["wide_paged"] = paged_decode_run(cfg, params, wide, 4, mesh)
     out["decisions"] = pol.decisions()
     out["shards"] = {site: pol.last_decision(site).shards
                      for site in ("lm.w1.spmd", "lm.w2.spmd")}
-    out["tokens"] = serve(cfg, params, prompts, mesh=mesh, **serve_kw)
+    out["engine"] = engine_run(cfg, params, prompts, mesh=mesh, **serve_kw)
+    out["tokens"] = out["engine"]["tokens"]
+    out["paged"] = {name: engine_run(cfg, params, prompts, mesh=mesh, paged=True, **serve_kw,
+                                     **kw)
+                    for name, kw in PAGED_RUNS.items()}
     out["stats"] = {k: list(v) for k, v in mesh.stats.items()}
     return out
 
@@ -92,6 +157,18 @@ def moe_run(shape, axes, cfg, p, x):
     with torch.no_grad(), use_rules(TRAIN_RULES, mesh):
         y = moe.moe_ep(cfg, p, x, stats)
     return y.numpy(), stats
+
+
+def moe_dense_run(shape, axes, cfg, p, x, rows: int) -> np.ndarray:
+    """``moe_impl="dense"`` through ``moe_apply`` on a new mesh under
+    ``SERVE_RULES``: this rank's shards ``p`` and its rows ``x`` of a global
+    batch of ``rows`` rows split over data."""
+    from repro_torch.distributed.sharding import use_batch_rows
+
+    mesh = make_mesh(shape, axes)
+    with torch.no_grad(), use_rules(SERVE_RULES, mesh), \
+            use_batch_rows(rows, mesh.coords["data"] * x.shape[0]):
+        return moe.moe_apply(cfg, p, x).numpy()
 
 
 def collective_input(rank: int) -> np.ndarray:
@@ -116,11 +193,14 @@ def collectives_run() -> dict:
 
 
 def world_rank(rank: int, lm_args: tuple, moe_args: tuple) -> dict:
-    """The test world's body: the OLMo runs, moe_ep on each mesh, the
-    collectives."""
-    cfg, runs = moe_args
+    """The test world's body: the OLMo runs, moe_ep on each mesh, moe_dense
+    of each dense run (label, mesh shape, axes, cfg, shards, rows, global
+    rows), the collectives."""
+    cfg, runs, dense_runs = moe_args
     return {"lm": lm_rank(rank, *lm_args),
             "moe": [moe_run(shape, axes, cfg, p, x) for shape, axes, p, x in runs],
+            "moe_dense": {label: moe_dense_run(shape, axes, c, p, x, rows)
+                          for label, shape, axes, c, p, x, rows in dense_runs},
             "collectives": collectives_run()}
 
 
@@ -279,14 +359,15 @@ def moe_grad_run(cfg, p, x, g) -> dict:
 
 
 def train_world(rank: int, dense_args: tuple, phi_args: tuple, inputs: dict, tmp: str,
-                moe_args: tuple, loop_args: tuple) -> dict:
-    """The training test world's body (8 ranks): dense and Phi steps on
-    (data 4, model 2), the compressed gradients, the pipeline, the elastic
-    checkpoint, a crash and resume through ``train_loop`` and ``moe_ep``'s
-    gradients."""
+                moe_args: tuple, loop_args: tuple, arctic_args: tuple) -> dict:
+    """The training test world's body (8 ranks): dense, Phi and Arctic
+    (``moe_impl="dense"``) steps on (data 4, model 2), the compressed
+    gradients, the pipeline, the elastic checkpoint, a crash and resume
+    through ``train_loop`` and ``moe_ep``'s gradients."""
     mesh = make_mesh((4, 2), ("data", "model"))
     return {"coords": mesh.coords,
             "dense": train_steps(*dense_args, mesh=mesh, steps=3),
+            "arctic": train_steps(*arctic_args, mesh=mesh, steps=1),
             # no ZeRO-3: every leaf replicated over data, updated on each replica
             "dense_dp": train_steps(*dense_args, mesh=mesh, steps=3,
                                     rules=dict(TRAIN_RULES, fsdp=None)),
