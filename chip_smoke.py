@@ -53,7 +53,10 @@ phases, and the ``kernels`` summary:
   paged-with-preemption runs, token- and logit-identical; the policy's
   decisions at prefill and decode; each kernel the phase launched against
   its plain version at layer 0's operands; prefill, decode and GEMM timings
-  beside their bounds; PWP bytes and peak memory);
+  beside their bounds; PWP bytes and peak memory; the dry run's trace of a
+  decode step and a prefill against the same steps run once: each kernel's
+  launches and the argument bytes equal, the roofline's step time beside
+  the step's);
 * serving on a mesh — ``mesh_serve`` (``lm_serve``'s calibrated OLMo-1B on
   a (data 2, model 2) mesh of four spawned ranks sharing the card, talking
   through gloo, each holding its shards (cut here, passed through host
@@ -67,7 +70,14 @@ phases, and the ``kernels`` summary:
   counted; rank 0's kernels against their plain versions at its layer-0
   local operands; then one Arctic-480B MoE layer at full width, ``moe_dense``
   here and ``moe_ep`` over four ranks of 32 experts, within ``MOE_ULPS``
-  bf16 ulps, no token dropped; per-rank times, collectives and peak memory);
+  bf16 ulps, no token dropped; per-rank times, collectives and peak memory;
+  the dry run of the (data 2, model 2) cell in a fake world against every
+  rank's first prefill and decode step: collective calls and result bytes
+  by kind and argument bytes, exactly);
+* the dry run — ``dryrun`` (``olmo_1b`` × ``decode_32k`` × 16 x 16 in Phi
+  mode through ``python -m repro_torch.launch.dryrun`` in a subprocess: a
+  fake world of 256 ranks, fake card tensors; the roofline on the H100's
+  data-sheet rates, per-rank memory, the kernel plan, seconds);
 * hybrid serving — ``hybrid_serve`` (Zamba2-1.2B at full width in Phi
   spiking mode, depth cut to ``HYB_LAYERS`` = 14 of its 38 layers: 12
   Mamba-2 layers in 2 sites, each followed by the shared attention + MLP
@@ -181,8 +191,9 @@ LSE_ULPS = 64    # the kernel's lse against _flash_fwd_impl's, in ulps of max(1,
 if (SRC / "repro_torch" / "__init__.py").is_file():
     sys.path.insert(0, str(SRC))
     from repro_torch.core.hwconst import F32_FLOP_PER_S, HBM_BYTES_PER_S, INT8_OPS_PER_S
+    from repro_torch.kernels import costs
 else:
-    F32_FLOP_PER_S = HBM_BYTES_PER_S = INT8_OPS_PER_S = None
+    F32_FLOP_PER_S = HBM_BYTES_PER_S = INT8_OPS_PER_S = costs = None
 # The kernel each wrapper launches, as the profiler names it.
 FUSED_KERNEL = {"fused": "phi_fused_kernel", "fused_prefetch": "phi_fused_kernel",
                 "fused_stream": "phi_fused_stream_kernel"}
@@ -309,67 +320,37 @@ def device_sum(rows):
     return None if None in times else sum(times)
 
 
+def bound_ms(cost, rate=None) -> tuple[float, float]:
+    """(bytes ms, operations ms) of a ``kernels.costs`` count (ops, bytes):
+    the bytes against HBM, the operations against ``rate`` (default the
+    float32 CUDA-core peak)."""
+    ops, nbytes = cost
+    return nbytes / HBM_BYTES_PER_S * 1e3, ops / (rate or F32_FLOP_PER_S) * 1e3
+
+
 def fused_bound_ms(M, K, N, T, q, k, l2_entries, pwp_rows=None, w_rows=None,
                    l1_pairs=None) -> tuple[float, float]:
-    """Least time for one fused Phi matmul: bytes (inputs once, output once)
-    against HBM, float32 operations of this run's data against the CUDA-core
-    peak (L1: a multiply and an add per row, partition and column; L2: an add
-    per residual entry and column; the final add). ``pwp_rows`` is the number
-    of PWP rows (and scales) the call needs: the whole bank, T·(q+1), unless
-    the prefetching kernel's active sets leave fewer; ``w_rows`` the weight
-    rows it needs (default all K) and ``l1_pairs`` its matched (row,
-    partition) pairs (default M·T) — :func:`needed_bound_ms` counts both
-    from the data where few rows leave most of them untouched. The integer
-    match work is not counted: the table of peaks has no integer CUDA-core
-    rate."""
-    pwp_rows = T * (q + 1) if pwp_rows is None else pwp_rows
-    w_rows = K if w_rows is None else w_rows
-    l1_pairs = M * T if l1_pairs is None else l1_pairs
-    nbytes = 4 * M * K + T * q * k + 4 * pwp_rows * N + 4 * pwp_rows + 4 * w_rows * N \
-        + 4 * M * N + 4 * -(-M // 256)
-    flops = 2 * l1_pairs * N + l2_entries * N + M * N
-    return nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    """Least time for one fused Phi matmul (``costs.fused``: this run's
+    residual entries, the PWP and weight rows and the matched pairs the call
+    needs; the integer match work not counted)."""
+    return bound_ms(costs.fused(M, K, N, T, q, k, l2_entries, pwp_rows, w_rows, l1_pairs))
 
 
 def needed_bound_ms(a, patterns, N) -> tuple[float, float]:
-    """:func:`fused_bound_ms` counting what these rows need: the PWP rows of
-    the (partition, pattern) pairs they match, the weight rows their
-    residual touches, their matched pairs and residual entries."""
-    import torch
-
-    from repro_torch.core.assign import assign_patterns
-
-    T, q, k = patterns.shape
-    idx, res = assign_patterns(a, patterns)
-    used = idx < q
-    pairs = idx.long() + torch.arange(T, device=a.device) * (q + 1)
-    return fused_bound_ms(a.shape[0], a.shape[1], N, T, q, k, int((res != 0).sum()),
-                          pwp_rows=int(torch.unique(pairs[used]).numel()),
-                          w_rows=int((res != 0).any(0).sum()), l1_pairs=int(used.sum()))
+    """:func:`fused_bound_ms` counting what these rows need
+    (``costs.fused_needed``)."""
+    return bound_ms(costs.fused_needed(a, patterns, N))
 
 
 def lif_bound_ms(T, n) -> tuple[float, float]:
-    """Least time for the LIF sequence: read the currents and write the spikes
-    once; three float32 operations per neuron-step."""
-    return 8 * T * n / HBM_BYTES_PER_S * 1e3, 3 * T * n / F32_FLOP_PER_S * 1e3
+    """Least time for the LIF sequence (``costs.lif_sequence``)."""
+    return bound_ms(costs.lif_sequence(T, n))
 
 
 def attn_bound_ms(B, S, H, D, T, qp, kp, nq, l2_entries) -> tuple[float, float]:
-    """Least time for one Phi flash-attention call: bytes (q, k, v and the
-    packed bank read once; out and the (B·H, nq) l2_nnz written once) against
-    HBM, and the float32 operations the function itself needs on this run's
-    data, whatever implements it, against the CUDA-core peak: per score the
-    L1 sum (T adds), L1 + L2, the ragged tail (2 per tail feature), the
-    scale, the softmax (max, subtract, exp, sum: 4) and p.V (2 D); per
-    residual entry of a K row an add for every query row (``l2_entries``
-    counts each K row's residual once); per output the division by the
-    denominator. The integer match is not counted: the table of peaks has no
-    integer rate."""
-    BH = B * H
-    nbytes = 16 * B * S * H * D + 8 * T * qp + 4 * BH * nq
-    scores = BH * S * S
-    flops = scores * (T + 1 + 2 * (D - T * kp) + 1 + 4 + 2 * D) + l2_entries * S + BH * S * D
-    return nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    """Least time for one Phi flash-attention call on this run's data
+    (``costs.phi_attention``; the integer match not counted)."""
+    return bound_ms(costs.phi_attention(B, S, H, D, T, qp, kp, nq, l2_entries))
 
 
 def active_sets(args, p_active):
@@ -803,29 +784,20 @@ def spikformer_path(dev, images, smi) -> dict:
 
 
 def unit_bounds(a, pats, idx, pwp, entries, w_cols, N, G_bm) -> dict:
-    """Least times of the three per-unit kernels on one GEMM, (bytes, operations)
-    each: inputs read once, outputs written once, over 3.35 TB/s; float32
-    operations of this run's data over 67 TFLOP/s. The matcher reads a and
-    the packed bank and writes idx and the int8 residual; its operations are
-    the scores as int8 tensor-core work, a multiply and an add per row,
-    partition, pattern and bit (M·T·q·k·2 over 1,979 TOP/s). The gather reads idx and the bank rows the indices name (each
-    distinct (t, index) row once) and writes the output; T - 1 adds per
-    output. The spmm reads the real entries (4 + 4 + 1 bytes) and the weight
-    rows they name and writes the (G·bm, N) output; an add per entry and
-    column."""
+    """Least times of the three per-unit kernels on one GEMM, (bytes ms,
+    operations ms) each, from ``kernels.costs``: the matcher's scores as
+    int8 tensor-core work; the gather reading each distinct (t, index) bank
+    row its indices name once; the spmm reading the real entries and the
+    weight rows they name."""
     import torch
 
     M, K = a.shape
     T, q, _ = pats.shape
     rows_named = int(torch.unique(idx.long() + torch.arange(T, device=idx.device)
                                   * (q + 1)).numel())
-    return {
-        "matcher": ((4 * M * K + 8 * T * q + 4 * M * T + M * K) / HBM_BYTES_PER_S * 1e3,
-                    2 * M * T * q * pats.shape[2] / INT8_OPS_PER_S * 1e3),
-        "l1_gather": ((4 * M * T + rows_named * N * pwp.element_size() + 4 * M * N)
-                      / HBM_BYTES_PER_S * 1e3, M * N * (T - 1) / F32_FLOP_PER_S * 1e3),
-        "l2_spmm": ((9 * entries + 4 * w_cols * N + 4 * G_bm * N) / HBM_BYTES_PER_S * 1e3,
-                    entries * N / F32_FLOP_PER_S * 1e3)}
+    return {"matcher": bound_ms(costs.matcher(M, K, T, q, pats.shape[2]), INT8_OPS_PER_S),
+            "l1_gather": bound_ms(costs.l1_gather(M, T, N, rows_named, pwp.element_size())),
+            "l2_spmm": bound_ms(costs.l2_spmm(entries, w_cols, N, G_bm))}
 
 
 def unit_operands(a, pats, pwp, w, nnz_budget):
@@ -1679,13 +1651,9 @@ def tree_leaves(tree):
 
 
 def causal_attn_bound_ms(B, S, H, D) -> tuple[float, float]:
-    """Least time for one causal dense attention: q, k, v read and out
-    written once (float32); per score that causality keeps (S(S+1)/2 a
-    head) q.k (2 D), the softmax (4) and p.V (2 D), and a division per
-    output."""
-    nbytes = 16 * B * S * H * D
-    flops = B * H * S * (S + 1) // 2 * (4 * D + 4) + B * H * S * D
-    return nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    """Least time for one causal dense attention (``costs.dense_attention``:
+    the S(S+1)/2 scores a head keeps)."""
+    return bound_ms(costs.dense_attention(B, S, H, D))
 
 
 def lm_gemms(sites, captured, recs, decode_m, timed) -> tuple[dict, list]:
@@ -1827,6 +1795,104 @@ def lm_serve_rows(runs, times, requests) -> dict:
                       "decode_ms_per_tick": hist.sum() / max(eng.ticks, 1),
                       "scheduler": eng.scheduler.report(), "cache": eng.cache_report()}
     return rows
+
+
+DRYRUN_CELL = ("olmo_1b", "decode_32k")     # traced at 16x16 in Phi mode
+DRYRUN_TIMEOUT = 300.0
+
+
+def dryrun_phase(smi) -> dict:
+    """The ``dryrun`` phase: one production cell, DRYRUN_CELL on the 16 x 16
+    mesh in Phi mode, through the dry run's command line in a subprocess
+    (a fake world of 256 ranks, fake card tensors); its record read back:
+    the roofline's terms on the H100's data-sheet rates, per-rank memory,
+    the kernel plan and the seconds it took."""
+    import torch
+
+    arch, shape = DRYRUN_CELL
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                           "--shape", shape, "--phi", "--force"], cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=str(SRC)), capture_output=True,
+                          text=True, timeout=DRYRUN_TIMEOUT)
+    if proc.returncode != 0:
+        raise AssertionError(f"dry run of {arch} x {shape} failed:\n{proc.stderr[-3000:]}")
+    rec = json.loads((ROOT / "results" / "dryrun_torch" /
+                      f"{arch}__{shape}__16x16_phi.json").read_text())
+    if not {"memory", "cost", "collectives", "roofline", "launches"} <= set(rec) or \
+            not rec["launches"]["kernels"]:
+        raise AssertionError(f"dry run of {arch} x {shape}: record {sorted(rec)}")
+    r = rec["roofline"]
+    row = {"phase": "dryrun", "cell": f"{arch} x {shape} x 16x16 phi",
+           "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+           "rates": "H100 SXM data sheet",
+           "roofline": {k: r[k] for k in ("compute_s", "memory_s", "collective_s", "bottleneck",
+                                          "step_s", "mfu", "useful_ratio")},
+           "memory_per_rank": rec["memory"], "collectives": rec["collectives"],
+           "launches": rec["launches"]["kernels"], "trace_s": rec["trace_s"],
+           "total_s": rec["total_s"], "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
+
+
+def lm_dryrun_check(cfg, params, policy, batch, dev) -> dict:
+    """``lm_serve``'s one-device cell traced by the dry run (a decode step of
+    LM_SLOTS slots at LM_MAX_CONTEXT, and the prefill of the gate's batch)
+    with the phase's calibration usage, against the same steps run once for
+    real under the phase's policy: each kernel's launches and the argument
+    bytes equal. The roofline's step time (the H100's data-sheet rates) is
+    printed beside the step's CUDA-event time, and the dry run's temp bytes
+    (the peak of live fake storages less the arguments) beside the real
+    step's peak allocation above what was allocated before it; neither is
+    gated. Resets the card's peak memory count."""
+    import torch
+
+    from repro_torch.utils import tree_bytes
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import model
+    from repro_torch.train import step as step_lib
+
+    usage = dryrun.policy_usage(policy)
+    state = model.init_decode_state(cfg, LM_SLOTS, LM_MAX_CONTEXT, dev)
+    tok = torch.zeros((LM_SLOTS,), dtype=torch.int32, device=dev)
+    pos = torch.full((LM_SLOTS,), LM_MAX_CONTEXT // 2, dtype=torch.int32, device=dev)
+    B, S = batch["tokens"].shape
+    runs = {"decode": (LM_SLOTS, LM_MAX_CONTEXT, step_lib.make_decode_step(cfg)[0],
+                       (params, tok, pos, state, None)),
+            "prefill": (B, S, step_lib.make_prefill(cfg)[0], (params, batch))}
+    out = {}
+    prev = dispatch.set_policy(policy)
+    try:
+        for name, (b, ctx, fn, args) in runs.items():
+            rec = dryrun.trace_step(cfg, name, b, ctx, None, device=dev, usage=usage)
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            zero_launches()
+            fn(*args)
+            torch.cuda.synchronize()
+            real_temp = torch.cuda.max_memory_allocated() - before
+            real = {k: v for k, v in read_launches().items() if k != "flash_attention_cuda_lse"}
+            plan = {k: rec["launches"]["kernels"].get(k, 0) for k in real}
+            nbytes = tree_bytes(args)
+            if plan != real or nbytes != rec["memory"]["argument_bytes"]:
+                raise AssertionError(f"lm_serve {name}: dry-run launches {plan} and argument "
+                                     f"bytes {rec['memory']['argument_bytes']}; the real step "
+                                     f"launched {real} on {nbytes} bytes")
+            r = rec["roofline"]
+            out[name] = {"batch": b, "context": ctx, "launches": real, "argument_bytes": nbytes,
+                         "temp_bytes": rec["memory"]["temp_bytes"],
+                         "measured_temp_bytes": real_temp,
+                         "temp_bytes_over_measured": rec["memory"]["temp_bytes"] / real_temp,
+                         "roofline": {k: r[k] for k in ("compute_s", "memory_s", "collective_s",
+                                                        "bottleneck", "step_s")},
+                         "roofline_step_ms": r["step_s"] * 1e3,
+                         "measured_ms": cuda_time_ms(lambda: fn(*args), runs=5, warmup=1),
+                         "trace_s": rec["trace_s"]}
+    finally:
+        dispatch.set_policy(prev)
+    return out
 
 
 def lm_serve_phase(dev, smi) -> dict:
@@ -2008,6 +2074,8 @@ def lm_serve_phase(dev, smi) -> dict:
     # ------------------------------------------------------------ timing ---
     timing = lm_timings(cfg, params, batch, dev)
     serve_rows = lm_serve_rows(runs, times, dict.fromkeys(runs, LM_REQUESTS))
+    peak = torch.cuda.max_memory_allocated()        # the dry-run check resets the count
+    dry = lm_dryrun_check(cfg, params, policy, batch, dev)
     pwp_bytes = sum(leaf.numel() * leaf.element_size()
                     for leaf in tree_leaves(model.split_phi_state(params)[1])
                     if leaf.dim() == 4)
@@ -2026,13 +2094,13 @@ def lm_serve_phase(dev, smi) -> dict:
                     "engines_token_and_logit_identical": sorted(runs),
                     "preempted_rids": preempted["paged_tight"],
                     "attention_launches": n_attn},
-          "drift": drift, "l2_density_max": maxd,
+          "drift": drift, "dryrun": dry, "l2_density_max": maxd,
           "l2_density": {key: st.l2_density for key, st in sorted(stats.items())},
           "gemm_l2_entries_256_rows": checks, "gemms": gemm_rows,
           "lif_sequence": lif_timing, "lif_max_abs_err": lif_err,
           "matcher": matcher_row, "attention": attn_row, **timing, "serve": serve_rows,
           "pwp_bytes": pwp_bytes, "weight_bytes": weight_bytes,
-          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+          "max_memory_allocated": max(peak, torch.cuda.max_memory_allocated()),
           "seconds": time.perf_counter() - t_phase})
     paged_tight = runs["paged_tight"][0]
     del runs
@@ -2140,24 +2208,28 @@ def timed_into(times: dict):
     return timed
 
 
-def greedy_run(cfg, params, batch, steps: int, timed) -> tuple[list, list]:
+def greedy_run(cfg, params, batch, steps: int, timed, probe=None) -> tuple[list, list]:
     """The prefill of ``batch`` and ``steps`` greedy decode steps, each call
     through ``timed`` ("prefill_ms", "decode_ms"): every step's logits
     (numpy) and the decode state's shapes. On a mesh, in the caller's
-    ``use_rules``."""
+    ``use_rules``. ``probe(name, args, call)``, where given, makes each call
+    (``name`` "prefill" or "decode", ``args`` the step's arguments)."""
     import torch
 
     from repro_torch.models import model
 
+    probe = probe or (lambda name, args, call: call())
     B, S = batch["tokens"].shape
-    logits, caches = timed("prefill_ms", lambda: model.prefill(cfg, params, batch))
+    logits, caches = timed("prefill_ms", lambda: probe(
+        "prefill", (params, batch), lambda: model.prefill(cfg, params, batch)))
     caches = model.extend_caches(cfg, caches, S + steps + 1)
     outs = [logits.cpu().numpy()]
     tok = logits.argmax(-1).to(torch.int32)
     for i in range(steps):
         pos = torch.full((B,), S + i, dtype=torch.int32, device=tok.device)
-        logits, caches = timed("decode_ms", lambda: model.decode_step(cfg, params, tok, pos,
-                                                                      caches))
+        logits, caches = timed("decode_ms", lambda: probe(
+            "decode", (params, tok, pos, caches),
+            lambda: model.decode_step(cfg, params, tok, pos, caches)))
         outs.append(logits.cpu().numpy())
         tok = logits.argmax(-1).to(torch.int32)
     return outs, [tuple(x.shape) for x in model.state_leaves(caches)]
@@ -2303,6 +2375,7 @@ def mesh_lm_rank(rank, cfg, params, batch, short, prompts, paged_logits, check: 
     import numpy as np
     import torch
 
+    from repro_torch.utils import tree_bytes
     from repro_torch.distributed.sharding import SERVE_RULES, use_rules
     from repro_torch.kernels import dispatch
     from repro_torch.launch.mesh import make_mesh
@@ -2321,13 +2394,29 @@ def mesh_lm_rank(rank, cfg, params, batch, short, prompts, paged_logits, check: 
     times: dict = {}
     timed = timed_into(times)
 
-    def greedy(c, b, steps, label):
-        return greedy_run(c, params, b, steps, lambda name, fn: timed(f"{label}_{name}", fn))
+    def greedy(c, b, steps, label, probe=None):
+        return greedy_run(c, params, b, steps, lambda name, fn: timed(f"{label}_{name}", fn),
+                          probe)
+
+    steps: dict = {}
+
+    def counted(name, args, call):
+        """The first prefill's and decode step's collectives (calls and
+        result bytes by the reference's kinds) and argument bytes: what the
+        parent's dry run of this cell must give."""
+        if name in steps:
+            return call()
+        before = {k: list(v) for k, v in mesh.results.items()}
+        out = call()
+        steps[name] = {"argument_bytes": tree_bytes(args), "collectives": {
+            kind: [c - before.get(kind, [0, 0])[0], b - before.get(kind, [0, 0])[1]]
+            for kind, (c, b) in mesh.results.items()}}
+        return out
 
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
     with torch.no_grad(), use_rules(SERVE_RULES, mesh):
-        logits, cache_shapes = greedy(cfg, batch, MESH_DECODE_STEPS, "main")
+        logits, cache_shapes = greedy(cfg, batch, MESH_DECODE_STEPS, "main", counted)
         short_policy, _ = greedy(cfg, short, MESH_COO_STEPS, "short")
         coo = cfg.with_(phi=dataclasses.replace(cfg.phi, impl="coo"))
         short_coo, _ = greedy(coo, short, MESH_COO_STEPS, "short_coo")
@@ -2366,6 +2455,7 @@ def mesh_lm_rank(rank, cfg, params, batch, short, prompts, paged_logits, check: 
                      "pool_shapes": [tuple(t.shape) for t in model.state_leaves(paged.pools)],
                      "cache": paged.cache_report(), "contig_cache": eng.cache_report()},
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "steps": steps,
            "decisions": [[*key, n] for key, n in sorted(policy.decisions().items())],
            "last": {site: dataclasses.asdict(policy.last_decision(site))
                     for site in ("lm.w1.spmd", "lm.w2.spmd")}}
@@ -2438,6 +2528,39 @@ def _moe_inputs(cfg, dev):
     router = torch.randn((cfg.d_model, cfg.n_experts), generator=gen, device=dev) * 0.02
     x = torch.randn((*MOE_TOKENS, cfg.d_model), generator=gen, device=dev)
     return router.to(cfg.param_dtype), x.to(cfg.param_dtype)
+
+
+def mesh_dryrun_check(cfg, dev, usage, ranks) -> dict:
+    """The dry run of ``mesh_serve``'s OLMo cell: the MESH_SHAPE mesh in a
+    fake world of as many ranks, the MESH_PREFILL prefill and a decode step
+    at its extended context, traced on fake card tensors with the phase's
+    calibration usage, against what every rank counted at its first prefill
+    and decode step: collective calls and result bytes by the reference's
+    kinds and argument bytes, exactly."""
+    from repro_torch.distributed.cost_analysis import COLLECTIVES
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+
+    B, S = MESH_PREFILL
+    out = {}
+    with dryrun.fake_world(MESH_SHAPE[0] * MESH_SHAPE[1]):
+        mesh = make_mesh(MESH_SHAPE, ("data", "model"), dev)
+        for name, ctx in (("prefill", S), ("decode", S + MESH_DECODE_STEPS + 1)):
+            rec = dryrun.trace_step(cfg, name, B, ctx, mesh, device=dev, usage=usage)
+            want = {k: [rec["collective_calls"][k], rec["collectives"][k]] for k in COLLECTIVES}
+            for r in ranks:
+                got = {k: r["steps"][name]["collectives"].get(k, [0, 0]) for k in COLLECTIVES}
+                if got != want or r["steps"][name]["argument_bytes"] != \
+                        rec["memory"]["argument_bytes"]:
+                    raise AssertionError(
+                        f"rank {r['rank']} {name}: collectives {got}, argument bytes "
+                        f"{r['steps'][name]['argument_bytes']}; the dry run gives {want}, "
+                        f"{rec['memory']['argument_bytes']}")
+            out[name] = {"collectives": want, "argument_bytes": rec["memory"]["argument_bytes"],
+                         "temp_bytes": rec["memory"]["temp_bytes"],
+                         "launches": rec["launches"]["kernels"], "roofline": rec["roofline"],
+                         "trace_s": rec["trace_s"]}
+    return out
 
 
 def mesh_serve_phase(dev, smi, lm) -> dict:
@@ -2568,6 +2691,9 @@ def mesh_serve_phase(dev, smi, lm) -> dict:
     checks = ranks[0]["checks"]
     launches = {k: sum(r["launches"][k] + r["paged"]["launches"][k] for r in ranks)
                 for k in ranks[0]["launches"]}
+    from repro_torch.launch.dryrun import policy_usage
+
+    dry = mesh_dryrun_check(cfg, dev, policy_usage(policy), ranks)
 
     # ----------------------------------------------- Arctic MoE, EP over 4 ---
     mcfg = get_config(MOE_ARCH).with_(capacity_factor=MOE_CF)
@@ -2633,7 +2759,7 @@ def mesh_serve_phase(dev, smi, lm) -> dict:
                    "last_decisions_rank0": {s: {k: v for k, v in d.items()
                                                 if k != "runtime_sets"}
                                             for s, d in ranks[0]["last"].items()},
-                   "checks_rank0": checks,
+                   "checks_rank0": checks, "dryrun": dry,
                    "gates": {"prefill_and_decode_bitwise_one_device": True,
                              "forced_coo_bitwise_policy": True,
                              "engine_tokens_equal_lm_serve": True,
@@ -2641,7 +2767,8 @@ def mesh_serve_phase(dev, smi, lm) -> dict:
                              "paged_engine_logits_bitwise_lm_serve_paged": True,
                              "paged_engine_preempted": True,
                              "paged_pool_kv_heads_a_rank": cfg.kv_heads_padded // MESH_SHAPE[1],
-                             "w1_w2_spmd_local_fused_shards": world},
+                             "w1_w2_spmd_local_fused_shards": world,
+                             "dryrun_collectives_and_argument_bytes_equal_every_rank": True},
                    "paged": {"page": LM_PAGE, "pages": LM_TIGHT_PAGES,
                              "layout": "KV heads over model, every page on every rank"}},
           "moe": {"arch": MOE_ARCH, "mesh": dict(zip(axes, MOE_MESH)),
@@ -4605,6 +4732,7 @@ def main() -> int:
     # ------------------------------------------------------ LM serving ---
     lm = lm_serve_phase(dev, smi)
     mesh = mesh_serve_phase(dev, smi, lm)
+    dryrun_phase(smi)
     hyb = hybrid_serve_phase(dev, smi)
     hmesh = hybrid_mesh_phase(dev, smi, hyb)
 

@@ -8,8 +8,9 @@ number about either imports it from this one:
     event-driven simulator (``repro_torch.sim``) read the same parameters,
     which is what lets the tests cross-check the two stories;
   * the NVIDIA H100 the port's kernels run on: the kernels' shared-memory
-    gates, the bounds ``chip_smoke.py`` prints, and the launch-cost
-    crossover (``ops.launch_cost_prefers_coo``).
+    gates, the bounds ``chip_smoke.py`` prints, the launch-cost
+    crossover (``ops.launch_cost_prefers_coo``) and the dry run's roofline
+    (``distributed.cost_analysis``).
 
 Architecture parameters (paper Table 1 / Sec. 4, 28nm @ 500 MHz) and the
 Table 2/3 power figures are annotated inline; the per-access energies are
@@ -62,6 +63,9 @@ E_MAC_PJ = 2.3                  # one baseline 8-bit PE MAC (Eyeriss-class)
 HBM_BYTES_PER_S = 3.35e12       # data sheet: 80 GB HBM3 at 3.35 TB/s
 F32_FLOP_PER_S = 67e12          # data sheet: float32 outside the tensor cores
 INT8_OPS_PER_S = 1979e12        # data sheet: dense int8 on the tensor cores
+BF16_FLOP_PER_S = 989e12        # data sheet: dense bf16 on the tensor cores
+NVLINK_BYTES_PER_S = 900e9      # data sheet: NVLink 4, a GPU's 18 links, both directions
+NVLINK_DIR_BYTES_PER_S = NVLINK_BYTES_PER_S / 2  # one direction: the roofline's collective rate
 SM_COUNT = 132                  # data sheet: SMs of the SXM part
 SMEM_PER_BLOCK = 232448         # CUDA docs: 227 KB a block may opt into
 SM_SMEM = 228 * 1024            # CUDA docs: shared memory of one SM

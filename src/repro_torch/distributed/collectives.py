@@ -15,9 +15,11 @@ gloo otherwise (several ranks sharing one card, where NCCL refuses two ranks
 on a device). Gloo takes card tensors for the collectives and moves them
 through host memory itself; its send and recv read a tensor's pointer as
 host memory, so :func:`send` and :func:`recv` stage card tensors through
-host buffers themselves. The mesh's ``transport`` says which case holds, and
-``stats`` counts the calls and bytes of each collective, the backward's too,
-so a caller can report them.
+host buffers themselves. The mesh's ``transport`` says which case holds,
+``stats`` counts the calls and input bytes of each collective, the
+backward's too, so a caller can report them, and ``results`` counts the
+calls and result bytes of each under the reference's kinds (:data:`KINDS`),
+as ``repro/distributed/hlo_analysis.py`` counts a compiled program's.
 
 The collectives carry gradients where autograd needs them, as Megatron's
 tensor-parallel regions do: a sum's backward is the identity (each rank
@@ -40,6 +42,13 @@ import torch.distributed as dist
 
 from repro_torch.distributed.sharding import axis_names_of
 
+# The reference's collective kinds (``hlo_analysis._COLLECTIVES``) of the
+# operations ``Mesh.stats`` counts: a reduce-scatter is an exchange here and a
+# collective-permute a send and a recv, whose result is what the recv takes.
+KINDS = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+         "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all",
+         "recv": "collective-permute"}
+
 
 class Mesh:
     """One rank's view of a ``data`` × ``model`` (× ``pod``) mesh of ranks.
@@ -49,7 +58,9 @@ class Mesh:
     to this rank's index on it (row-major over the world's ranks);
     ``groups`` maps each tuple of axes, in mesh order, to its process group;
     ``device_mesh`` is the ``torch.distributed.device_mesh.DeviceMesh`` the
-    per-axis groups come from (None for a mesh built by hand).
+    per-axis groups come from (None for a mesh built by hand). ``stats``
+    maps each operation to [calls, input bytes], ``results`` each of the
+    reference's kinds to [calls, result bytes].
     """
 
     def __init__(self, axis_names: tuple[str, ...], shape: tuple[int, ...], *, rank: int,
@@ -68,6 +79,7 @@ class Mesh:
         self.groups = groups or {}
         self.device_mesh = device_mesh
         self.stats: dict[str, list[int]] = {}
+        self.results: dict[str, list[int]] = {}
 
     @property
     def transport(self) -> str:
@@ -146,16 +158,24 @@ def build_groups(axis_names: tuple[str, ...], shape: tuple[int, ...], per_axis: 
 
 
 # ----------------------------------------------------------- collectives ---
-def _count(mesh: Mesh, op: str, x: torch.Tensor) -> None:
+def _count(mesh: Mesh, op: str, x: torch.Tensor, result_bytes: int | None = None) -> None:
+    """Count a call of ``op`` on ``x`` in ``mesh.stats`` and, under its kind,
+    its result (default: ``x``'s size) in ``mesh.results``."""
+    nbytes = x.numel() * x.element_size()
     calls = mesh.stats.setdefault(op, [0, 0])
     calls[0] += 1
-    calls[1] += x.numel() * x.element_size()
+    calls[1] += nbytes
+    if op in KINDS:
+        res = mesh.results.setdefault(KINDS[op], [0, 0])
+        res[0] += 1
+        res[1] += nbytes if result_bytes is None else result_bytes
 
 
-def _begin(x: torch.Tensor, mesh: Mesh, op: str) -> torch.Tensor:
+def _begin(x: torch.Tensor, mesh: Mesh, op: str, result_bytes: int | None = None
+           ) -> torch.Tensor:
     """The buffer a collective works on (a contiguous copy of ``x``, never a
-    tensor autograd saved), with the call counted in ``mesh.stats``."""
-    _count(mesh, op, x)
+    tensor autograd saved), with the call counted (:func:`_count`)."""
+    _count(mesh, op, x, result_bytes)
     return x.detach().contiguous().clone()
 
 
@@ -174,14 +194,15 @@ def _all_reduce(x: torch.Tensor, mesh: Mesh, ax, op: str = "sum",
 
 
 def _all_gather(x: torch.Tensor, mesh: Mesh, ax, dim: int) -> torch.Tensor:
-    buf = _begin(x, mesh, "all_gather")
+    buf = _begin(x, mesh, "all_gather", mesh.extent(ax) * x.numel() * x.element_size())
     parts = [torch.empty_like(buf) for _ in range(mesh.extent(ax))]
     dist.all_gather(parts, buf, group=mesh.group(ax))
     return torch.cat(parts, dim=dim)
 
 
-def _all_to_all(x: torch.Tensor, mesh: Mesh, ax, name: str = "all_to_all") -> torch.Tensor:
-    buf = _begin(x, mesh, name)
+def _all_to_all(x: torch.Tensor, mesh: Mesh, ax, name: str = "all_to_all",
+                result_bytes: int | None = None) -> torch.Tensor:
+    buf = _begin(x, mesh, name, result_bytes)
     out = torch.empty_like(buf)
     dist.all_to_all_single(out, buf, group=mesh.group(ax))
     return out
@@ -192,7 +213,8 @@ def _reduce_scatter(g: torch.Tensor, mesh: Mesh, ax, dim: int) -> torch.Tensor:
     block along ``dim``: an exchange of the blocks (gloo has no
     reduce-scatter), then the ranks' blocks summed in rank order."""
     n = mesh.extent(ax)
-    blocks = _all_to_all(g.movedim(dim, 0), mesh, ax, "reduce_scatter")
+    blocks = _all_to_all(g.movedim(dim, 0), mesh, ax, "reduce_scatter",
+                         g.numel() // n * g.element_size())
     out = blocks.reshape(n, blocks.shape[0] // n, *blocks.shape[1:]).sum(0)
     return out.movedim(0, dim)
 

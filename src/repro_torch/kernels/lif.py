@@ -7,13 +7,15 @@ CUDA source is ``csrc/lif.cu``.
 
 Each wrapper chooses by the device of its tensors: CPU tensors run the plain
 version (``ref.lif_ref``, in a loop for the sequence); CUDA tensors launch
-the kernel, counted in the wrapper's ``.launches``, or raise.
+the kernel, counted in the wrapper's ``.launches``, or raise. A fake tensor
+(a dry run's trace) skips the launch and its count, and logs its cost
+(``kernels.costs``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels.ref import lif_ref
 
 _RESETS = ("hard", "soft")
@@ -41,6 +43,9 @@ def lif_step_cuda(v: torch.Tensor, x: torch.Tensor, *, decay: float = 0.5,
     v, x = v.contiguous(), x.contiguous()
     spike, v_out = torch.empty_like(v), torch.empty_like(v)
     if v.numel() == 0:
+        return spike, v_out
+    if costs.traced(v):
+        costs.record("lif_step_cuda", (v, x), costs.lif_step(v.numel()))
         return spike, v_out
     with torch.cuda.device(v.device):
         stream = torch.cuda.current_stream(v.device).cuda_stream
@@ -77,6 +82,9 @@ def lif_sequence_cuda(x_seq: torch.Tensor, *, decay: float = 0.5, threshold: flo
     T = x_seq.shape[0]
     n = x_seq.numel() // T if T else 0
     if n == 0:
+        return spikes
+    if costs.traced(x_seq):
+        costs.record("lif_sequence_cuda", (x_seq,), costs.lif_sequence(T, n))
         return spikes
     with torch.cuda.device(x_seq.device):
         stream = torch.cuda.current_stream(x_seq.device).cuda_stream

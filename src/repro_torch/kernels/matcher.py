@@ -13,14 +13,15 @@ kernel's ``matcher_plan`` export computes the same way.
 
 :func:`matcher_cuda` chooses by the device of its tensors: CPU tensors run
 :func:`matcher_plain`; CUDA tensors launch the kernel, counted in
-``.launches``, or raise.
+``.launches``, or raise. A fake tensor (a dry run's trace) skips the launch
+and its count, and logs its cost (``kernels.costs``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.assign import assign_patterns
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels.phi_fused import MAX_K, pack_patterns
 from repro_torch.utils import cdiv
 
@@ -95,6 +96,9 @@ def matcher_cuda(a: torch.Tensor, patterns: torch.Tensor, *,
     idx = torch.empty((M, T), dtype=torch.int32, device=a.device)
     residual = torch.empty((M, K), dtype=torch.int8, device=a.device)
     if M == 0:
+        return idx, residual
+    if costs.traced(a):
+        costs.record("matcher_cuda", (a, patterns), costs.matcher(M, K, T, q, k))
         return idx, residual
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream

@@ -22,7 +22,9 @@ scale is applied after the contraction.
   instantiation, which also writes the per-row logsumexp where asked
   (``return_lse``: the forward of ``models.flash.flash_attention`` under
   autograd). CPU tensors run the plain versions; CUDA tensors launch the
-  kernel, counted in the wrapper's ``.launches``, or raise.
+  kernel, counted in the wrapper's ``.launches``, or raise. A fake tensor
+  (a dry run's trace) skips the launch and its count, and logs its cost
+  (``kernels.costs``).
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.kernels.phi_fused import MAX_K, SMEM_LIMIT, _partition_body, pack_patterns
 from repro_torch.models.flash import _flash_fwd_impl
 from repro_torch.utils import cdiv
@@ -187,6 +189,8 @@ def _launch(q, k, v, packed, patterns_shape, *, causal, window, chunk, block_q, 
     # Every block of the Phi instantiation writes its (batch·head, q-block) count.
     nnz = None if packed is None else torch.empty((B * H, nq), dtype=torch.int32,
                                                   device=q.device)
+    if costs.traced(q):
+        return out, lse_out if lse else nnz
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = _build.library().phi_attention_launch(
@@ -220,7 +224,14 @@ def phi_flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     packed = pack_patterns(patterns) if packed is None else packed
     out, nnz = _launch(q, k, v, packed, tuple(patterns.shape), causal=causal, window=window,
                        chunk=chunk, block_q=block_q, block_kv=block_kv)
-    phi_flash_attention_cuda.launches += 1
+    if not costs.traced(q):
+        phi_flash_attention_cuda.launches += 1
+    elif out.numel():
+        B, S, H, D = q.shape
+        T, qp, kp = patterns.shape
+        nq = cdiv(S, min(block_q, S))
+        costs.record("phi_flash_attention_cuda", (q, k, v, patterns), costs.phi_attention(
+            B, S, H, D, T, qp, kp, nq, int(costs.DRY_RUN_L2_DENSITY * B * H * S * T * kp)))
     return out, nnz
 
 
@@ -246,10 +257,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return (out, lse) if return_lse else out
     out, lse = _launch(q, k, v, None, None, causal=causal, window=window, chunk=chunk,
                        block_q=block_q, block_kv=block_kv, lse=return_lse)
-    flash_attention_cuda.launches += 1
+    traced = costs.traced(q)
+    if not traced:
+        flash_attention_cuda.launches += 1
+    elif out.numel():
+        costs.record("flash_attention_cuda", (q, k, v),
+                     costs.dense_attention(*q.shape, causal, window, chunk))
     if not return_lse:
         return out
-    flash_attention_cuda.lse_launches += 1
+    flash_attention_cuda.lse_launches += int(not traced)
     B, S, H, _ = q.shape
     return out, lse.view(B, H, S)
 

@@ -20,14 +20,16 @@ matches each row only against its M-stripe's active pattern set
 :func:`phi_fused_prefetch_plain`.
 
 The ``*_cuda`` wrappers choose by the device of their tensors: CPU tensors go
-through the plain versions; CUDA tensors launch the kernel or raise.
+through the plain versions; CUDA tensors launch the kernel or raise. A fake
+tensor (a dry run's trace) skips the launch and its count, and logs its cost
+(``kernels.costs``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import hwconst
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.utils import cdiv, pad_rows
 
 # Shapes the CUDA kernels take (csrc/phi_fused.cu): one 64-bit word per row
@@ -254,7 +256,7 @@ def _launch(fn: str, a, patterns, pwp, pwp_scale, w, block_m, packed, *, group_t
     N = w.shape[-1]
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
     nnz = torch.zeros((cdiv(M, block_m),), dtype=torch.int32, device=a.device)
-    if M == 0 or N == 0:
+    if M == 0 or N == 0 or costs.traced(a):
         return out, nnz
     lib = _build.library()
     extra = () if group_t is None else (group_t,)
@@ -268,6 +270,18 @@ def _launch(fn: str, a, patterns, pwp, pwp_scale, w, block_m, packed, *, group_t
             M, K, N, T, q, k, block_m, *extra, stream)
     _build.check(err, fn)
     return out, nnz
+
+
+def _record(name: str, a, patterns, pwp, w, p_active: int | None = None) -> None:
+    """Log a traced launch (:func:`costs.record`): the whole bank's rows, or
+    the P active ones and the "no pattern" row per partition, and the L2
+    entries of ``costs.DRY_RUN_L2_DENSITY``."""
+    M, K = a.shape
+    T, q, k = patterns.shape
+    rows = None if p_active is None else T * (p_active + 1)
+    costs.record(name, (a, patterns, pwp, w), costs.fused(
+        M, K, w.shape[-1], T, q, k, int(costs.DRY_RUN_L2_DENSITY * M * K), pwp_rows=rows,
+        pwp_bytes=pwp.element_size()))
 
 
 def phi_fused_cuda(a: torch.Tensor, patterns: torch.Tensor, pwp: torch.Tensor,
@@ -286,7 +300,10 @@ def phi_fused_cuda(a: torch.Tensor, patterns: torch.Tensor, pwp: torch.Tensor,
     if a.device.type == "cpu":
         return phi_fused_plain(a, patterns, pwp, pwp_scale, w, block_m=block_m)
     out = _launch("phi_fused_launch", a, patterns, pwp, pwp_scale, w, block_m, packed)
-    phi_fused_cuda.launches += 1
+    if costs.traced(a):
+        _record("phi_fused_cuda", a, patterns, pwp, w)
+    else:
+        phi_fused_cuda.launches += 1
     return out
 
 
@@ -309,7 +326,10 @@ def phi_fused_stream_cuda(a: torch.Tensor, patterns: torch.Tensor, pwp: torch.Te
         return phi_fused_plain(a, patterns, pwp, pwp_scale, w, block_m=block_m)
     out = _launch("phi_fused_stream_launch", a, patterns, pwp, pwp_scale, w, block_m, packed,
                   group_t=group_t)
-    phi_fused_stream_cuda.launches += 1
+    if costs.traced(a):
+        _record("phi_fused_stream_cuda", a, patterns, pwp, w)
+    else:
+        phi_fused_stream_cuda.launches += 1
     return out
 
 
@@ -348,7 +368,10 @@ def phi_fused_prefetch_cuda(a: torch.Tensor, patterns: torch.Tensor, pwp: torch.
                          "(a tile of the kernel lies in one stripe)")
     out = _launch("phi_fused_prefetch_launch", a, patterns, pwp, pwp_scale, w, block_m, packed,
                   active=active)
-    phi_fused_prefetch_cuda.launches += 1
+    if costs.traced(a):
+        _record("phi_fused_prefetch_cuda", a, patterns, pwp, w, p_active=P)
+    else:
+        phi_fused_prefetch_cuda.launches += 1
     return out
 
 

@@ -13,13 +13,14 @@ CUDA source is ``csrc/phi_gather.cu``.
 
 :func:`l1_gather_cuda` chooses by the device of its tensors: CPU tensors run
 :func:`l1_gather_plain`; CUDA tensors launch the kernel, counted in
-``.launches``, or raise.
+``.launches``, or raise. A fake tensor (a dry run's trace) skips the launch,
+its count and the range check, and logs its cost (``kernels.costs``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 
 _PWP_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -95,11 +96,15 @@ def l1_gather_cuda(idx: torch.Tensor, pwp: torch.Tensor, *,
     if range_flag is not None and (range_flag.device != idx.device
                                    or range_flag.dtype != torch.int32):
         raise ValueError("range_flag must be an int32 tensor on idx's device")
-    if range_flag is None:
+    if range_flag is None and not costs.traced(idx):
         _check_range(idx, q1)
     if M == 0 or N == 0 or T == 0:              # nothing to gather: every sum is zero
         return torch.zeros((M, N), dtype=torch.float32, device=idx.device)
     out = torch.empty((M, N), dtype=torch.float32, device=idx.device)
+    if costs.traced(idx):            # the whole bank: which rows are named needs the data
+        costs.record("l1_gather_cuda", (idx, pwp),
+                     costs.l1_gather(M, T, N, T * q1, pwp.element_size()))
+        return out
     vec = int(N % 4 == 0 and pwp.data_ptr() % 16 == 0)   # 4 columns a lane, one vector
     with torch.cuda.device(idx.device):
         stream = torch.cuda.current_stream(idx.device).cuda_stream

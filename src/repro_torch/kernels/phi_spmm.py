@@ -12,13 +12,14 @@ summed from zero in entry order.
 
 :func:`l2_spmm_cuda` chooses by the device of its tensors: CPU tensors run
 :func:`l2_spmm_plain`; CUDA tensors launch the kernel, counted in
-``.launches``, or raise.
+``.launches``, or raise. A fake tensor (a dry run's trace) skips the launch
+and its count, and logs its cost (``kernels.costs``).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, costs
 from repro_torch.utils import cdiv
 
 # Columns a warp owns (4 a lane), and the warps the grid should hold: 32 an SM
@@ -77,6 +78,10 @@ def l2_spmm_cuda(rows: torch.Tensor, cols: torch.Tensor, signs: torch.Tensor,
     if G == 0 or N == 0 or C == 0:                      # no entries: every row is zero
         return torch.zeros((G * block_m, N), dtype=torch.float32, device=w.device)
     out = torch.empty((G * block_m, N), dtype=torch.float32, device=w.device)
+    if costs.traced(w):              # every entry slot real, every weight row named
+        costs.record("l2_spmm_cuda", (rows, cols, signs, w),
+                     costs.l2_spmm(G * C, K, N, G * block_m))
+        return out
     vec = int(N % 4 == 0 and w.data_ptr() % 16 == 0)    # 16-byte column loads
     with torch.cuda.device(w.device):
         stream = torch.cuda.current_stream(w.device).cuda_stream

@@ -25,7 +25,9 @@ mesh bitwise one device's; and the collectives on a 2 × 2 × 2 mesh against
 their definitions. The world's OLMo rank also serves the requests through
 two paged engines (``torch_mesh_ranks.PAGED_RUNS``: the default pool and one
 that preempts), bitwise one device's paged engines and the mesh's
-contiguous engine.
+contiguous engine. Its ranks also run the dry run's (data 2, model 2) cells
+for real on two hand-built meshes (``torch_mesh_ranks.dryrun_checks_run``),
+each equal to ``launch.dryrun.trace_step`` on fake CPU tensors.
 """
 from __future__ import annotations
 
@@ -336,6 +338,36 @@ def _olmo_setup():
     return rcfg, rp, rbatch, cfg, params, batch
 
 
+# The dry run's cells on (data 2, model 2), held against the same steps run
+# for real by every rank (two such meshes in the 8-rank world).
+DRY_MESH = ((2, 2), ("data", "model"))
+DRY_DECODE = (2, 16)         # B, context of the decode step
+DRY_TRAIN = (2, 8)           # B, S of the dense train step
+
+
+def _dryrun_setup(cfg, params, batch) -> dict:
+    """The Phi smoke prefill (the world's batch) and decode, and one dense
+    train step of OLMo smoke: each rank's arguments for
+    ``torch_mesh_ranks.dryrun_checks_run``, and the cells' shapes."""
+    from repro_torch.train import optimizer as opt
+
+    shape, axes = DRY_MESH
+    grid = types.SimpleNamespace(axis_names=axes, shape=dict(zip(axes, shape)))
+    dcfg = get_config("olmo_1b", smoke=True)
+    ocfg = opt.OptConfig(factored=False)      # the dry run's for float32 params
+    dparams = shd.init_params(model.lm_specs(dcfg), torch.Generator().manual_seed(5), "cpu")
+    bundle = step_lib.make_train_step(dcfg, ocfg, grid)[0]
+    tbatch = model.dummy_batch(dcfg, *DRY_TRAIN, True, torch.Generator().manual_seed(6), "cpu")
+    phi_placed = model.param_shardings(cfg, grid, shd.SERVE_RULES)
+
+    def rank_args(r: int) -> tuple:
+        coords = dict(zip(axes, np.unravel_index(r % 4, shape)))
+        return (cfg, shd.place(params, phi_placed, grid, coords), batch, DRY_DECODE, dcfg, ocfg,
+                shd.place(dparams, bundle.in_shardings[0], grid, coords), tbatch)
+
+    return dict(rank_args=rank_args, cfg=cfg, dcfg=dcfg, prefill=tuple(batch["tokens"].shape))
+
+
 @pytest.fixture(scope="module")
 def world(tmp_path_factory):
     """One 8-rank world: the OLMo smoke runs, moe_ep on MOE_MESHES and the
@@ -372,6 +404,7 @@ def world(tmp_path_factory):
     dshape, daxes = MOE_DENSE_MESH
     dgrid = types.SimpleNamespace(axis_names=daxes, shape=dict(zip(daxes, dshape)))
     dense_inputs = {arch: _moe_dense_inputs(arch) for arch in MOE_DENSE_ARCHS}
+    dry = _dryrun_setup(cfg, params, batch)
     args = []
     for r in range(8):
         coords = dict(zip(axes, np.unravel_index(r, shape)))
@@ -391,7 +424,8 @@ def world(tmp_path_factory):
             moe_runs.append((mshape, maxes, shd.place(mp, mpl, mgrid, mc),
                              mx[mc["data"] * rows:(mc["data"] + 1) * rows].clone()))
         args.append(((shape, axes, cfg, shd.place(params, placed, grid, coords), batch, 2,
-                      prompts, serve_kw, wide), (mcfg, moe_runs, dense_runs)))
+                      prompts, serve_kw, wide), (mcfg, moe_runs, dense_runs),
+                     dry["rank_args"](r)))
     out = mesh_lib.spawn_ranks(ranks.world_rank, 8, args, device="cpu",
                                timeout=WORLD_TIMEOUT)
     with torch.no_grad():
@@ -402,7 +436,7 @@ def world(tmp_path_factory):
                 single_wide_paged=single_wide_paged, single_shapes=single_shapes,
                 single_tokens=single_tokens, single_paged=single_paged, ref_prefill=ref_prefill,
                 moe_dense=dense, moe_dense_one=dense_one, moe_ref=_reference_moe_ep(tmp),
-                cfg=cfg)
+                cfg=cfg, dry=dry)
 
 
 def test_mesh_prefill_and_decode_equal_one_device_bitwise(world):
@@ -631,6 +665,99 @@ def test_collectives_on_a_three_axis_mesh(world):
             n = len(peers)
             blocks = [np.split(inputs[q], n)[me] for q in peers]
             np.testing.assert_array_equal(got["all_to_all"], np.concatenate(blocks))
+
+
+# ------------------------------------------------- the dry run against ranks ---
+def _dry_cell(cfg, kind: str, batch: int, seq: int) -> dict:
+    """The dry run of one (data 2, model 2) cell on fake cpu tensors."""
+    from repro_torch.launch import dryrun
+
+    shape, axes = DRY_MESH
+    with dryrun.fake_world(4):
+        mesh = mesh_lib.make_mesh(shape, axes, "cpu")
+        return dryrun.trace_step(cfg, kind, batch, seq, mesh, device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode", "train"])
+def test_dry_run_equals_the_ranks_real_steps(world, kind):
+    """Collective calls and result bytes by kind, FLOPs (``FlopCounterMode``'s:
+    on the CPU no kernel launches) and argument bytes: the dry run of the
+    cell against every rank's real step, exactly."""
+    dry = world["dry"]
+    if kind == "train":
+        rec = _dry_cell(dry["dcfg"], "train", *DRY_TRAIN)
+    else:
+        rec = _dry_cell(dry["cfg"], kind, *(dry["prefill"] if kind == "prefill" else DRY_DECODE))
+    assert rec["cost"]["ops_kernels"] == 0 and rec["launches"]["kernels"] == {}
+    assert sum(rec["collective_calls"].values()) > 0
+    for r, out in enumerate(world["ranks"]):
+        got = out["dryrun"][kind]
+        assert got["collective_calls"] == rec["collective_calls"], (r, kind)
+        assert got["collectives"] == rec["collectives"], (r, kind)
+        assert got["flops"] == rec["cost"]["flops_aten"] == rec["cost"]["flops"], (r, kind)
+        assert got["argument_bytes"] == rec["memory"]["argument_bytes"], (r, kind)
+
+
+# Kinds whose collective bytes the port's step and the reference's compiled
+# step count differently, on the dense OLMo smoke decode step on (data 2,
+# model 2), and why. Every other kind is asserted equal.
+COLLECTIVE_DIFFERENCES = {
+    "all-gather": "the port's head makes one device's call (model._logits): it gathers the "
+                  "batch rows over data and the vocab-parallel logits over model; XLA keeps "
+                  "the logits split over model and instead gathers the KV-cache scatter's "
+                  "updates and indices inside its layer loop, where each rank here writes "
+                  "its own rows and heads",
+    "all-to-all": "with one batch row a data rank, XLA's partitioner moves each layer's KV "
+                  "cache (16 slots x 2 heads x 16) between the data and model layouts with "
+                  "an all-to-all inside its layer loop; here a rank keeps its rows and heads "
+                  "of the cache and exchanges nothing",
+}
+
+_REF_DECODE_COLLECTIVES = textwrap.dedent("""
+    import os
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import json
+    import jax, jax.numpy as jnp, numpy as np
+    from jax.sharding import NamedSharding
+    from repro.configs import get_config
+    from repro.distributed import sharding as shd
+    from repro.distributed.hlo_analysis import collective_bytes
+    from repro.models import model
+    from repro.train import step as step_lib
+    B, S = {B}, {S}
+    cfg = get_config("olmo_1b", smoke=True)
+    mesh = jax.sharding.Mesh(np.array(jax.devices()).reshape(2, 2), ("data", "model"))
+    rules = shd.SERVE_RULES
+    with mesh:
+        fn, p_specs, p_sh, _, _ = step_lib.make_decode_step(cfg, mesh, rules)
+        with shd.use_rules(rules, None):
+            state = model.decode_state_specs(cfg, B, S)
+        st_sh = step_lib.decode_state_shardings(cfg, state, mesh, rules, B)
+        tok = jax.ShapeDtypeStruct((B,), jnp.int32)
+        tok_sh = NamedSharding(mesh, shd.shape_aware_spec((B,), ("batch",), mesh, rules))
+        comp = jax.jit(fn, in_shardings=(p_sh, tok_sh, tok_sh, st_sh, None),
+                       donate_argnums=(3,)).lower(shd.specs_to_sds(p_specs), tok, tok, state,
+                                                  None).compile()
+    print(json.dumps(collective_bytes(comp.as_text())))
+""")
+
+
+def test_dry_run_collectives_against_the_references_compiled_decode():
+    """The dense OLMo smoke decode step on (data 2, model 2): the dry run's
+    collective result bytes by kind against the reference's compiled step on
+    4 host devices (``Auto`` axes), equal for every kind both count the same
+    way; :data:`COLLECTIVE_DIFFERENCES` names the others."""
+    B, S = DRY_DECODE
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "-c", _REF_DECODE_COLLECTIVES.format(B=B, S=S)],
+                         capture_output=True, text=True, env=env, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    want = ast.literal_eval(out.stdout.strip().splitlines()[-1])
+    got = _dry_cell(get_config("olmo_1b", smoke=True), "decode", B, S)["collectives"]
+    assert set(got) == set(want)
+    differ = {k for k in got if got[k] != want[k]}
+    assert differ == set(COLLECTIVE_DIFFERENCES), (got, want)
+    assert got["all-reduce"] == want["all-reduce"] > 0
 
 
 # ----------------------------------------------------------- the launcher ---

@@ -192,16 +192,96 @@ def collectives_run() -> dict:
     return out
 
 
-def world_rank(rank: int, lm_args: tuple, moe_args: tuple) -> dict:
+def sub_mesh(shape, axes, size: int):
+    """This rank's mesh of ``shape`` among the blocks of ``size`` consecutive
+    ranks the world splits into (a mesh built by hand, as ``collectives.Mesh``
+    allows): every rank makes every block's groups, in one order."""
+    import itertools
+    import math
+
+    import torch.distributed as dist
+    from repro_torch.distributed.collectives import Mesh
+
+    me = dist.get_rank()
+    groups = {}
+    local = torch.arange(size).reshape(shape)
+    for first in range(0, dist.get_world_size(), size):
+        for r in range(1, len(axes) + 1):
+            for sub in itertools.combinations(range(len(axes)), r):
+                rest = [i for i in range(len(axes)) if i not in sub]
+                block = local.permute(*rest, *sub).reshape(-1, math.prod(shape[i] for i in sub))
+                for row in (block + first).tolist():
+                    g = dist.new_group(ranks=row)
+                    if me in row:
+                        groups[tuple(axes[i] for i in sub)] = g
+    return Mesh(tuple(axes), tuple(shape), rank=me % size, device=torch.device("cpu"),
+                backend="gloo", groups=groups)
+
+
+def _zeros_like_specs(specs, placements, mesh):
+    from repro_torch.distributed.sharding import local_shape
+
+    if isinstance(specs, dict):
+        return {k: _zeros_like_specs(specs[k], placements[k], mesh) for k in specs}
+    return torch.zeros(local_shape(specs.shape, placements, mesh), dtype=specs.dtype)
+
+
+def _measured(mesh, fn, *args) -> dict:
+    """One real step's collective calls and result bytes by kind (the
+    reference's kinds, ``mesh.results``), its ``FlopCounterMode`` FLOPs and
+    the bytes of its arguments."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.distributed.cost_analysis import COLLECTIVES
+    from repro_torch.utils import tree_bytes
+
+    before = {k: list(v) for k, v in mesh.results.items()}
+    with FlopCounterMode(display=False) as fc:
+        fn(*args)
+    calls, nbytes = {}, {}
+    for kind in COLLECTIVES:
+        c1, b1 = mesh.results.get(kind, [0, 0])
+        c0, b0 = before.get(kind, [0, 0])
+        calls[kind], nbytes[kind] = c1 - c0, b1 - b0
+    return {"collective_calls": calls, "collectives": nbytes, "flops": fc.get_total_flops(),
+            "argument_bytes": tree_bytes(args)}
+
+
+def dryrun_checks_run(phi_cfg, phi_params, prefill_batch, decode_bs, dense_cfg, ocfg,
+                      dense_params, train_batch) -> dict:
+    """The dry run's cells, run for real on this rank's (data 2, model 2)
+    mesh: a Phi prefill and decode step of OLMo smoke and one dense train
+    step, each with :func:`_measured`'s counts (a fresh policy, telemetry
+    off, as the dry run resolves)."""
+    from repro_torch.train import step as step_lib
+
+    mesh = sub_mesh((2, 2), ("data", "model"), 4)
+    dispatch.set_policy(dispatch.PhiExecutionPolicy(telemetry=False))
+    out = {"coords": mesh.coords}
+    fn = step_lib.make_prefill(phi_cfg, mesh)[0]
+    out["prefill"] = _measured(mesh, fn, phi_params, prefill_batch)
+    B, S = decode_bs
+    fn = step_lib.make_decode_step(phi_cfg, mesh)[0]
+    state, _ = step_lib.init_decode_state(phi_cfg, B, S, mesh, device="cpu")
+    tok = torch.zeros((B,), dtype=torch.int32)
+    out["decode"] = _measured(mesh, fn, phi_params, tok, tok.clone(), state, None)
+    bundle, _, o_specs, _ = step_lib.make_train_step(dense_cfg, ocfg, mesh)
+    opt_state = _zeros_like_specs(o_specs, bundle.in_shardings[1], mesh)
+    out["train"] = _measured(mesh, bundle.fn, dense_params, opt_state, train_batch)
+    return out
+
+
+def world_rank(rank: int, lm_args: tuple, moe_args: tuple, dry_args: tuple) -> dict:
     """The test world's body: the OLMo runs, moe_ep on each mesh, moe_dense
     of each dense run (label, mesh shape, axes, cfg, shards, rows, global
-    rows), the collectives."""
+    rows), the collectives, the dry run's cells for real."""
     cfg, runs, dense_runs = moe_args
     return {"lm": lm_rank(rank, *lm_args),
             "moe": [moe_run(shape, axes, cfg, p, x) for shape, axes, p, x in runs],
             "moe_dense": {label: moe_dense_run(shape, axes, c, p, x, rows)
                           for label, shape, axes, c, p, x, rows in dense_runs},
-            "collectives": collectives_run()}
+            "collectives": collectives_run(),
+            "dryrun": dryrun_checks_run(*dry_args)}
 
 
 # ------------------------------------------------------------- training ---
