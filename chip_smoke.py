@@ -44,7 +44,7 @@ phases, and the ``kernels`` summary:
   logsumexp and the flash backward; lse and one site's gradients against
   the plain versions);
 * LM serving — ``lm_serve`` (OLMo-1B at full width in Phi spiking mode,
-  depth cut to ``LM_LAYERS`` = 4 of its 16 layers, T = 4, q = 128, k = 16:
+  depth cut to ``LM_LAYERS`` = 2 of its 16 layers, T = 4, q = 128, k = 16:
   params from a seeded generator on the card, rounded onto the 2^-10 grid;
   ``calibrate_lm_phi`` on 2 x 128 tokens; the prefill gate,
   ``train_logits`` at B = 1, S = 2048, Phi logits bitwise the spiking-dense
@@ -120,7 +120,7 @@ phases, and the ``kernels`` summary:
   then rounded, recalibrated and Phi ``train_logits`` bitwise its
   spiking-dense arm (the streaming kernel); ms a step and its parts,
   checkpoint bytes, save and restore seconds, peak memory);
-* training on a mesh — ``mesh_train`` (OLMo-1B at full width, ``LM_LAYERS``
+* training on a mesh — ``mesh_train`` (OLMo-1B at full width, ``MT_LAYERS`` = 2
   deep, S = 2048, global batch 2, on four spawned ranks sharing the card through gloo, against one
   device's run of the same params and batches: A, ZeRO-3 / tensor-parallel
   steps on (data 2, model 2) through ``train_loop(mesh=)``, step 1's loss
@@ -128,8 +128,8 @@ phases, and the ``kernels`` summary:
   crash at step 2 whose checkpoint is byte for byte one device's and a
   resume on (data 1, model 4); B, int8 error-feedback gradients across
   (pod 2, data 1, model 2) against the uncompressed mesh step; C, the GPipe
-  pipeline of four full-width decoder layers over pod = 4, bitwise the
-  layers in sequence; D, the ``--phi`` config calibrated here once, 2 steps,
+  pipeline of four full-width decoder-layer stages (the two layers in turn)
+  over pod = 4, bitwise the stages in sequence; D, the ``--phi`` config calibrated here once, 2 steps,
   every ``lm.*.spmd`` GEMM on ``coo``; per-rank collectives, step ms beside
   one device's, peak memory and attention launches).
 
@@ -1119,6 +1119,7 @@ def pallas_path(dev, cfg, params, state, batches, dense_logits, smi) -> dict:
 
 def counted_kernels():
     """Every kernel wrapper's launch counter, in one tuple."""
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
     from repro_torch.kernels.lif import lif_sequence_cuda, lif_step_cuda
     from repro_torch.kernels.matcher import matcher_cuda
     from repro_torch.kernels.phi_attention import flash_attention_cuda, phi_flash_attention_cuda
@@ -1129,7 +1130,7 @@ def counted_kernels():
 
     return (phi_fused_cuda, phi_fused_stream_cuda, phi_fused_prefetch_cuda, lif_sequence_cuda,
             lif_step_cuda, phi_flash_attention_cuda, flash_attention_cuda, matcher_cuda,
-            l1_gather_cuda, l2_spmm_cuda)
+            l1_gather_cuda, l2_spmm_cuda, decode_attention_cuda)
 
 
 def zero_launches() -> None:
@@ -1625,11 +1626,12 @@ def accel_sim_phase(dev, models, smi) -> dict:
 
 # The LM serving path: OLMo-1B (src/repro_torch/configs/olmo_1b.py) at full
 # width in Phi spiking mode (phi_variant: T = 4, q = 128, k = 16). Its depth
-# is cut to LM_LAYERS of 16 so that the script, which also runs
-# hybrid_serve at full depth, stays well inside its time limit (PERF.md §4).
+# is cut to LM_LAYERS of 16 so that the script stays inside its time limit:
+# 4 until PR 27, 2 since the decode, windowed-prefill, split-bank and remat
+# checks joined it (PERF.md §4).
 LM_ARCH = "olmo_1b"
 LM_SMOKE = False           # the smoke cut, for rehearsing the phase on the CPU
-LM_LAYERS = 4              # OLMo-1B's depth (None: all 16 layers)
+LM_LAYERS = 2              # OLMo-1B's depth (None: all 16 layers)
 LM_CALIB = (2, 128)        # calibration batch, sequences x tokens
 LM_PREFILL_S = 2048        # prefill gate: S > 1024 takes the attention kernel
 LM_REQUESTS, LM_SLOTS, LM_MAX_NEW, LM_MAX_CONTEXT = 8, 4, 16, 256
@@ -1755,6 +1757,162 @@ def lm_attention_row(label, policy, q, k, v) -> dict:
     return row
 
 
+DECODE_ULPS = 16               # decode kernel vs plain: float32 ulps of max|V| beside
+                               # one ulp of |want| (decode_tol)
+WINDOW_ULPS = 128              # the windowed prefill's kernel (online softmax over ~W / bkv
+                               # blocks) against the banded plain path (one softmax a
+                               # 512-row block): float32 ulps of max|V|
+DECODE_LONG = 32768            # the one-row decode check's context
+WINDOW_ARCH = "h2o_danube3_4b" # the long windowed prefill's attention
+WINDOW_S = 16384               # > 8192: the banded path's length
+
+
+def decode_bound_ms(B, Hq, Hkv, D, pos, smax, mode, q_bytes, kv_bytes) -> tuple[float, float]:
+    """Least time of one decode attention over the cache rows this call's
+    masks keep (``costs.decode_attention``)."""
+    from repro_torch.kernels.decode_attention import valid_keys
+
+    rows = int(valid_keys(pos, smax, mode).sum())
+    return bound_ms(costs.decode_attention(B, Hq, Hkv, D, rows, q_bytes, kv_bytes))
+
+
+def decode_tol(want, v):
+    """The decode kernel's tolerance against its plain version, per output
+    element: one ulp of |want| in its dtype (both sides sum in float32 and
+    round once, so they may land on neighbouring values) plus DECODE_ULPS
+    float32 ulps of max|V| (the float32 sums run in different orders)."""
+    import torch
+
+    w = want.float().abs()
+    ulp = torch.ldexp(torch.full_like(w, torch.finfo(want.dtype).eps),
+                      torch.frexp(w).exponent - 1)
+    return torch.where(w > 0, ulp, 0.0) + DECODE_ULPS * 2.0 ** -24 * float(v.float().abs().max())
+
+
+def decode_row(label, q, k, v, pos, mode) -> dict:
+    """The decode kernel on (q, k, v, pos) against its plain version (per
+    element within :func:`decode_tol`), a rank's block
+    (rows [B/2, B), heads [H/2, H) and their KV heads, run alone) bitwise the
+    whole call's, and the kernel's times (CUDA events; the profiler's device
+    time of its two launches) beside the plain version's, SDPA's at q length
+    1 and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_cuda, decode_attention_plain, valid_keys)
+    from repro_torch.models.layers import _repeat_kv
+
+    fn = lambda: decode_attention_cuda(q, k, v, pos, mode=mode)          # noqa: E731
+    got, want = fn(), decode_attention_plain(q, k, v, pos, mode=mode)
+    B, _, Hq, D = q.shape
+    Hkv = k.shape[2]
+    tol = decode_tol(want, v)
+    diff = (got.float() - want.float()).abs()
+    err, worst = float(diff.max()), float((diff / tol).max())
+    if not torch.isfinite(got).all() or worst > 1:
+        raise AssertionError(f"{label} decode {mode}: kernel != plain, max |diff| {err}, "
+                             f"{worst} of the tolerance where it is tightest")
+    b0, h0 = B // 2, Hq // 2
+    kv0 = h0 * Hkv // Hq
+    part = decode_attention_cuda(q[b0:, :, h0:].contiguous(), k[b0:, :, kv0:].contiguous(),
+                                 v[b0:, :, kv0:].contiguous(), pos[b0:], mode=mode)
+    if not torch.equal(part, got[b0:, :, h0:]):
+        raise AssertionError(f"{label} decode {mode}: a rank's block differs from the whole "
+                             "call's")
+    smax = k.shape[1]
+    b_ms, o_ms = decode_bound_ms(B, Hq, Hkv, D, pos, smax, mode, q.element_size(),
+                                 k.element_size())
+    rep = Hq // Hkv
+    qh = q.transpose(1, 2)
+    kh, vh = (_repeat_kv(x, rep).transpose(1, 2) for x in (k, v))
+    mask = valid_keys(pos, smax, mode)[:, None, None, :]
+    row = {"mode": mode, "shape": [B, smax, Hq, Hkv, D], "dtype": str(q.dtype),
+           "max_abs_err": err, "err_over_tol": worst, "tol_range": [float(tol.min()),
+                                                                    float(tol.max())],
+           "rank_block_bitwise": True,
+           "ms": cuda_time_ms(fn), "plain_ms": cuda_time_ms(
+               lambda: decode_attention_plain(q, k, v, pos, mode=mode), runs=5),
+           "library_ms": cuda_time_ms(lambda: F.scaled_dot_product_attention(
+               qh, kh, vh, attn_mask=mask)),
+           "bytes_ms": b_ms, "ops_ms": o_ms, "bound_ms": max(b_ms, o_ms)}
+    events = []
+    for _ in range(3):
+        events = _launches([fn], "decode_", 10)
+        if events:
+            break
+    calls = sum("decode_partial" in ev.name for ev in events)
+    row["device_ms"] = (sum(ev.device_time_total for ev in events) / 1e3 / calls
+                        if calls else None)
+    return row
+
+
+def lm_decode_rows(cfg, dev) -> list:
+    """The decode kernel at OLMo-1B's decode shapes (LM_SLOTS slots, context
+    LM_MAX_CONTEXT, its heads and head size, the cache's dtype), in each of
+    the three masks, and at one row of a DECODE_LONG context."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    H, hd, dt = cfg.q_heads_padded, cfg.hd, cfg.compute_dtype
+    rows = []
+    for B, smax, mode in ((LM_SLOTS, LM_MAX_CONTEXT, "full"), (LM_SLOTS, LM_MAX_CONTEXT, "ring"),
+                          (LM_SLOTS, LM_MAX_CONTEXT, "chunk_ring"), (1, DECODE_LONG, "full")):
+        q = torch.randn((B, 1, H, hd), generator=g, device=dev).to(dt)
+        k, v = (torch.randn((B, smax, H, hd), generator=g, device=dev).to(dt) for _ in range(2))
+        hi = smax if mode == "full" else 2 * smax
+        pos = torch.randint(0, hi, (B,), generator=g, device=dev)
+        pos[0] = smax - 1 if mode == "full" else smax + 3
+        rows.append(decode_row(f"lm {B}x{smax}", q, k, v, pos, mode))
+    return rows
+
+
+def windowed_prefill_check(dev) -> dict:
+    """H2O-Danube3's attention at full width, one layer, B = 1, S = WINDOW_S
+    (> 8192: on the CPU the banded plain path): the attention kernel, which
+    walks only the window's kv-blocks, against the plain banded
+    ``layers.flash_attention`` within WINDOW_ULPS ulps of max|V|, through
+    ``layers.attention_prefill`` (the policy's blocks, GQA repeated, bf16
+    widened), and the second half of the heads run alone bitwise the whole
+    call's."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.phi_attention import flash_attention_cuda
+    from repro_torch.models import layers as ll
+
+    cfg = get_config(WINDOW_ARCH)
+    g = torch.Generator(device=dev).manual_seed(SEED + 8)
+    H, Hkv, hd = cfg.q_heads_padded, cfg.kv_heads_padded, cfg.hd
+    q = torch.randn((1, WINDOW_S, H, hd), generator=g, device=dev)
+    k, v = (torch.randn((1, WINDOW_S, Hkv, hd), generator=g, device=dev) for _ in range(2))
+    before = flash_attention_cuda.launches
+    got = ll.attention_prefill(cfg, 0, q, k, v, layer_global=False)
+    torch.cuda.synchronize()
+    if flash_attention_cuda.launches != before + 1:
+        raise AssertionError("the windowed prefill did not launch the attention kernel")
+    half = ll.attention_prefill(cfg, 0, q[:, :, H // 2:].contiguous(),
+                                k[:, :, Hkv // 2:].contiguous(), v[:, :, Hkv // 2:].contiguous(),
+                                layer_global=False)
+    if not torch.equal(half, got[:, :, H // 2:]):
+        raise AssertionError("windowed prefill: a head block differs from the whole call's")
+    kr, vr = (ll._repeat_kv(x, H // Hkv) for x in (k, v))
+    plain = lambda: ll.flash_attention(q, kr, vr, window=cfg.window,          # noqa: E731
+                                       block_q=512, block_kv=1024)
+    want = plain()
+    err = float((got - want).abs().max())
+    tol = WINDOW_ULPS * 2.0 ** -24 * float(v.abs().max())
+    if err > tol:
+        raise AssertionError(f"windowed prefill: kernel != banded plain, {err} > {tol}")
+    ms = cuda_time_ms(lambda: ll.attention_prefill(cfg, 0, q, k, v, layer_global=False),
+                      runs=3, warmup=1)
+    b_ms, o_ms = bound_ms(costs.dense_attention(1, WINDOW_S, H, hd, True, cfg.window))
+    return {"arch": WINDOW_ARCH, "shape": [1, WINDOW_S, H, Hkv, hd], "window": cfg.window,
+            "max_abs_err": err, "tol": tol, "head_block_bitwise": True, "ms": ms,
+            "plain_ms": cuda_time_ms(plain, runs=2, warmup=1), "bytes_ms": b_ms,
+            "ops_ms": o_ms, "bound_ms": max(b_ms, o_ms)}
+
+
 def lm_timings(cfg, params, batch, dev) -> dict:
     """CUDA-event ms of the prefill gate's ``train_logits`` in both arms and
     of one ``decode_step`` at LM_SLOTS slots, with the profiler's device time,
@@ -1798,7 +1956,39 @@ def lm_serve_rows(runs, times, requests) -> dict:
 
 
 DRYRUN_CELL = ("olmo_1b", "decode_32k")     # traced at 16x16 in Phi mode
+TEMP_RATIO = (0.8, 1.25)   # the dry run's temp bytes over a real step's peak above its start
 DRYRUN_TIMEOUT = 300.0
+
+
+ANALYSIS_TIMEOUT = 300.0
+
+
+def analysis_phase(smi) -> dict:
+    """The ``analysis`` phase: ``python -m repro_torch.analysis --layer
+    contracts`` in a subprocess on the card, against the built library: every
+    kernel's launch plan, counters and shared-memory model, each held against
+    the library's exports and ptxas's spills, under the committed baseline.
+    Exit 0 or the phase fails."""
+    import torch
+
+    t0 = time.perf_counter()
+    report = ROOT / "build" / "analysis_contracts.json"
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.analysis", "--layer",
+                           "contracts", "--json", str(report)], cwd=ROOT,
+                          env=dict(os.environ, PYTHONPATH=str(SRC)), capture_output=True,
+                          text=True, timeout=ANALYSIS_TIMEOUT)
+    if proc.returncode != 0:
+        raise AssertionError(f"repro_torch.analysis --layer contracts exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}{proc.stderr[-2000:]}")
+    rep = json.loads(report.read_text())
+    if not rep["card"]:
+        raise AssertionError("repro_torch.analysis did not check the library on the card")
+    row = {"phase": "analysis", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
+           "exit": proc.returncode, "summary": rep["summary"],
+           "allowlisted": [f["key"] for f in rep["allowlisted"]],
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    return row
 
 
 def dryrun_phase(smi) -> dict:
@@ -1841,10 +2031,10 @@ def lm_dryrun_check(cfg, params, policy, batch, dev) -> dict:
     with the phase's calibration usage, against the same steps run once for
     real under the phase's policy: each kernel's launches and the argument
     bytes equal. The roofline's step time (the H100's data-sheet rates) is
-    printed beside the step's CUDA-event time, and the dry run's temp bytes
-    (the peak of live fake storages less the arguments) beside the real
-    step's peak allocation above what was allocated before it; neither is
-    gated. Resets the card's peak memory count."""
+    printed beside the step's CUDA-event time (not gated), and the dry run's
+    temp bytes (the peak of live fake storages less the arguments) are held
+    within TEMP_RATIO of the real step's peak allocation above what was
+    allocated before it. Resets the card's peak memory count."""
     import torch
 
     from repro_torch.utils import tree_bytes
@@ -1880,6 +2070,11 @@ def lm_dryrun_check(cfg, params, policy, batch, dev) -> dict:
                 raise AssertionError(f"lm_serve {name}: dry-run launches {plan} and argument "
                                      f"bytes {rec['memory']['argument_bytes']}; the real step "
                                      f"launched {real} on {nbytes} bytes")
+            ratio = rec["memory"]["temp_bytes"] / real_temp
+            if not TEMP_RATIO[0] <= ratio <= TEMP_RATIO[1]:
+                raise AssertionError(f"lm_serve {name}: dry-run temp bytes "
+                                     f"{rec['memory']['temp_bytes']} against the real step's "
+                                     f"peak {real_temp}: {ratio} outside {TEMP_RATIO}")
             r = rec["roofline"]
             out[name] = {"batch": b, "context": ctx, "launches": real, "argument_bytes": nbytes,
                          "temp_bytes": rec["memory"]["temp_bytes"],
@@ -2034,6 +2229,11 @@ def lm_serve_phase(dev, smi) -> dict:
                                  f"{n} decisions")
     if launches["lif_sequence_cuda"] <= 0 or launches["matcher_cuda"] <= 0:
         raise AssertionError(f"LIF or matcher kernel never launched: {launches}")
+    # every decode step of every engine: one decode attention launch a layer
+    n_dec = launches["decode_attention_cuda"]
+    if n_dec <= 0 or n_dec % cfg.n_layers:
+        raise AssertionError(f"decode attention kernel launched {n_dec} times, not a "
+                             f"positive multiple of {cfg.n_layers} layers")
 
     def tally(lo, hi, keep=lambda r: True):
         out = {}
@@ -2070,6 +2270,10 @@ def lm_serve_phase(dev, smi) -> dict:
         q, k, v = (x.to(torch.float32).contiguous() for x in transformer._qkv(
             cfg, layer0, h, pos, model.make_matmul(cfg)))
     attn_row = lm_attention_row("lm", policy, q, k, v)
+    del q, k, v, h
+    decode_rows = lm_decode_rows(cfg, dev)
+    windowed = windowed_prefill_check(dev)
+    torch.cuda.empty_cache()
 
     # ------------------------------------------------------------ timing ---
     timing = lm_timings(cfg, params, batch, dev)
@@ -2098,7 +2302,8 @@ def lm_serve_phase(dev, smi) -> dict:
           "l2_density": {key: st.l2_density for key, st in sorted(stats.items())},
           "gemm_l2_entries_256_rows": checks, "gemms": gemm_rows,
           "lif_sequence": lif_timing, "lif_max_abs_err": lif_err,
-          "matcher": matcher_row, "attention": attn_row, **timing, "serve": serve_rows,
+          "matcher": matcher_row, "attention": attn_row, "decode_attention": decode_rows,
+          "windowed_prefill": windowed, **timing, "serve": serve_rows,
           "pwp_bytes": pwp_bytes, "weight_bytes": weight_bytes,
           "max_memory_allocated": max(peak, torch.cuda.max_memory_allocated()),
           "seconds": time.perf_counter() - t_phase})
@@ -2106,6 +2311,7 @@ def lm_serve_phase(dev, smi) -> dict:
     del runs
     torch.cuda.empty_cache()
     return {"launches": launches, "lif_err": lif_err, "attn_err": attn_row["max_abs_err"],
+            "decode_rows": decode_rows, "windowed_err": windowed["max_abs_err"],
             "cfg": cfg, "params": params, "prompts": prompts, "tokens": want,
             "paged_logits": {rid: torch.from_numpy(np.stack(rows)) for rid, rows in
                              paged_tight.logit_trace.items()}}
@@ -2118,6 +2324,13 @@ def lm_serve_phase(dev, smi) -> dict:
 # the ranks are processes sharing it: NCCL refuses two ranks on one device,
 # and the collectives go through gloo.
 MESH_SHAPE = (2, 2)            # (data, model)
+# The mesh phases' engine runs keep each PWP bank whole over data: split, the
+# banks are all-gathered at every Phi GEMM, and four ranks on one card pass
+# them through gloo's host buffers (gigabytes a forward), which the script's
+# time limit cannot pay over an engine run. One prefill and one decode step
+# of mesh_serve run under SERVE_RULES' split (``pwp_tiles`` over data) and are
+# held bitwise against these.
+MESH_RULES = {"pwp_tiles": None}
 MESH_PREFILL = (2, 2048)       # B, S: S > 1024 takes the attention kernel
 MESH_DECODE_STEPS = 4
 MESH_SHORT = (2, 16)           # the forced-coo gate's prompt
@@ -2361,14 +2574,17 @@ def _mesh_rank_checks(policy, rec, sites=OLMO_MESH_SITES) -> dict:
     return out
 
 
-def mesh_lm_rank(rank, cfg, params, batch, short, prompts, paged_logits, check: bool) -> dict:
+def mesh_lm_rank(rank, cfg, params, banks, batch, short, prompts, paged_logits,
+                 check: bool) -> dict:
     """One rank of the OLMo mesh: every kernel's launch count set to 0, then
     the prefill of ``batch`` and MESH_DECODE_STEPS greedy decode steps, the
     short prompt's run under the policy and with ``impl="coo"`` forced, and
     the engine over ``prompts``; the counts read. Then, counted on their
     own, the same requests through a paged engine from lm_serve's undersized
     pool (LM_PAGE, LM_TIGHT_PAGES), which preempts, its logits rows held
-    against ``paged_logits``, lm_serve's from the same pool. Rank 0
+    against ``paged_logits``, lm_serve's from the same pool. Then one prefill
+    and decode step with ``banks``, the rank's PWP banks as SERVE_RULES place
+    them (split over data), in place of its banks whole over data. Rank 0
     (``check``) then holds the kernels against their plain versions."""
     import dataclasses
 
@@ -2387,7 +2603,8 @@ def mesh_lm_rank(rank, cfg, params, batch, short, prompts, paged_logits, check: 
     torch.backends.cuda.matmul.allow_tf32 = False
     log.setLevel("WARNING")
     mesh = make_mesh(MESH_SHAPE, ("data", "model"))
-    params, batch, short = (_to_device(t, mesh.device) for t in (params, batch, short))
+    params, banks, batch, short = (_to_device(t, mesh.device)
+                                   for t in (params, banks, batch, short))
     policy = dispatch.PhiExecutionPolicy()
     dispatch.set_policy(policy)
     dispatch.register_usage_from_params(params)
@@ -2398,24 +2615,28 @@ def mesh_lm_rank(rank, cfg, params, batch, short, prompts, paged_logits, check: 
         return greedy_run(c, params, b, steps, lambda name, fn: timed(f"{label}_{name}", fn),
                           probe)
 
+    rules = dict(SERVE_RULES, **MESH_RULES)
+
+    def counter(steps: dict):
+        def counted(name, args, call):
+            """The first prefill's and decode step's collectives (calls and
+            result bytes by the reference's kinds) and argument bytes: what
+            the parent's dry run of this cell must give."""
+            if name in steps:
+                return call()
+            before = {k: list(v) for k, v in mesh.results.items()}
+            out = call()
+            steps[name] = {"argument_bytes": tree_bytes(args), "collectives": {
+                kind: [c - before.get(kind, [0, 0])[0], b - before.get(kind, [0, 0])[1]]
+                for kind, (c, b) in mesh.results.items()}}
+            return out
+        return counted
+
     steps: dict = {}
-
-    def counted(name, args, call):
-        """The first prefill's and decode step's collectives (calls and
-        result bytes by the reference's kinds) and argument bytes: what the
-        parent's dry run of this cell must give."""
-        if name in steps:
-            return call()
-        before = {k: list(v) for k, v in mesh.results.items()}
-        out = call()
-        steps[name] = {"argument_bytes": tree_bytes(args), "collectives": {
-            kind: [c - before.get(kind, [0, 0])[0], b - before.get(kind, [0, 0])[1]]
-            for kind, (c, b) in mesh.results.items()}}
-        return out
-
+    counted = counter(steps)
     torch.cuda.reset_peak_memory_stats()
     zero_launches()
-    with torch.no_grad(), use_rules(SERVE_RULES, mesh):
+    with torch.no_grad(), use_rules(rules, mesh):
         logits, cache_shapes = greedy(cfg, batch, MESH_DECODE_STEPS, "main", counted)
         short_policy, _ = greedy(cfg, short, MESH_COO_STEPS, "short")
         coo = cfg.with_(phi=dataclasses.replace(cfg.phi, impl="coo"))
@@ -2461,10 +2682,48 @@ def mesh_lm_rank(rank, cfg, params, batch, short, prompts, paged_logits, check: 
                     for site in ("lm.w1.spmd", "lm.w2.spmd")}}
     for d in out["last"].values():
         d["runtime_sets"] = None if d["runtime_sets"] is None else np.asarray(d["runtime_sets"])
+    # SERVE_RULES' placement: each bank's K-partitions split over data too,
+    # all-gathered at each call; the prefill and a decode step bitwise the
+    # replicated banks' run above.
+    split = _with_leaves(params, banks)
+    split_steps: dict = {}
+    with torch.no_grad(), use_rules(SERVE_RULES, mesh):
+        split_logits, _ = greedy_run(cfg, split, batch, 1,
+                                     lambda name, fn: timed(f"split_{name}", fn),
+                                     counter(split_steps))
+    out["split"] = {"logits_bitwise": all(np.array_equal(a, b)
+                                          for a, b in zip(split_logits, logits[:2])),
+                    "steps": split_steps, "bank_bytes": _bank_bytes(split),
+                    "replicated_bank_bytes": _bank_bytes(params)}
+    del split, banks
     rec = _record_layer0(params, cfg, batch, mesh)
     if check:
         out["checks"] = _mesh_rank_checks(policy, rec)
     return out
+
+
+def _bank_tree(node) -> dict:
+    """The PWP banks (and ``pwp_scale``) of a params tree, under their key
+    paths."""
+    out = {}
+    for k, v in node.items():
+        if isinstance(v, dict):
+            if sub := _bank_tree(v):
+                out[k] = sub
+        elif k in ("pwp", "pwp_scale"):
+            out[k] = v
+    return out
+
+
+def _bank_bytes(tree) -> int:
+    return sum(v.numel() * v.element_size() for v in tree_leaves(_bank_tree(tree)))
+
+
+def _with_leaves(tree, sub):
+    """``tree`` with the leaves of ``sub`` (a subtree under the same key
+    paths) in place of its own."""
+    return {k: ((_with_leaves(v, sub[k]) if isinstance(v, dict) else sub[k]) if k in sub else v)
+            for k, v in tree.items()}
 
 
 def mesh_moe_rank(rank, cfg, router, x) -> dict:
@@ -2541,25 +2800,41 @@ def mesh_dryrun_check(cfg, dev, usage, ranks) -> dict:
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import make_mesh
 
+    from repro_torch.distributed.sharding import SERVE_RULES
+
     B, S = MESH_PREFILL
     out = {}
+    runs = (("prefill", "prefill", S, MESH_RULES, "steps"),
+            ("decode", "decode", S + MESH_DECODE_STEPS + 1, MESH_RULES, "steps"),
+            ("split_prefill", "prefill", S, {}, "split"),
+            ("split_decode", "decode", S + 2, {}, "split"))
     with dryrun.fake_world(MESH_SHAPE[0] * MESH_SHAPE[1]):
         mesh = make_mesh(MESH_SHAPE, ("data", "model"), dev)
-        for name, ctx in (("prefill", S), ("decode", S + MESH_DECODE_STEPS + 1)):
-            rec = dryrun.trace_step(cfg, name, B, ctx, mesh, device=dev, usage=usage)
+        def step_of(r, where, name):
+            return (r["steps"] if where == "steps" else r["split"]["steps"])[name]
+
+        for label, name, ctx, over, where in runs:
+            rec = dryrun.trace_step(cfg, name, B, ctx, mesh, dict(SERVE_RULES, **over),
+                                    device=dev, usage=usage)
             want = {k: [rec["collective_calls"][k], rec["collectives"][k]] for k in COLLECTIVES}
             for r in ranks:
-                got = {k: r["steps"][name]["collectives"].get(k, [0, 0]) for k in COLLECTIVES}
-                if got != want or r["steps"][name]["argument_bytes"] != \
-                        rec["memory"]["argument_bytes"]:
+                step = step_of(r, where, name)
+                got = {k: step["collectives"].get(k, [0, 0]) for k in COLLECTIVES}
+                if got != want or step["argument_bytes"] != rec["memory"]["argument_bytes"]:
                     raise AssertionError(
-                        f"rank {r['rank']} {name}: collectives {got}, argument bytes "
-                        f"{r['steps'][name]['argument_bytes']}; the dry run gives {want}, "
+                        f"rank {r['rank']} {label}: collectives {got}, argument bytes "
+                        f"{step['argument_bytes']}; the dry run gives {want}, "
                         f"{rec['memory']['argument_bytes']}")
-            out[name] = {"collectives": want, "argument_bytes": rec["memory"]["argument_bytes"],
-                         "temp_bytes": rec["memory"]["temp_bytes"],
-                         "launches": rec["launches"]["kernels"], "roofline": rec["roofline"],
-                         "trace_s": rec["trace_s"]}
+            step0 = step_of(ranks[0], where, name)
+            out[label] = {"collectives": want,
+                          "argument_bytes": rec["memory"]["argument_bytes"],
+                          "all_gather_bytes": rec["collectives"]["all-gather"],
+                          "rank0": {"argument_bytes": step0["argument_bytes"],
+                                    "all_gather_bytes": step0["collectives"].get(
+                                        "all-gather", [0, 0])[1]},
+                          "temp_bytes": rec["memory"]["temp_bytes"],
+                          "launches": rec["launches"]["kernels"], "roofline": rec["roofline"],
+                          "trace_s": rec["trace_s"]}
     return out
 
 
@@ -2615,7 +2890,7 @@ def mesh_serve_phase(dev, smi, lm) -> dict:
 
     axes = ("data", "model")
     grid = types.SimpleNamespace(axis_names=axes, shape=dict(zip(axes, MESH_SHAPE)))
-    placements = model.param_shardings(cfg, grid, SERVE_RULES)
+    placements = model.param_shardings(cfg, grid, dict(SERVE_RULES, **MESH_RULES))
     world = MESH_SHAPE[0] * MESH_SHAPE[1]
     t0 = time.perf_counter()
     # each model index's shards, which its data ranks share, in host shared
@@ -2623,6 +2898,12 @@ def mesh_serve_phase(dev, smi, lm) -> dict:
     by_model = {m: _host_shared(place(params, placements, grid, {"data": 0, "model": m},
                                       copy=False))
                 for m in range(MESH_SHAPE[1])}
+    # and each rank's banks as SERVE_RULES place them (split over data too)
+    split_placements = model.param_shardings(cfg, grid, SERVE_RULES)
+    banks = [_host_shared(place(_bank_tree(params), split_placements, grid,
+                                {"data": r // MESH_SHAPE[1], "model": r % MESH_SHAPE[1]},
+                                copy=False))
+             for r in range(world)]
     torch.cuda.synchronize()
     times["cut_shards_s"] = time.perf_counter() - t0
     shard_bytes = {m: sum(t.numel() * t.element_size() for t in tree_leaves(sh))
@@ -2631,12 +2912,12 @@ def mesh_serve_phase(dev, smi, lm) -> dict:
     full_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
     t0 = time.perf_counter()
     ranks = spawn_ranks(mesh_lm_rank, world,
-                        [(cfg, by_model[r % MESH_SHAPE[1]], _host_shared(batch),
+                        [(cfg, by_model[r % MESH_SHAPE[1]], banks[r], _host_shared(batch),
                           _host_shared(short), lm["prompts"], paged_logits, r == 0)
                          for r in range(world)],
                         device="cuda", timeout=MESH_TIMEOUT, threads=2)
     times["olmo_ranks_s"] = time.perf_counter() - t0
-    del by_model
+    del by_model, banks
 
     # ------------------------------------------------------------ gates ---
     V = cfg.vocab
@@ -2686,6 +2967,15 @@ def mesh_serve_phase(dev, smi, lm) -> dict:
         if pg["launches"]["phi_fused_stream_cuda"] <= 0 or \
                 pg["launches"]["lif_sequence_cuda"] <= 0:
             raise AssertionError(f"rank {r['rank']}: paged engine launches {pg['launches']}")
+        sp = r["split"]
+        if not sp["logits_bitwise"]:
+            raise AssertionError(f"rank {r['rank']}: the prefill and decode step from banks "
+                                 "split over data differ from the replicated banks' run")
+        if sp["bank_bytes"] * MESH_SHAPE[0] != sp["replicated_bank_bytes"]:
+            raise AssertionError(f"rank {r['rank']}: split banks hold {sp['bank_bytes']} bytes "
+                                 f"of the replicated {sp['replicated_bank_bytes']}")
+        if lc["decode_attention_cuda"] <= 0:
+            raise AssertionError(f"rank {r['rank']}: no decode attention launch: {lc}")
     if float(np.std(single[0])) == 0 or not np.isfinite(single[0]).all():
         raise AssertionError("mesh_serve: constant or non-finite prefill logits")
     checks = ranks[0]["checks"]
@@ -2768,7 +3058,13 @@ def mesh_serve_phase(dev, smi, lm) -> dict:
                              "paged_engine_preempted": True,
                              "paged_pool_kv_heads_a_rank": cfg.kv_heads_padded // MESH_SHAPE[1],
                              "w1_w2_spmd_local_fused_shards": world,
-                             "dryrun_collectives_and_argument_bytes_equal_every_rank": True},
+                             "dryrun_collectives_and_argument_bytes_equal_every_rank": True,
+                             "split_banks_prefill_and_decode_bitwise_replicated": True},
+                   "split_banks": {"rules": "SERVE_RULES (pwp_tiles over data); the other "
+                                   "runs keep the banks whole over data (MESH_RULES)",
+                                   "bank_bytes_rank0": ranks[0]["split"]["bank_bytes"],
+                                   "replicated_bank_bytes_rank0":
+                                       ranks[0]["split"]["replicated_bank_bytes"]},
                    "paged": {"page": LM_PAGE, "pages": LM_TIGHT_PAGES,
                              "layout": "KV heads over model, every page on every rank"}},
           "moe": {"arch": MOE_ARCH, "mesh": dict(zip(axes, MOE_MESH)),
@@ -3259,7 +3555,7 @@ def hybrid_mesh_phase(dev, smi, hyb) -> dict:
         dispatch.set_policy(prev_policy)
     axes = ("data", "model")
     grid = types.SimpleNamespace(axis_names=axes, shape=dict(zip(axes, HM_MESH)))
-    placements = model.param_shardings(cfg, grid, SERVE_RULES)
+    placements = model.param_shardings(cfg, grid, dict(SERVE_RULES, **MESH_RULES))
     # each model index's shards, which its data ranks share, in host shared memory
     by_model = {m: _host_shared(place(params, placements, grid, {"data": 0, "model": m},
                                       copy=False))
@@ -3452,6 +3748,12 @@ BF16_LOSS_REL = 2.0 ** -12
 BF16_GRAD_REL = 2.0 ** -5
 
 
+def fwd_passes(cfg) -> int:
+    """Forward passes a training step makes of each layer: 2 under
+    ``cfg.remat`` (the step's, and the recompute in its backward), else 1."""
+    return 1 if cfg.remat == "none" else 2
+
+
 @contextlib.contextmanager
 def plain_attention():
     """A context in which ``models.flash.flash_attention`` runs the plain
@@ -3554,6 +3856,8 @@ def lm_train_phase(dev, smi) -> dict:
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    # trained at the config's own remat ("full"); one step at each remat is
+    # held against the others
     cfg = get_config(LM_ARCH, smoke=LM_SMOKE)
     if LM_TRAIN_LAYERS is not None:
         cfg = cfg.with_(n_layers=LM_TRAIN_LAYERS)
@@ -3602,10 +3906,11 @@ def lm_train_phase(dev, smi) -> dict:
             with plain_attention():
                 ploss, pgrads = bundle.grads(params, batch)
             torch.cuda.synchronize()
-            if lse1 - lse0 != c.n_layers or flash_attention_cuda.lse_launches != lse1:
+            if lse1 - lse0 != c.n_layers * fwd_passes(c) or \
+                    flash_attention_cuda.lse_launches != lse1:
                 raise AssertionError(f"step 1: {lse1 - lse0} lse launches with the kernel, "
                                      f"{flash_attention_cuda.lse_launches - lse1} with the "
-                                     f"plain forward; want {c.n_layers} and 0")
+                                     f"plain forward; want {c.n_layers * fwd_passes(c)} and 0")
             out = {"loss": float(loss), "plain_loss": float(ploss),
                    "loss_rel_err": abs(float(loss) - float(ploss)) / abs(float(ploss)),
                    "grad_rel_err": {p: rel_err(g, w) for p, g, w in tree_pairs(grads, pgrads)},
@@ -3620,6 +3925,38 @@ def lm_train_phase(dev, smi) -> dict:
         step1 = {"float32": step1_against_plain(cfg.with_(compute_dtype=torch.float32),
                                                 LOSS_REL, GRAD_REL),
                  "path": step1_against_plain(cfg, BF16_LOSS_REL, BF16_GRAD_REL)}
+
+        def remat_steps():
+            """Step 1's loss and gradients under each ``cfg.remat``, held to
+            the "none" step's within LOSS_REL and GRAD_REL (the recomputed
+            forward repeats the same kernels and library calls: bitwise is
+            expected and printed), with the step's peak allocation above
+            what was allocated before it."""
+            out, base = {}, None
+            for r in ("none", "full", "dots"):
+                bundle = step_lib.make_train_step(cfg.with_(remat=r), ocfg)[0]
+                torch.cuda.synchronize()
+                before = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                loss, grads = bundle.grads(params, batch)
+                torch.cuda.synchronize()
+                row = {"loss": float(loss),
+                       "peak_bytes_above_start": torch.cuda.max_memory_allocated() - before}
+                if base is None:
+                    base = (loss, grads)
+                else:
+                    pairs = list(tree_pairs(grads, base[1]))
+                    row["bitwise_none"] = bool(torch.equal(loss, base[0]) and all(
+                        torch.equal(g, w) for _, g, w in pairs))
+                    row["loss_rel_err"] = abs(float(loss) - float(base[0])) / abs(float(base[0]))
+                    row["grad_rel_err_max"] = max(rel_err(g, w) for _, g, w in pairs)
+                    if row["loss_rel_err"] > LOSS_REL or row["grad_rel_err_max"] > GRAD_REL:
+                        raise AssertionError(f"lm_train remat {r}: step 1 against remat none "
+                                             f"{row}")
+                out[r] = row
+            return out
+
+        remat = remat_steps()
         del params
 
         # ------------------------------------------------ the counted run ---
@@ -3738,25 +4075,29 @@ def lm_train_phase(dev, smi) -> dict:
 
     dense_dec = tally(*marks["dense"])
     dense_steps = LM_TRAIN_STEPS + LM_TRAIN_CRASH + LM_TRAIN_STEPS - LM_TRAIN_CRASH
+    # under cfg.remat each step's layers run forward twice: in the step, and
+    # recomputed in its backward
+    passes, phi_passes = fwd_passes(cfg), fwd_passes(phi_cfg)
     if dense_dec != {("lm.attn_prefill", "flash", "autodiff_keeps_flash"):
-                     dense_steps * n_layers}:
+                     dense_steps * n_layers * passes}:
         raise AssertionError(f"lm_train dense decisions {dense_dec}")
     phi_dec = tally(*marks["phi_train"])
-    want = {(f"lm.{w}", "coo", "autodiff_or_vmap"): LM_TRAIN_PHI_STEPS * phi_layers
+    want = {(f"lm.{w}", "coo", "autodiff_or_vmap"): LM_TRAIN_PHI_STEPS * phi_layers * phi_passes
             for w in ("wq", "wk", "wv", "wo", "w1", "w2", "w3")}
     # the calibration captures with dense math: one no-grad attention a layer
     want[("lm.attn_prefill", "flash", "dense_qk_keeps_flash")] = phi_layers
-    want[("lm.attn_prefill", "flash", "autodiff_keeps_flash")] = LM_TRAIN_PHI_STEPS * phi_layers
+    want[("lm.attn_prefill", "flash", "autodiff_keeps_flash")] = \
+        LM_TRAIN_PHI_STEPS * phi_layers * phi_passes
     if phi_dec != want:
         raise AssertionError(f"lm_train Phi decisions {phi_dec}, want {want}")
     gate_dec = tally(*marks["phi_gate"])
     gate_impls = {impl for (site, impl, _) in gate_dec if site.startswith("lm.w")}
     if not gate_impls or not gate_impls <= {"fused", "fused_stream", "fused_prefetch"}:
         raise AssertionError(f"lm_train: the gate after training ran {gate_dec}")
-    # Launches: the attention kernel with lse once a layer a step (the step-1
+    # Launches: the attention kernel with lse once a layer a forward pass (the step-1
     # twin ran outside the counted run), without lse at both calibrations'
     # captures and both arms of the gate; LIF and matcher at calibration.
-    n_lse = dense_steps * n_layers + LM_TRAIN_PHI_STEPS * phi_layers
+    n_lse = dense_steps * n_layers * passes + LM_TRAIN_PHI_STEPS * phi_layers * phi_passes
     if launches["flash_attention_cuda_lse"] != n_lse or \
             launches["flash_attention_cuda"] != n_lse + 4 * phi_layers:
         raise AssertionError(f"lm_train attention launches {launches}, want {n_lse} with lse "
@@ -3830,7 +4171,7 @@ def lm_train_phase(dev, smi) -> dict:
                              "k": phi_cfg.phi.k, "nnz_budget": phi_cfg.phi.nnz_budget,
                              "steps": LM_TRAIN_PHI_STEPS}},
           "counted_s": counted_s, "stages_s": times, "launches": launches,
-          "step1_plain_attention": step1,
+          "step1_plain_attention": step1, "remat": remat,
           "losses": full, "resumed_losses": l1 + l2, "resume_max_abs_diff": resume_diff,
           "resume_tol": [RESUME_RTOL, RESUME_ATOL], "checkpoint_roundtrip": roundtrip,
           "served_tokens_identical": LM_TRAIN_SERVE, "phi_losses": phi_losses,
@@ -3853,10 +4194,14 @@ def lm_train_phase(dev, smi) -> dict:
 
 
 
-# Training on a mesh: OLMo-1B (lm_serve's config and depth, LM_LAYERS, full
-# width; lm_train's optimizer and sequence) on four ranks sharing the card
-# through gloo (NCCL refuses two ranks on one device), against one device's
-# run of the same params and batches.
+# Training on a mesh: OLMo-1B (lm_serve's config, full width, MT_LAYERS deep;
+# lm_train's optimizer and sequence) on four ranks sharing the card through
+# gloo (NCCL refuses two ranks on one device), against one device's run of
+# the same params and batches. The depth was LM_LAYERS = 4 until the config's
+# remat="full" put a second forward in every step; 2 layers pay for it. The
+# pipeline's four stages run the layers in turn (stage s, layer s mod 2).
+MT_LAYERS = 2
+MT_PIPE_STAGES = 4
 MT_BATCH = 2                       # global rows: one a data rank on (data 2, model 2)
 MT_STEPS, MT_CRASH = 4, 2          # uninterrupted steps; the crashed run's
 MT_MESH = (2, 2)                   # (data, model)
@@ -4169,10 +4514,10 @@ def mesh_train_rank(rank, cfg, phi_cfg, ocfg, seq, params0, phi_params, single, 
     torch.cuda.empty_cache()
 
     # ------------------------------------------------- arm C: pipeline ---
-    qmesh = make_mesh((4,), ("pod",))
-    sid = qmesh.coords["pod"]
+    qmesh = make_mesh((MT_PIPE_STAGES,), ("pod",))
+    li = qmesh.coords["pod"] % cfg.n_layers
     stage_p = _to_device(transformer.layer_slice(params0["decoder"]["stack"],
-                                                 slice(sid, sid + 1)), dev)
+                                                 slice(li, li + 1)), dev)
     x_micro = pipe.to(dev)
     pos = torch.arange(pipe.shape[2], device=dev)[None]
 
@@ -4187,7 +4532,7 @@ def mesh_train_rank(rank, cfg, phi_cfg, ocfg, seq, params0, phi_params, single, 
         y = pipeline_apply(stage, stage_p, x_micro, qmesh, axis="pod")
         torch.cuda.synchronize()
     out["pipeline"] = {"out": y.cpu(), "ms": (time.perf_counter() - t0) * 1e3,
-                       "bubble_fraction": bubble_fraction(MT_PIPE[0], 4),
+                       "bubble_fraction": bubble_fraction(MT_PIPE[0], MT_PIPE_STAGES),
                        "stats": {op: list(v) for op, v in qmesh.stats.items()},
                        "p2p_transport": qmesh.p2p_transport}
     del stage_p, x_micro, y
@@ -4214,7 +4559,7 @@ def mesh_train_rank(rank, cfg, phi_cfg, ocfg, seq, params0, phi_params, single, 
 
 
 def mesh_train_phase(dev, smi) -> dict:
-    """The ``mesh_train`` phase. OLMo-1B at full width, LM_LAYERS deep, S =
+    """The ``mesh_train`` phase. OLMo-1B at full width, MT_LAYERS deep, S =
     LM_TRAIN_S, global batch MT_BATCH, AdamW (LM_TRAIN_OPT). One device (this
     process) runs the references: step 1's grads and MT_STEPS steps of
     ``train_loop`` from the seed's params, the Phi config (LM_TRAIN_PHI_LAYERS
@@ -4252,8 +4597,8 @@ def mesh_train_phase(dev, smi) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cfg = get_config(LM_ARCH, smoke=LM_SMOKE)
-    if LM_LAYERS is not None:
-        cfg = cfg.with_(n_layers=LM_LAYERS)
+    if MT_LAYERS is not None:
+        cfg = cfg.with_(n_layers=MT_LAYERS)
     phi_cfg = phi_variant(cfg, timesteps=2, q=16).with_(
         n_layers=min(cfg.n_layers, LM_TRAIN_PHI_LAYERS))
     ocfg = opt.OptConfig(**LM_TRAIN_OPT)
@@ -4287,7 +4632,7 @@ def mesh_train_phase(dev, smi) -> dict:
         del p4
         single_step_ms = cuda_time_ms(lambda: bundle.fn(params0, opt.init(params0, ocfg),
                                                         batches[0]), runs=3, warmup=1)
-        # pipeline: the four layers in sequence, microbatch by microbatch
+        # pipeline: the four stages' layers in sequence, microbatch by microbatch
         pipe = torch.randn((*MT_PIPE, cfg.d_model),
                            generator=torch.Generator(device=dev).manual_seed(SEED + 5),
                            device=dev).to(cfg.compute_dtype)
@@ -4296,8 +4641,9 @@ def mesh_train_phase(dev, smi) -> dict:
         with torch.no_grad():
             for m in range(MT_PIPE[0]):
                 y = pipe[m]
-                for li in range(cfg.n_layers):
-                    p = transformer.layer_slice(params0["decoder"]["stack"], li)["p0"]
+                for st in range(MT_PIPE_STAGES):
+                    p = transformer.layer_slice(params0["decoder"]["stack"],
+                                                st % cfg.n_layers)["p0"]
                     y, _ = transformer.attn_block_prefill(cfg, p, y, pos,
                                                           cfg.is_global_layer(0))
                     y = transformer._ffn(cfg, p, y)
@@ -4365,6 +4711,7 @@ def mesh_train_phase(dev, smi) -> dict:
         "phase": "mesh_train", "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
         "note": "ranks are processes sharing one card: their times include each other's work",
         "config": {"arch": LM_ARCH, "n_layers": cfg.n_layers, "phi_layers": phi_cfg.n_layers,
+                   "remat": cfg.remat, "saved_seq": "model (TRAIN_RULES)",
                    "phi_nnz_budget": phi_cfg.phi.nnz_budget,
                    "d_model": cfg.d_model, "vocab": cfg.vocab, "seq": LM_TRAIN_S,
                    "global_batch": MT_BATCH, "opt": LM_TRAIN_OPT, "mesh": MT_MESH,
@@ -4453,7 +4800,8 @@ def mesh_train_phase(dev, smi) -> dict:
             raise AssertionError(f"mesh_train rank {rk}: pipeline differs from the sequential "
                                  "layers")
         lc = r["launches"]
-        want_lse = sum(n * (phi_cfg.n_layers if arm == "phi_mesh" else cfg.n_layers)
+        want_lse = sum(n * (phi_cfg.n_layers * fwd_passes(phi_cfg) if arm == "phi_mesh"
+                            else cfg.n_layers * fwd_passes(cfg))
                        for arm, n in r["steps_run"].items())
         if lc["flash_attention_cuda_lse"] != want_lse:
             raise AssertionError(f"mesh_train rank {rk}: {lc['flash_attention_cuda_lse']} lse "
@@ -4739,6 +5087,7 @@ def main() -> int:
     # ------------------------------------------------------ LM training ---
     lm_tr = lm_train_phase(dev, smi)
     mesh_tr = mesh_train_phase(dev, smi)
+    analysis_phase(smi)
     later = {"accel_sim": accel["launches"], "train": trained["launches"],
              "paft": paft_run["launches"], "spikformer_train": spk_train["launches"],
              "lm": lm["launches"], "mesh_serve": mesh["launches"], "hybrid": hyb["launches"],
@@ -4810,11 +5159,29 @@ def main() -> int:
                                                   "mesh_train"))
     attn["dense_instantiation_launches"] += sum(c["flash_attention_cuda"] for c in later.values())
     attn["lm_dense_max_abs_err"] = lm["attn_err"]
+    attn["windowed_prefill_max_abs_err"] = lm["windowed_err"]
+    attn["note"] = ("the dense instantiation walks only the kv-blocks its masks leave open "
+                    "(causal, window, chunk)")
     attn["mesh_dense_max_abs_err"] = mesh["attn_err"]
     attn["hybrid_dense_max_abs_err"] = hyb["attn_err"]
     attn["hybrid_mesh_dense_max_abs_err"] = hmesh["attn_err"]
     attn["lm_train_dense_max_abs_err"] = lm_tr["attn_err"]
     attn["mesh_train_dense_max_abs_err"] = mesh_tr["attn_err"]
+    # The decode attention kernel has no TPU counterpart (the reference's
+    # decode attention is plain JAX): its row is lm_serve's decode shapes.
+    dec_rows = lm["decode_rows"][:3]
+    dec_by = {path: counts["decode_attention_cuda"] for path, counts in later.items()}
+    dec_bound, dec_bound_by = bound(dec_rows)
+    entries.append({
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "none: src/repro/models/layers.py attention_decode is plain JAX",
+        "launches": sum(dec_by.values()), "launches_by_path": dec_by,
+        "max_abs_err": max(r["max_abs_err"] for r in lm["decode_rows"]),
+        "ms": sum(r["ms"] for r in dec_rows), "device_ms": device_sum(dec_rows),
+        "plain_ms": sum(r["plain_ms"] for r in dec_rows), "bound_ms": dec_bound,
+        "bound_by": dec_bound_by, "library_ms": sum(r["library_ms"] for r in dec_rows),
+        "long_context": lm["decode_rows"][3]})
     emit({"kernels": entries})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

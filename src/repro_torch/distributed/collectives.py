@@ -262,6 +262,50 @@ class _AllToAll(torch.autograd.Function):
         return _all_to_all(g, ctx.mesh, ctx.ax), None, None
 
 
+def _block(x: torch.Tensor, mesh: Mesh, ax, dim: int) -> torch.Tensor:
+    n = x.shape[dim] // mesh.extent(ax)
+    return x.narrow(dim, mesh.index(ax) * n, n).clone(memory_format=torch.contiguous_format)
+
+
+class _KeepBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, ax, dim):
+        ctx.mesh, ctx.ax, ctx.dim = mesh, ax, dim
+        return _block(x, mesh, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g.contiguous(), ctx.mesh, ctx.ax, ctx.dim), None, None, None
+
+
+class _GatherBlocks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, ax, dim):
+        ctx.mesh, ctx.ax, ctx.dim = mesh, ax, dim
+        return _all_gather(x, mesh, ax, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _block(g, ctx.mesh, ctx.ax, ctx.dim), None, None, None
+
+
+def keep_block(x: torch.Tensor, mesh: Mesh, ax, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` (cut into ``mesh.extent(ax)`` blocks) of
+    an ``x`` replicated over ``ax``, as a tensor of its own; with
+    :func:`gather_blocks` after it, a replicated activation stored as 1 / n
+    of itself. Its gradient is the ranks' gradient blocks all-gathered: the
+    gradient of a replicated activation is whole on every rank, and
+    :func:`gather_blocks` hands each rank its own block of it."""
+    return _KeepBlock.apply(x, mesh, ax, dim)
+
+
+def gather_blocks(x: torch.Tensor, mesh: Mesh, ax, dim: int) -> torch.Tensor:
+    """The inverse of :func:`keep_block`: the ranks' blocks all-gathered along
+    ``dim``, whose gradient is this rank's block of the (whole, replicated)
+    gradient, with no communication."""
+    return _GatherBlocks.apply(x, mesh, ax, dim)
+
+
 def all_reduce(x: torch.Tensor, mesh: Mesh | None, ax, op: str = "sum") -> torch.Tensor:
     """Sum (or ``op="max"``: maximum) of ``x`` over the ranks of ``ax`` (a new
     tensor on ``x``'s device). The sum's backward is the identity; the

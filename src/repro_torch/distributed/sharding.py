@@ -112,6 +112,26 @@ def use_rules(rules: dict[str, Any], mesh=None):
         _local.mesh = prev_m
 
 
+def thread_context() -> tuple:
+    """The rules, mesh and batch rows this thread runs under, for code that
+    runs later on another thread under the same context (autograd runs a
+    card tensor's backward, and a checkpointed body's recompute, on its own
+    device thread)."""
+    return (getattr(_local, "rules", None), getattr(_local, "mesh", None),
+            getattr(_local, "batch_rows", None))
+
+
+@contextlib.contextmanager
+def use_thread_context(ctx: tuple):
+    """Run the enclosed calls under a :func:`thread_context` taken elsewhere."""
+    prev = thread_context()
+    _local.rules, _local.mesh, _local.batch_rows = ctx
+    try:
+        yield
+    finally:
+        _local.rules, _local.mesh, _local.batch_rows = prev
+
+
 def batch_rows() -> tuple[int, int] | None:
     """(global rows, first local row) of the batch the enclosed calls run on,
     as set by the innermost :func:`use_batch_rows` (None: the local batch is

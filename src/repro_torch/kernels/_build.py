@@ -21,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("phi_fused.cu", "lif.cu", "phi_attention.cu", "matcher.cu", "phi_gather.cu",
-           "phi_spmm.cu")
+           "phi_spmm.cu", "decode_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -51,6 +51,15 @@ _SIGNATURES = {
     "l1_gather_launch": [_P, _P, ctypes.c_int, _P, _P, ctypes.c_longlong] + [ctypes.c_int] * 4
                         + [_P],
     "l2_spmm_launch": [_P] * 5 + [ctypes.c_int] * 6 + [_P],
+    "decode_attention_launch": [_P] * 6 + [ctypes.c_int] * 8 + [ctypes.c_float, _P],
+    "decode_attention_plan": [ctypes.c_int, ctypes.c_int, _P],
+    # Launch grids, as each launch function computes them (repro_torch.analysis).
+    "phi_fused_grid": [ctypes.c_longlong] * 2 + [_P],
+    "l1_gather_grid": [ctypes.c_longlong] * 3 + [_P],
+    "l2_spmm_grid": [ctypes.c_longlong] * 4 + [_P],
+    "lif_grid": [ctypes.c_longlong, _P],
+    "phi_attention_grid": [ctypes.c_longlong] * 4 + [_P],
+    "matcher_grid": [ctypes.c_longlong] * 4 + [_P],
     "repro_cuda_error_string": [ctypes.c_int],
 }
 # Return types other than the launch functions' CUDA error code.

@@ -131,6 +131,19 @@ def dense_attention(B: int, S: int, H: int, D: int, causal: bool = True,
     return ops, nbytes
 
 
+def decode_attention(B: int, Hq: int, Hkv: int, D: int, kv_rows: int, q_bytes: int,
+                     kv_bytes: int) -> tuple[int, int]:
+    """One-token decode attention over ``kv_rows`` valid cache rows in all
+    (the rows each batch row's mask keeps, summed over the rows): q read and
+    the output written once, each KV head's kept K and V rows read once;
+    per (Q head, kept row) q.k (2 D), the scale and the softmax (4) and p.V
+    (2 D), and a division per output. The wrapper on fake tensors, whose
+    positions hold no values, passes every cache row (B * Smax)."""
+    nbytes = 2 * B * Hq * D * q_bytes + 2 * kv_rows * Hkv * D * kv_bytes
+    ops = Hq * kv_rows * (4 * D + 5) + B * Hq * D
+    return ops, nbytes
+
+
 def matcher(M: int, K: int, T: int, q: int, k: int) -> tuple[int, int]:
     """The matcher: a and the packed bank read, idx and the int8 residual
     written; the scores as int8 tensor-core work, a multiply and an add per

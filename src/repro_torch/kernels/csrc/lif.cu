@@ -63,6 +63,14 @@ unsigned grid_for(long long n) {
 
 extern "C" {
 
+// The launch grid for n neurons: out = {blocks, threads a block}; a block
+// walks the neurons with a grid-stride loop. Returns 0.
+int lif_grid(long long n, long long* out) {
+  out[0] = grid_for(n);
+  out[1] = THREADS;
+  return 0;
+}
+
 // Both return cudaGetLastError() after the launch (0 on success).
 int lif_step_launch(const float* v, const float* x, float* spike, float* v_out, long long n,
                     float decay, float threshold, int soft, void* stream) {

@@ -376,6 +376,21 @@ int matcher_plan(int T, int q, int k, int* out) {
   return 0;
 }
 
+// The launch grid for M rows: out = {blocks, rows a block, partitions a
+// block, bank chunk, dynamic shared-memory bytes}. Returns
+// cudaErrorInvalidValue for a shape the kernel does not take, else 0.
+int matcher_grid(long long M, long long T, long long q, long long k, long long* out) {
+  if (k < 1 || k > 64 || q < 1 || T < 1 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
+  int tp, chunk, smem;
+  plan(static_cast<int>(T), static_cast<int>(q), static_cast<int>(k), &tp, &chunk, &smem);
+  out[0] = static_cast<long long>(cdiv(M, ROWS)) * cdiv(T, tp);
+  out[1] = ROWS;
+  out[2] = tp;
+  out[3] = chunk;
+  out[4] = smem;
+  return 0;
+}
+
 // Returns cudaGetLastError() after the launch (0 on success). `residual` is
 // 4-byte aligned (the wrapper allocates it).
 int matcher_launch(const float* a, const unsigned long long* packed, int* idx,

@@ -72,6 +72,11 @@
 //     footprint is phi_attention_smem_bytes(), mirrored by
 //     kernels/phi_attention.py::smem_bytes; above 48 KB the launch raises the
 //     block's dynamic shared-memory limit (at most 227 KB).
+//   * The dense instantiation walks only the kv-blocks its q block's masks
+//     leave open (band()): a causal prefill half of them, a sliding window
+//     of W keys about W / bkv + 1. Skipping a block whose scores are all
+//     masked changes no bit of the result. The Phi instantiation walks every
+//     block: its l2_nnz counts the residual of every K row.
 #include <cuda_pipeline_primitives.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -172,6 +177,25 @@ __device__ __forceinline__ float bit_sum(unsigned long long bits, unsigned long 
   return part;
 }
 
+// The kv-blocks [*lo, *hi] that the causal, window and chunk masks leave open
+// to some query row of the block at q0 (dense only: the Phi instantiation
+// matches every K row for l2_nnz). A block outside holds only masked scores
+// for every row, and adds nothing: p = 0, and the running max, denominator
+// and accumulator keep their bits (corr = 1, or 0 on all of them while a
+// row's max is still -inf). So the work is O(S * W) under a window.
+__device__ __forceinline__ void band(int q0, int bq, int S, int bkv, int causal,
+                                     int has_window, int window, int chunk, int* lo,
+                                     int* hi) {
+  const int qlast = min(q0 + bq, S) - 1;
+  if (causal) *hi = min(*hi, qlast / bkv);
+  if (has_window) *lo = max(*lo, (q0 - window + 1) / bkv);
+  if (chunk > 0) {
+    *lo = max(*lo, q0 / chunk * chunk / bkv);
+    const long long end = (static_cast<long long>(qlast) / chunk + 1) * chunk - 1;
+    if (end < S) *hi = min(*hi, static_cast<int>(end / bkv));
+  }
+}
+
 template <bool PHI, int RPT>
 __global__ void __launch_bounds__(THREADS, RPT == 1 ? 3 : 2) attn_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
@@ -225,8 +249,10 @@ __global__ void __launch_bounds__(THREADS, RPT == 1 ? 3 : 2) attn_kernel(
   bool binary = true;
   int my_nnz = 0;
   const int used = T * kp;
-  for (int jk = 0; jk < nkv; ++jk) {
-    if (jk) __syncthreads();  // the previous kv-block's K, V and p are no longer read
+  int jk_lo = 0, jk_hi = nkv - 1;
+  if constexpr (!PHI) band(q0, bq, S, bkv, causal, has_window, window, chunk, &jk_lo, &jk_hi);
+  for (int jk = jk_lo; jk <= jk_hi; ++jk) {
+    if (jk > jk_lo) __syncthreads();  // the previous kv-block's K, V and p are no longer read
     load_rows(s_k, ld, k + base, row, jk * bkv, bkv, S, D, D4, vec);
     load_rows(s_v, ldv, v + base, row, jk * bkv, bkv, S, D, D, vec);
     __pipeline_commit();
@@ -555,6 +581,15 @@ cudaError_t launch(const float* q, const float* k, const float* v,
 }  // namespace
 
 extern "C" {
+
+// The launch grid: out = {blocks, q-blocks of a (batch, head)}: one block
+// per (batch * head, q-block of bq rows). Returns 0.
+int phi_attention_grid(long long B, long long S, long long H, long long bq, long long* out) {
+  const long long nq = (S + bq - 1) / bq;
+  out[0] = B * H * nq;
+  out[1] = nq;
+  return 0;
+}
 
 // Dynamic shared memory one block of the kernel uses, in bytes (phi = 0: the
 // dense instantiation, which ignores T and qp).

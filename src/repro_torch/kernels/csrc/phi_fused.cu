@@ -461,6 +461,11 @@ __global__ void __launch_bounds__(THREADS, 3) phi_fused_stream_kernel(
   if (blockIdx.y < C && tid < BM && s_rownnz[tid]) atomicAdd(&nnz[(m0 + tid) / bm], s_rownnz[tid]);
 }
 
+// The fused kernels' grid: BM-row by SBN-column output tiles.
+inline dim3 fused_grid(long long M, int N) {
+  return dim3(static_cast<unsigned>((M + BM - 1) / BM), static_cast<unsigned>((N + SBN - 1) / SBN));
+}
+
 template <typename P>
 cudaError_t launch_stream(const float* a, const unsigned long long* packed, const void* pwp,
                           const float* scale, const float* w, float* out, int* nnz, long long M,
@@ -476,8 +481,7 @@ cudaError_t launch_stream(const float* a, const unsigned long long* packed, cons
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>((M + BM - 1) / BM),
-                     static_cast<unsigned>((N + SBN - 1) / SBN));
+  cfg.gridDim = fused_grid(M, N);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -928,8 +932,7 @@ cudaError_t launch_first(const float* a, const unsigned long long* packed, const
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>((M + BM - 1) / BM),
-                     static_cast<unsigned>((N + SBN - 1) / SBN));
+  cfg.gridDim = fused_grid(M, N);
   cfg.blockDim = dim3(THREADS);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -983,6 +986,17 @@ cudaError_t dispatch_dtype(const float* a, const unsigned long long* packed, con
 }  // namespace
 
 extern "C" {
+
+// The grid of the three fused kernels at (M, N): out = {blocks along M,
+// blocks along N, rows a tile, columns a tile}. Returns 0.
+int phi_fused_grid(long long M, long long N, long long* out) {
+  const dim3 g = fused_grid(M, static_cast<int>(N));
+  out[0] = g.x;
+  out[1] = g.y;
+  out[2] = BM;
+  out[3] = SBN;
+  return 0;
+}
 
 const char* repro_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -101,23 +101,39 @@ l1_gather_kernel(const int* __restrict__ idx, const P* __restrict__ pwp,
   else *dst = acc.x;
 }
 
+// The grid: ROWS rows by 128 (vector columns) or 32 columns a block.
+inline dim3 gather_grid(long long M, int N, int vec) {
+  const int cols = vec ? 128 : 32;
+  return dim3(static_cast<unsigned>((M + ROWS - 1) / ROWS), (N + cols - 1) / cols);
+}
+
 template <typename P>
 int launch(const int* idx, const P* pwp, float* out, int* flag, long long M, int N, int T,
            int q1, int vec, cudaStream_t s) {
   const dim3 block(32, ROWS);
-  const unsigned gx = static_cast<unsigned>((M + ROWS - 1) / ROWS);
   if (vec)
-    l1_gather_kernel<P, 4><<<dim3(gx, (N + 127) / 128), block, 0, s>>>(idx, pwp, out, flag, M,
-                                                                       N, T, q1);
+    l1_gather_kernel<P, 4><<<gather_grid(M, N, 1), block, 0, s>>>(idx, pwp, out, flag, M, N, T,
+                                                                  q1);
   else
-    l1_gather_kernel<P, 1><<<dim3(gx, (N + 31) / 32), block, 0, s>>>(idx, pwp, out, flag, M,
-                                                                     N, T, q1);
+    l1_gather_kernel<P, 1><<<gather_grid(M, N, 0), block, 0, s>>>(idx, pwp, out, flag, M, N, T,
+                                                                  q1);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
+
+// The launch grid at (M, N): out = {blocks along M, blocks along N, rows a
+// block, columns a block}. Returns 0.
+int l1_gather_grid(long long M, long long N, long long vec, long long* out) {
+  const dim3 g = gather_grid(M, static_cast<int>(N), static_cast<int>(vec));
+  out[0] = g.x;
+  out[1] = g.y;
+  out[2] = ROWS;
+  out[3] = vec ? 128 : 32;
+  return 0;
+}
 
 // pwp_dtype: 0 = float32, 1 = bfloat16. vec: 1 for 4 columns a lane (N % 4 ==
 // 0, bank 16-byte aligned). flag: an int32 on the device set to 1 where an

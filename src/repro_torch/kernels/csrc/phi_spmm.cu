@@ -172,7 +172,24 @@ l2_spmm_kernel(const int* __restrict__ rows, const int* __restrict__ cols,
 
 }  // namespace
 
+// Blocks of the grid: WARPS warps a block, one a group of rpw rows of an
+// M-block.
+inline long long spmm_blocks(long long G, long long bm, long long rpw) {
+  const long long warps = G * ((bm + rpw - 1) / rpw);
+  return (warps + WARPS - 1) / WARPS;
+}
+
 extern "C" {
+
+// The launch grid: out = {blocks, column slices, warps a block, columns a
+// slice}. Returns 0.
+int l2_spmm_grid(long long G, long long bm, long long N, long long rpw, long long* out) {
+  out[0] = spmm_blocks(G, bm, rpw);
+  out[1] = (N + SLICE - 1) / SLICE;
+  out[2] = WARPS;
+  out[3] = SLICE;
+  return 0;
+}
 
 // rows/cols (G, C) int32, signs (G, C) int8, w (K, N) f32 -> out (G*bm, N) f32;
 // rpw rows per warp; vec: 1 for float4 columns (N % 4 == 0, w and out 16-byte
@@ -183,8 +200,7 @@ int l2_spmm_launch(const int* rows, const int* cols, const int8_t* signs, const 
   if (G < 1 || C < 1 || bm < 1 || N < 1 || rpw < 1 || (N + SLICE - 1) / SLICE > 65535 ||
       (vec && N % 4))
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long warps = static_cast<long long>(G) * ((bm + rpw - 1) / rpw);
-  const long long blocks = (warps + WARPS - 1) / WARPS;
+  const long long blocks = spmm_blocks(G, bm, rpw);
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(static_cast<unsigned>(blocks), (N + SLICE - 1) / SLICE);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

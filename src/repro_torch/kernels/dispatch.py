@@ -137,6 +137,23 @@ def spmd_body(shards: int):
         _tls.body = prev
 
 
+def region_context() -> tuple:
+    """This thread's SPMD region depth and per-rank body, for code that runs
+    later on another thread (a checkpointed body's recompute)."""
+    return getattr(_tls, "spmd", 0), getattr(_tls, "body", None)
+
+
+@contextlib.contextmanager
+def use_region_context(ctx: tuple):
+    """Run the enclosed calls under a :func:`region_context` taken elsewhere."""
+    prev = region_context()
+    _tls.spmd, _tls.body = ctx
+    try:
+        yield
+    finally:
+        _tls.spmd, _tls.body = prev
+
+
 def in_spmd_body() -> bool:
     """True inside :func:`spmd_body`."""
     return getattr(_tls, "body", None) is not None

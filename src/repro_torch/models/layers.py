@@ -6,9 +6,12 @@ three masking families of the assigned archs — full causal, sliding-window
 (banded) and chunked-local — and a single-token decode path against a KV
 cache (linear, or a ring for SWA and chunked-local).
 
-Long prefill (S > 1024, full or chunked attention) goes through the
-execution policy to ``models.flash.flash_attention``, which launches the
-attention kernel's dense instantiation on the card. The policy's decision
+Long prefill (S > 1024, full or chunked attention, and on the card the
+sliding window too) goes through the execution policy to
+``models.flash.flash_attention``, which launches the attention kernel's
+dense instantiation on the card; the kernel walks only the kv-blocks the
+masks leave open, O(S·W) under a window. The CPU keeps the reference's
+banded plain path for a window past S = 8192. The policy's decision
 carries the kernel's own legal (block_q, block_kv) for the shape
 (``ops.autotune_attn_blocks``): the reference's 512 × 1024 tiles are TPU
 tiles the kernel refuses at head dim 128, and the blocks only tile the same
@@ -16,10 +19,12 @@ online softmax. The kernel takes float32 q/k/v, so bf16 operands are widened
 around it (the reference computes the scores in float32 too) and the
 output is cast back.
 
-On a mesh a rank holds a block of the batch rows and the heads. The kernel
-sums each (row, head) alone, but the library contractions of the other
-paths sum in an order that depends on their batch and head counts, so a
-rank runs those inside one device's call shape (``block``,
+On a mesh a rank holds a block of the batch rows and the heads. The
+kernels (prefill attention, decode attention) sum each (row, head) alone,
+so on the card a rank runs them on its own rows and heads; the library
+contractions of the plain paths (the CPU, and materialised prefill at S ≤
+1024 on the card) sum in an order that depends on their batch and head
+counts, so a rank runs those inside one device's call shape (``block``,
 :func:`one_device_call`) and gets one device's bits. Under autograd
 (training, held to a tolerance) a rank runs its own rows and heads.
 """
@@ -247,8 +252,9 @@ def attention_prefill(cfg: ModelConfig, layer_idx, q, k, v, *, layer_global: boo
     if S <= 1024:  # small sequences: materialised scores are cheapest
         run = (functools.partial(chunked_local_attention, chunk=chunk) if chunk is not None
                else functools.partial(attention_dense, causal=True, window=window))
-    elif window is not None and S > 8192:
-        # long SWA prefill (inference-only shapes): banded O(S·W) forward
+    elif window is not None and S > 8192 and q.device.type != "cuda":
+        # long SWA prefill (inference-only shapes): banded O(S·W) forward; on
+        # the card the kernel below walks only the band's kv-blocks
         run = functools.partial(flash_attention, window=window, block_q=min(512, S),
                                 block_kv=min(1024, S))
     elif cfg.attn_impl == "naive":
@@ -292,30 +298,18 @@ def attention_decode(q, k_cache, v_cache, pos, *, mode: str = "full",
                      slots belonging to the current chunk are exactly
                      s ≤ pos mod chunk.
 
-    ``block``: this rank's block of one device's call (:func:`one_device_call`).
+    On the card the decode kernel runs (``kernels.decode_attention``): its
+    bits for a (row, head) do not depend on the batch or head count, so a
+    rank runs its own rows and heads and ``block`` is not needed. Its plain
+    version (CPU) makes this rank's block of one device's call
+    (:func:`one_device_call`).
     """
-    if block is not None:
-        return one_device_call(functools.partial(attention_decode, mode=mode), block,
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+
+    if q.device.type != "cuda" and block is not None:
+        return one_device_call(functools.partial(decode_attention_cuda, mode=mode), block,
                                q, k_cache, v_cache, rows_only=pos)
-    rep = q.shape[2] // k_cache.shape[2]
-    k = _repeat_kv(k_cache, rep)
-    v = _repeat_kv(v_cache, rep)
-    scale = q.shape[-1] ** -0.5
-    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), k.to(torch.float32)) * scale
-    smax = k.shape[1]
-    kpos = torch.arange(smax, device=q.device)[None, :]           # (1, Smax)
-    p_ = pos[:, None]                                              # (B, 1)
-    if mode == "full":
-        valid = kpos <= p_
-    elif mode == "ring":
-        valid = (kpos <= p_) | (p_ >= smax)
-    elif mode == "chunk_ring":
-        valid = kpos <= (p_ % smax)
-    else:
-        raise ValueError(mode)
-    s = torch.where(valid[:, None, None, :], s, -torch.inf)
-    p = torch.softmax(s, -1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, v.to(torch.float32)).to(q.dtype)
+    return decode_attention_cuda(q, k_cache, v_cache, pos, mode=mode)
 
 
 # ------------------------------------------------------------- matmul fn ---

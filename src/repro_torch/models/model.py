@@ -254,15 +254,32 @@ def _trim(p: tuple) -> tuple:
     return tuple(p)
 
 
+def _pwp_tiles_axis(T: int, k_ax, used: tuple, mesh, rules):
+    """The placement entry of a PWP bank's K-partition dim (T partitions):
+    K's axis ``k_ax`` and, within each of its blocks, the axis the rules name
+    ``pwp_tiles`` (``data`` under both rule tables), where that axis is on
+    the mesh, not among ``used`` (the bank's other dims') and divides the
+    block; else ``k_ax`` alone."""
+    t_ax = (resolve_spec(("pwp_tiles",), rules, mesh) or (None,))[0]
+    names = axis_names_of(t_ax)
+    taken = set(axis_names_of(k_ax)) | {a for u in used for a in axis_names_of(u)}
+    if not names or set(names) & taken or (T // axis_size(mesh, k_ax)) % axis_size(mesh, t_ax):
+        return k_ax
+    both = axis_names_of(k_ax) + names
+    return both[0] if len(both) == 1 else both
+
+
 def param_shardings(cfg: ModelConfig, mesh, rules: dict | None = None) -> dict:
     """The placement of every leaf of ``lm_specs(cfg)`` on ``mesh``: per leaf,
     the mesh axes each dim is split over (``sharding.specs_to_shardings``),
     except that each GEMM weight and its Phi state are placed as the GEMM's
     per-rank body reads them (the reference's ``shard_map`` in-specs): the
-    weight by (k_ax, n_ax), its patterns' K-partitions with K, its PWP bank's
-    with K and its columns with N, its usage histogram whole. The reference
-    stores the banks split over ``data`` (``pwp_tiles``) and gathers them at
-    each call; a rank here keeps the slice its GEMM reads.
+    weight by (k_ax, n_ax), its patterns' K-partitions with K, its usage
+    histogram whole. Its PWP bank (and ``pwp_scale``) is stored as the
+    reference stores it: its K-partitions with K and, within K's block, over
+    the ``pwp_tiles`` axis (:func:`_pwp_tiles_axis`; ``data``), its columns
+    with N. :func:`_phi_sharded_matmul` all-gathers the bank over that axis
+    at each call, so a rank holds 1 / data of the bank its GEMM reads.
 
     These are the placements the forward reads, so no leaf is split over the
     ZeRO-3 ``fsdp`` dim here (a no-op under ``SERVE_RULES``, where it is
@@ -281,11 +298,13 @@ def param_shardings(cfg: ModelConfig, mesh, rules: dict | None = None) -> dict:
                 lead = _lead(v, mesh, rules)
                 placed[k] = _trim(lead + (k_ax, n_ax))
                 if "phi_" + k in node:
+                    T = node["phi_" + k]["pwp"].shape[-3]
+                    t_ax = _pwp_tiles_axis(T, k_ax, lead + (n_ax,), mesh, rules)
                     phi = {"patterns": _trim(lead + (k_ax,)),
-                           "pwp": _trim(lead + (k_ax, None, n_ax)),
+                           "pwp": _trim(lead + (t_ax, None, n_ax)),
                            "usage": ()}
                     if "pwp_scale" in node["phi_" + k]:
-                        phi["pwp_scale"] = _trim(lead + (k_ax,))
+                        phi["pwp_scale"] = _trim(lead + (t_ax,))
                     placed["phi_" + k] = phi
 
     walk(specs, out)
@@ -363,7 +382,8 @@ def _phi_sharded_matmul(cfg, spikes, w, patterns, pwp, name, budget, pwp_scale=N
 
     On a mesh every operand is this rank's shard: spikes (T, rows, ..., K)
     its rows and its K columns, the weight, patterns and bank as
-    :func:`param_shardings` places them. Column-parallel weights (K whole)
+    :func:`param_shardings` places them; a bank stored split over
+    ``pwp_tiles`` is all-gathered over that axis first. Column-parallel weights (K whole)
     need no communication; row-parallel ones (K on ``model``: wo, w2) give
     each rank the partial sum of its K-partitions (its bank slice and its
     COO columns), and an all-reduce over K's axis, in float32 before any
@@ -381,6 +401,17 @@ def _phi_sharded_matmul(cfg, spikes, w, patterns, pwp, name, budget, pwp_scale=N
     k_ax, _ = _gemm_axes(cfg, name, w)
     usage = dispatch.get_policy().shard_usage_for(f"lm.{name}", axis_size(mesh, k_ax),
                                                   patterns.shape[-3])
+    if pwp.shape[-3] != patterns.shape[-3]:
+        # the bank is stored split over pwp_tiles within K's block: gathered
+        # here, the rank's GEMM reads the same bytes as from a whole copy
+        t_ax = resolve_spec(("pwp_tiles",))[0]
+        pwp = coll.all_gather(pwp, mesh, t_ax, dim=pwp.ndim - 3)
+        if pwp_scale is not None:
+            pwp_scale = coll.all_gather(pwp_scale, mesh, t_ax, dim=pwp_scale.ndim - 2)
+        if pwp.shape[-3] != patterns.shape[-3]:
+            raise ValueError(f"lm.{name}: a bank of {pwp.shape[-3]} K-partitions gathered over "
+                             f"{t_ax!r} for {patterns.shape[-3]} patterns' partitions: the "
+                             "rules in force are not the ones it was placed under")
     flat = spikes.reshape(-1, spikes.shape[-1])
     with dispatch.spmd_body(mesh.size):
         out = dispatch.phi_matmul(flat, w, patterns, pwp, site=f"lm.{name}.spmd",

@@ -4,8 +4,15 @@ Parameters keep the reference's layout: each position ``p{i}`` of a layer
 group holds its weights stacked over the groups on a leading axis, so a
 reference params tree carries across leaf by leaf (``interop``). Where the
 reference scans over that axis, the port loops over it, slicing each
-layer's views; ``_maybe_remat`` has nothing to do in inference and is not
-ported. Heterogeneous interleavings (dense/MoE layers, chunked-local/global
+layer's views. Under autograd each layer-group body of a prefill (a group of
+the attention stack, a Mamba-2 layer, a hybrid site) runs as the reference's
+``_maybe_remat`` runs it: ``cfg.remat`` "full" keeps only the group's input
+for the backward and recomputes the rest (``torch.utils.checkpoint``),
+"dots" also keeps the matmuls without a batch dimension, "none" keeps every
+activation. On a mesh whose rules name a ``saved_seq`` axis (``model``
+under ``TRAIN_RULES``) the kept input is the rank's block of the sequence,
+all-gathered inside the body. Off autograd (serving) nothing changes.
+Heterogeneous interleavings (dense/MoE layers, chunked-local/global
 attention) loop over groups whose size is the LCM of the interleave periods,
 as there.
 
@@ -35,12 +42,14 @@ when serving.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 
 from repro_torch.distributed import collectives as coll
-from repro_torch.distributed.sharding import ParamSpec, current_mesh, resolve_spec, shard
+from repro_torch.distributed.sharding import (
+    ParamSpec, current_mesh, resolve_spec, shard, thread_context, use_thread_context)
 from repro_torch.models import layers as ll
 from repro_torch.models import mamba2, moe
 from repro_torch.models.config import ModelConfig
@@ -321,8 +330,9 @@ def _ffn(cfg: ModelConfig, p: dict, x: torch.Tensor, matmul=None):
     return shard(x + out.to(x.dtype), "batch", "saved_seq", "act_embed")
 
 
-def layer_slice(tree, i: int):
-    """Layer ``i`` of a stacked subtree: every leaf indexed on its leading axis."""
+def layer_slice(tree, i: int | slice):
+    """Layer ``i`` (or the layers of a slice) of a stacked subtree: every leaf
+    indexed on its leading axis."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
     return tree[i]
@@ -334,18 +344,85 @@ def _n_groups(params: dict) -> int:
     return params["stack"]["p0"]["wq"].shape[0]
 
 
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of ``cfg.remat == "dots"``: jax's
+    ``dots_with_no_batch_dims_saveable``, matmuls without a batch dimension
+    (``mm``, ``addmm``: a weight GEMM) kept, everything else recomputed."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _needs_grad(*trees) -> bool:
+    def any_leaf(t):
+        if isinstance(t, dict):
+            return any(any_leaf(v) for v in t.values())
+        if isinstance(t, (tuple, list)):
+            return any(any_leaf(v) for v in t)
+        return isinstance(t, torch.Tensor) and t.requires_grad
+    return torch.is_grad_enabled() and any(any_leaf(t) for t in trees)
+
+
+def _maybe_remat(cfg: ModelConfig, fn):
+    """``fn(x, *args)`` (a layer-group body whose first output is the next
+    ``x``) under ``cfg.remat`` where a backward will run through it, as the
+    reference's ``_maybe_remat``; ``fn`` itself elsewhere."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat not in ("full", "dots"):
+        raise ValueError(f"remat {cfg.remat!r} not in ('none', 'full', 'dots')")
+
+    def body(x, *args):
+        if not _needs_grad(x, args):
+            return fn(x, *args)
+        from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+        from repro_torch.kernels import dispatch
+
+        ctx = (functools.partial(create_selective_checkpoint_contexts, _dots_saveable)
+               if cfg.remat == "dots" else None)
+        mesh = current_mesh()
+        ax = (resolve_spec(("saved_seq",)) or (None,))[0] if mesh is not None else None
+        split = ax is not None and mesh.extent(ax) > 1 and x.shape[1] % mesh.extent(ax) == 0
+        # The recompute runs in the backward, on autograd's device thread for
+        # card tensors: it re-enters the forward's rules, mesh, batch rows
+        # and SPMD region, which are thread-local.
+        where = (thread_context(), dispatch.region_context())
+
+        def run(xb, *a):
+            with use_thread_context(where[0]), dispatch.use_region_context(where[1]):
+                return fn(coll.gather_blocks(xb, mesh, ax, 1) if split else xb, *a)
+
+        if split:
+            x = coll.keep_block(x, mesh, ax, 1)
+        kw = {"context_fn": ctx} if ctx is not None else {}
+        return checkpoint(run, x, *args, use_reentrant=False, preserve_rng_state=False, **kw)
+
+    return body
+
+
 # ------------------------------------------------------- attention families --
 def _attn_stack_prefill(cfg: ModelConfig, params: dict, x: torch.Tensor,
                         positions: torch.Tensor, matmul=None, want_cache=False):
     g = group_size(cfg)
     caches = [[] for _ in range(g)]
-    for li in range(_n_groups(params)):
-        gp = layer_slice(params["stack"], li)
+
+    def group_body(x, gp):
+        out = []
         for i in range(g):
             p = gp[f"p{i}"]
             x, cache = attn_block_prefill(cfg, p, x, positions, cfg.is_global_layer(i),
                                           matmul, want_cache=want_cache)
             x = _ffn(cfg, p, x, matmul)
+            out.append(cache)
+        return x, out
+
+    body = _maybe_remat(cfg, group_body)
+    for li in range(_n_groups(params)):
+        x, out = body(x, layer_slice(params["stack"], li))
+        for i, cache in enumerate(out):
             caches[i].append(cache)
     if not want_cache:
         return x, None
@@ -417,11 +494,17 @@ def _mamba_layer_decode(cfg: ModelConfig, p: dict, ln: dict, x: torch.Tensor, st
     return x + out[:, None].to(x.dtype)
 
 
-def _mamba_stack_prefill(cfg, mamba_p: dict, lns: dict, x, matmul, want_state):
+def _mamba_stack_prefill(cfg, mamba_p: dict, lns: dict, x, matmul, want_state,
+                         remat: bool = False):
     states = []
+
+    def layer(x, p, ln):
+        return _mamba_layer_prefill(cfg, p, ln, x, matmul)
+
+    if remat:
+        layer = _maybe_remat(cfg, layer)
     for li in range(mamba_p["wz"].shape[0]):
-        x, st = _mamba_layer_prefill(cfg, layer_slice(mamba_p, li), layer_slice(lns, li), x,
-                                     matmul)
+        x, st = layer(x, layer_slice(mamba_p, li), layer_slice(lns, li))
         if want_state:      # a conv ring is a view: keeping it keeps its whole input
             states.append(st)
     return x, (_stack_states(states) if want_state else None)
@@ -436,7 +519,8 @@ def _mamba_stack_decode(cfg, mamba_p: dict, lns: dict, x, states, matmul):
 
 def _ssm_stack_prefill(cfg: ModelConfig, params: dict, x: torch.Tensor, matmul=None,
                        want_state=False):
-    return _mamba_stack_prefill(cfg, params["mamba"], params["ln"], x, matmul, want_state)
+    return _mamba_stack_prefill(cfg, params["mamba"], params["ln"], x, matmul, want_state,
+                                remat=True)
 
 
 def _ssm_stack_decode(cfg: ModelConfig, params: dict, x: torch.Tensor, states,
@@ -469,17 +553,26 @@ def _hybrid_prefill(cfg: ModelConfig, params: dict, x: torch.Tensor, positions: 
     g = group_size(cfg)
     n_sites = cfg.n_layers // g
     main_states, caches = [], []
-    for site in range(n_sites):
+
+    def site_body(x, site, mamba_p, lns, lora_a, lora_b):
+        states = []
         for j in range(g):
-            li = site * g + j
-            x, st = _mamba_layer_prefill(cfg, layer_slice(params["mamba"], li),
-                                         layer_slice(params["ln"], li), x, matmul)
-            if want_cache:
-                main_states.append(st)
-        sp, merged, lora = _shared_block(params, site)
-        x, cache = attn_block_prefill(cfg, merged, x, positions, True, matmul, lora=lora,
-                                      want_cache=want_cache)
-        x = _shared_mlp(cfg, sp, x, matmul)
+            x, st = _mamba_layer_prefill(cfg, layer_slice(mamba_p, j), layer_slice(lns, j), x,
+                                         matmul)
+            states.append(st if want_cache else None)
+        sp, merged, _ = _shared_block(params, site)
+        x, cache = attn_block_prefill(cfg, merged, x, positions, True, matmul,
+                                      lora=(lora_a, lora_b), want_cache=want_cache)
+        return _shared_mlp(cfg, sp, x, matmul), states, cache
+
+    body = _maybe_remat(cfg, site_body)
+    for site in range(n_sites):
+        rows = slice(site * g, (site + 1) * g)
+        x, states, cache = body(
+            x, site, layer_slice(params["mamba"], rows), layer_slice(params["ln"], rows),
+            params["lora_a"][site], params["lora_b"][site])
+        if want_cache:
+            main_states += states
         caches.append(cache)
     tail = None
     if "mamba_tail" in params:

@@ -23,7 +23,10 @@ LSE_ATOL_ULPS ulps of max(1, max|lse|), m + log(den) in another order; the
 flash backward's gradients against plain autograd through
 ``_flash_fwd_impl`` to GRAD_REL of each gradient's largest magnitude, and so
 are one VGG train step's gradients on the card against the CPU's (identical
-spikes, another order of the backward's sums).
+spikes, another order of the backward's sums). The decode attention kernel
+is held to its plain version per element, within one ulp of |want| in
+its dtype plus DECODE_ATOL_ULPS float32 ulps of max|V|, and a rank's rows and heads run
+alone bitwise the whole call's.
 """
 from __future__ import annotations
 
@@ -1489,3 +1492,113 @@ def test_gradient_collectives_and_send_recv_on_card_tensors(dev):
     np.testing.assert_array_equal(out[1]["recv"], (np.arange(6, dtype=np.float32)
                                                    .reshape(2, 3) + 0.5) * 3)
     assert out[1]["recv_device"].startswith("cuda")
+
+
+# ------------------------------------------------------ decode attention ---
+# (B, Smax, Hq, Hkv, D, mode, dtype): GQA, a cache length no chunk of 64
+# divides, head sizes 64, 120 and 128, bf16 and f32 caches.
+DECODE_CASES = {
+    "full_f32": (4, 200, 8, 2, 64, "full", torch.float32),
+    "full_bf16": (4, 256, 16, 16, 128, "full", torch.bfloat16),
+    "ring_f32": (3, 96, 4, 4, 120, "ring", torch.float32),
+    "ring_bf16": (2, 130, 8, 1, 128, "ring", torch.bfloat16),
+    "chunk_f32": (3, 64, 4, 2, 64, "chunk_ring", torch.float32),
+    "chunk_bf16": (2, 100, 8, 8, 128, "chunk_ring", torch.bfloat16),
+}
+# Each output is a convex combination of V rows, summed in float32 in another
+# order than the plain version's (within DECODE_ATOL_ULPS float32 ulps of
+# max|V|) and rounded once to its dtype (one ulp of |want| apart at most).
+DECODE_ATOL_ULPS = 16
+
+
+def _decode_inputs(B, S, Hq, Hkv, D, mode, dtype, dev, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, 1, Hq, D), generator=g).to(dtype)
+    k = torch.randn((B, S, Hkv, D), generator=g).to(dtype)
+    v = torch.randn((B, S, Hkv, D), generator=g).to(dtype)
+    hi = 2 * S if mode != "full" else S
+    pos = torch.randint(0, hi, (B,), generator=g)
+    pos[0] = 0 if mode == "full" else S + 5     # one key; a filled ring
+    return q.to(dev), k.to(dev), v.to(dev), pos.to(dev)
+
+
+def _decode_tol(want, v):
+    """Per element: one ulp of |want| in its dtype plus DECODE_ATOL_ULPS
+    float32 ulps of max|V|."""
+    w = want.float().abs()
+    ulp = torch.ldexp(torch.full_like(w, torch.finfo(want.dtype).eps),
+                      torch.frexp(w).exponent - 1)
+    return torch.where(w > 0, ulp, 0.0) + DECODE_ATOL_ULPS * 2.0 ** -24 * float(
+        v.float().abs().max())
+
+
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_decode_attention_kernel_matches_plain(dev, case):
+    from repro_torch.kernels.decode_attention import (decode_attention_cuda,
+                                                      decode_attention_plain)
+
+    B, S, Hq, Hkv, D, mode, dtype = DECODE_CASES[case]
+    q, k, v, pos = _decode_inputs(B, S, Hq, Hkv, D, mode, dtype, dev)
+    before = decode_attention_cuda.launches
+    got = decode_attention_cuda(q, k, v, pos, mode=mode)
+    torch.cuda.synchronize()
+    assert decode_attention_cuda.launches == before + 1 and got.dtype == dtype
+    want = decode_attention_plain(q, k, v, pos, mode=mode)
+    assert torch.isfinite(got).all()
+    assert bool(((got.float() - want.float()).abs() <= _decode_tol(want, v)).all())
+
+
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_decode_attention_a_ranks_block_is_the_whole_calls(dev, case):
+    """Rows [1, 3) and the second half of the Q heads (their KV heads), run
+    alone: bitwise that block of the whole call."""
+    from repro_torch.kernels.decode_attention import decode_attention_cuda
+
+    B, S, Hq, Hkv, D, mode, dtype = DECODE_CASES[case]
+    q, k, v, pos = _decode_inputs(B, S, Hq, Hkv, D, mode, dtype, dev, seed=1)
+    whole = decode_attention_cuda(q, k, v, pos, mode=mode)
+    h0, kv0 = Hq // 2, Hkv // 2 if Hkv > 1 else 0
+    kv1 = Hkv if Hkv > 1 else 1
+    rows = slice(1, min(3, B))
+    part = decode_attention_cuda(q[rows, :, h0:].contiguous(), k[rows, :, kv0:kv1].contiguous(),
+                                 v[rows, :, kv0:kv1].contiguous(), pos[rows], mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(part, whole[rows, :, h0:])
+
+
+def test_decode_attention_plan_is_the_kernels(dev):
+    import ctypes
+
+    from repro_torch.kernels.decode_attention import plan
+
+    lib = _build.library()
+    for smax, D in ((200, 64), (32768, 128), (64, 120), (1, 256)):
+        buf = (ctypes.c_longlong * 5)()
+        assert lib.decode_attention_plan(smax, D, ctypes.addressof(buf)) == 0
+        p = plan(smax, D)
+        assert list(buf) == [p["chunk"], p["threads"], p["chunks"], p["smem_bytes"],
+                             p["ws_floats"]]
+
+
+@pytest.mark.parametrize("S,window,bq,bkv", [(2048, 300, 64, 128), (1100, 64, 32, 64)])
+def test_windowed_prefill_kernel_matches_the_banded_plain_path(dev, S, window, bq, bkv):
+    """The dense kernel walks only the band's kv-blocks: against the plain
+    banded ``layers.flash_attention`` within ATTN_ATOL_ULPS ulps of max|V|,
+    and each (row, head) block bitwise the whole call's."""
+    from repro_torch.models import layers as ll
+
+    g = torch.Generator().manual_seed(S)
+    q, k, v = (torch.randn((2, S, 4, 64), generator=g) for _ in range(3))
+    got = flash_attention_cuda(q.to(dev), k.to(dev), v.to(dev), causal=True, window=window,
+                               block_q=bq, block_kv=bkv)
+    part = flash_attention_cuda(q[1:, :, 2:].contiguous().to(dev),
+                                k[1:, :, 2:].contiguous().to(dev),
+                                v[1:, :, 2:].contiguous().to(dev), causal=True, window=window,
+                                block_q=bq, block_kv=bkv)
+    torch.cuda.synchronize()
+    want = ll.flash_attention(q, k, v, window=window, block_q=min(512, S),
+                              block_kv=min(1024, S)) if S % 512 == 0 else \
+        ll.attention_dense(q, k, v, causal=True, window=window)
+    atol = ATTN_ATOL_ULPS * 2.0 ** -24 * float(v.abs().max())
+    assert float((got.cpu() - want).abs().max()) <= atol
+    assert torch.equal(part, got[1:, :, 2:])

@@ -211,7 +211,9 @@ def test_param_shardings_place_the_phi_state_as_the_gemm_reads_it(mesh):
     """OLMo smoke in Phi mode under SERVE_RULES: each leaf off the GEMMs as
     the reference's specs_to_shardings; each GEMM weight and its Phi state
     as the reference's shard_map in-specs (``_phi_sharded_matmul``): weight
-    (k_ax, n_ax), patterns (k_ax,), bank (k_ax, None, n_ax), usage whole."""
+    (k_ax, n_ax), patterns (k_ax,), usage whole; the bank stored as the
+    reference stores it, its K-partitions over ``pwp_tiles`` (``data``)
+    within K's block, (k_ax + data, None, n_ax), gathered at each call."""
     grid = _grid(*mesh)
     cfg, rcfg = (phi_variant(get_config("olmo_1b", smoke=True), 2, 16),
                  ref_phi_variant(ref_get_config("olmo_1b", smoke=True), 2, 16))
@@ -233,7 +235,11 @@ def test_param_shardings_place_the_phi_state_as_the_gemm_reads_it(mesh):
         w = _at(model.lm_specs(cfg), path[:-2] + (weight,)) if name != weight else spec
         k_ax = ax(model._WEIGHT_AXES[weight][0], w.shape[-2])
         n_ax = ax(model._WEIGHT_AXES[weight][1], w.shape[-1])
-        want = {"patterns": (None, k_ax), "pwp": (None, k_ax, None, n_ax),
+        t_ax = k_ax
+        if name != weight and (spec.shape[-3] // (1 if k_ax is None else grid.shape[k_ax])) \
+                % grid.shape["data"] == 0:
+            t_ax = "data" if k_ax is None else (k_ax, "data")
+        want = {"patterns": (None, k_ax), "pwp": (None, t_ax, None, n_ax),
                 "usage": ()}.get(path[-1], (None, k_ax, n_ax))
         want = list(want)
         while want and want[-1] is None:
@@ -447,6 +453,28 @@ def test_mesh_prefill_and_decode_equal_one_device_bitwise(world):
         for step, (got, want) in enumerate(zip(lm["policy"], single)):
             assert got.shape == want.shape == (2, world["cfg"].vocab)
             assert np.array_equal(got, want), (r, step, np.abs(got - want).max())
+
+
+def test_split_banks_give_the_replicated_banks_steps_bitwise(world):
+    """Under SERVE_RULES each rank stores its PWP banks split over data
+    (``pwp_tiles``) and gathers them at each Phi GEMM: the prefill and decode
+    steps equal, bitwise, those from the banks gathered whole over data
+    beforehand (``pwp_tiles=None``), and each stored bank holds 1 / data of
+    the K-partitions its patterns cover where data divides them."""
+    for out in world["ranks"]:
+        lm = out["lm"]
+        assert len(lm["replicated_banks"]) == len(lm["policy"])
+        for got, want in zip(lm["policy"], lm["replicated_banks"]):
+            assert np.array_equal(got, want)
+        data = dict(zip(MESHES[0][1], MESHES[0][0]))["data"]
+        split = 0
+        for stored, whole, pats in lm["bank_shapes"].values():
+            assert whole[-3] == pats[-3]
+            # split where data divides the rank's K-partitions (wq..w3, w2),
+            # whole where it does not (wo: one partition a model rank)
+            assert stored[-3] == (pats[-3] // data if pats[-3] % data == 0 else pats[-3])
+            split += stored[-3] < pats[-3]
+        assert split >= 6
 
 
 def test_mesh_logits_equal_one_device_bitwise_at_many_rows(world):

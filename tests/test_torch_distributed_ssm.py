@@ -457,30 +457,51 @@ def test_param_shardings_place_the_mamba_phi_state(shape):
     per-rank body reads them. wz, wx, wdt column-parallel (weight and bank
     columns over ``model``, patterns whole); wo row-parallel (weight rows,
     patterns and bank K-partitions over ``model``); wB, wC whole; usage
-    whole; the per-head leaves and ``conv_x`` over ``model``, ``conv_B``
-    and ``conv_C`` whole; ``lora_b`` over the heads, ``lora_a`` whole."""
+    whole; each bank's K-partitions also over ``data`` within K's block
+    where data divides them (``pwp_tiles``, gathered at each call); the
+    per-head leaves and ``conv_x`` over ``model``, ``conv_B`` and
+    ``conv_C`` whole; ``lora_b`` over the heads, ``lora_a`` whole."""
     cfg = phi_variant(get_config("zamba2_1p2b", smoke=True).with_(tp=shape[1]), 2, 16)
     placed = model.param_shardings(cfg, _grid(shape), shd.SERVE_RULES)
+    specs = model.lm_specs(cfg)["decoder"]
     dec = placed["decoder"]
     m = "model"
+
+    def tiles(k_ax, bank):
+        T = bank.shape[-3] // (1 if k_ax is None else shape[1])
+        if T % shape[0]:
+            return k_ax
+        return "data" if k_ax is None else (k_ax, "data")
+
+    def trim(p):
+        p = list(p)
+        while p and p[-1] is None:
+            p.pop()
+        return tuple(p)
+
     for stack in ("mamba", "mamba_tail"):
-        st = dec[stack]
+        st, sp = dec[stack], specs[stack]
         for name in ("wz", "wx", "wdt"):
             assert st[name] == (None, None, m)
-            assert st["phi_" + name] == {"patterns": (), "pwp": (None, None, None, m),
-                                         "usage": ()}
+            assert st["phi_" + name] == {
+                "patterns": (), "pwp": (None, tiles(None, sp["phi_" + name]["pwp"]), None, m),
+                "usage": ()}
         assert st["wo"] == (None, m)
-        assert st["phi_wo"] == {"patterns": (None, m), "pwp": (None, m), "usage": ()}
+        assert st["phi_wo"] == {"patterns": (None, m),
+                                "pwp": trim((None, tiles(m, sp["phi_wo"]["pwp"]))),
+                                "usage": ()}
         for name in ("wB", "wC"):
-            assert st[name] == () and st["phi_" + name] == {"patterns": (), "pwp": (),
-                                                            "usage": ()}
+            assert st[name] == () and st["phi_" + name] == {
+                "patterns": (), "pwp": trim((None, tiles(None, sp["phi_" + name]["pwp"]))),
+                "usage": ()}
         for name in ("A_log", "D", "dt_bias", "norm_w"):
             assert st[name] == (None, m)
         assert st["conv_x"] == (None, None, m)
         assert st["conv_B"] == st["conv_C"] == ()
     assert dec["lora_a"] == () and dec["lora_b"] == (None, None, m)
     assert dec["shared"]["attn"]["wo"] == (m,)
-    assert dec["shared"]["attn"]["phi_wo"]["pwp"] == (m,)
+    assert dec["shared"]["attn"]["phi_wo"]["pwp"] == (
+        tiles(m, specs["shared"]["attn"]["phi_wo"]["pwp"]),)
 
 
 @pytest.mark.parametrize("shape", MESHES, ids=lambda s: "x".join(map(str, s)))

@@ -321,6 +321,24 @@ def test_mesh_step_matches_one_device_leaf_by_leaf(world, name):
             np.testing.assert_allclose(out["dense"]["losses"], single["losses"], rtol=1e-5)
 
 
+def test_rematerialised_mesh_step_keeps_a_sequence_block_and_matches_one_device(world):
+    """``cfg.remat = "full"`` on (data 4, model 2) under TRAIN_RULES: each
+    layer group recomputed in the backward from its input, kept as the
+    rank's block of the sequence over ``saved_seq`` (model) and gathered in
+    the body; step 1's loss and every gathered gradient leaf within the
+    dense step's tolerances of one device's (no remat)."""
+    single = world["single"]["dense"]
+    for r, out in enumerate(world["ranks"]):
+        got = out["dense_remat"]
+        assert abs(got["loss"] - single["loss"]) < LOSS_TOL, (r, got["loss"])
+        grads = dict(_flat(got["grads"]))
+        assert sorted(grads) == sorted(single["grads"])
+        for key, g in grads.items():
+            assert _rel(g, single["grads"][key]) < GRAD_REL, (r, key)
+        for key, a in _flat(got["after"]):
+            assert float(np.abs(a - single["after"][key]).max()) < PARAM_TOL, (r, key)
+
+
 def test_replicated_leaves_stay_bitwise_equal_across_ranks(world):
     """After 3 steps, every rank holding the same block of a leaf (its
     replicas over the axes the leaf is not split over) holds the same bits.

@@ -223,7 +223,8 @@ def test_cli_writes_the_cell_and_the_example_prints_its_roofline(tmp_path, monke
     decode = row.split(" | ")[3].split(" / ")
     gib = 2 ** 30
     assert decode[:2] == ["-", "-"] and decode[3] == "-"
-    assert decode[2] == (f"M {rec['memory']['argument_bytes'] / gib:.1f}"
+    letter = {"compute": "C", "memory": "M", "collective": "N"}[rec["roofline"]["bottleneck"]]
+    assert decode[2] == (f"{letter} {rec['memory']['argument_bytes'] / gib:.1f}"
                          f"+{rec['memory']['temp_bytes'] / gib:.0f}")
 
 

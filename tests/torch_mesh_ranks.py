@@ -136,6 +136,14 @@ def lm_rank(rank: int, shape, axes, cfg, params, batch, steps, prompts, serve_kw
     coo = cfg.with_(phi=dataclasses.replace(cfg.phi, impl="coo"))
     out["coo"], _ = decode_run(coo, params, batch, steps, mesh)
     out["builders"], out["builder_placements"] = builders_run(cfg, params, batch, mesh)
+    # the banks as stored under SERVE_RULES (split over data) and gathered
+    # whole over data (pwp_tiles=None): the same steps, bitwise
+    whole = _whole_banks(params, mesh)
+    out["replicated_banks"], _ = decode_run(cfg, whole, batch, steps, mesh)
+    out["bank_shapes"] = {k: (tuple(params_w["pwp"].shape), tuple(whole_w["pwp"].shape),
+                              tuple(params_w["patterns"].shape))
+                          for k, params_w, whole_w in _phi_entries(params, whole)}
+    del whole
     out["wide"], _ = decode_run(cfg, params, wide, 1, mesh)
     out["wide_paged"] = paged_decode_run(cfg, params, wide, 4, mesh)
     out["decisions"] = pol.decisions()
@@ -147,6 +155,35 @@ def lm_rank(rank: int, shape, axes, cfg, params, batch, steps, prompts, serve_kw
                                      **kw)
                     for name, kw in PAGED_RUNS.items()}
     out["stats"] = {k: list(v) for k, v in mesh.stats.items()}
+    return out
+
+
+def _phi_entries(a, b, path=""):
+    """(path, a's phi_* entry, b's) of two params trees of one structure."""
+    for k, v in a.items():
+        if k.startswith("phi_"):
+            yield f"{path}/{k}", v, b[k]
+        elif isinstance(v, dict):
+            yield from _phi_entries(v, b[k], f"{path}/{k}")
+
+
+def _whole_banks(node, mesh):
+    """A rank's params with each PWP bank stored split over data (fewer
+    K-partitions than its patterns) all-gathered whole over data: the
+    placement of ``dict(SERVE_RULES, pwp_tiles=None)``."""
+    from repro_torch.distributed import collectives as coll
+
+    out = {}
+    for k, v in node.items():
+        if k.startswith("phi_") and v["pwp"].shape[-3] != v["patterns"].shape[-3]:
+            out[k] = dict(v, pwp=coll.all_gather(v["pwp"], mesh, "data", v["pwp"].dim() - 3))
+            if "pwp_scale" in v:
+                out[k]["pwp_scale"] = coll.all_gather(v["pwp_scale"], mesh, "data",
+                                                      v["pwp_scale"].dim() - 2)
+        elif isinstance(v, dict):
+            out[k] = _whole_banks(v, mesh)
+        else:
+            out[k] = v
     return out
 
 
@@ -452,6 +489,10 @@ def train_world(rank: int, dense_args: tuple, phi_args: tuple, inputs: dict, tmp
             "dense_dp": train_steps(*dense_args, mesh=mesh, steps=3,
                                     rules=dict(TRAIN_RULES, fsdp=None)),
             "phi": train_steps(*phi_args, mesh=mesh, steps=1),
+            # cfg.remat "full": each layer group checkpointed, its input kept as
+            # the rank's block of the sequence over saved_seq (model)
+            "dense_remat": train_steps(dense_args[0].with_(remat="full"), *dense_args[1:],
+                                       mesh=mesh, steps=1),
             "compressed": compressed_run(inputs),
             "pipeline": pipeline_run(inputs),
             "checkpoint": checkpoint_run(f"{tmp}/elastic"),
