@@ -1941,8 +1941,9 @@ def lm_timings(cfg, params, batch, dev) -> dict:
 
 def lm_serve_rows(runs, times, requests) -> dict:
     """Per engine run: wall s, ticks, tokens (the first token of each of its
-    ``requests[name]`` requests comes from its prefill), tokens/s, decode ms
-    a tick, scheduler decisions and cache bytes."""
+    ``requests[name]`` requests comes from its prefill), tokens/s, the mean
+    gap between a request's consecutive tokens, scheduler decisions and
+    cache bytes."""
     rows = {}
     for name, (eng, _) in runs.items():
         hist = eng.metrics.get("token_latency_ms")
@@ -1950,7 +1951,7 @@ def lm_serve_rows(runs, times, requests) -> dict:
         tokens = eng.decoded_tokens + requests[name]
         rows[name] = {"wall_s": wall, "ticks": eng.ticks, "decoded_tokens": eng.decoded_tokens,
                       "tokens": tokens, "tokens_per_s": tokens / wall,
-                      "decode_ms_per_tick": hist.sum() / max(eng.ticks, 1),
+                      "token_gap_ms_mean": hist.sum() / max(hist.count(), 1),
                       "scheduler": eng.scheduler.report(), "cache": eng.cache_report()}
     return rows
 

@@ -24,8 +24,10 @@ through a mesh engine; rank 0 reports.
 Observability: ``--trace-out`` streams the request lifecycle + dispatch
 records as deterministic JSONL, ``--metrics-out`` writes the merged metric
 registries (Prometheus text for ``.prom``/``.txt``, JSON otherwise),
-``--obs`` adds wall-time sampling (per-token latency histogram, span
-durations) on top.
+``--obs`` adds wall time on top: the gap between each request's
+consecutive tokens (``serve_token_latency_ms``, one observation per decoded
+token), and on the trace's records ``wall_ms``, span durations, span ids and
+parents and ``start_ns``/``end_ns`` on the profiler's clock.
 """
 from __future__ import annotations
 
@@ -101,9 +103,10 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                          "Prometheus text exposition for .prom/.txt paths, "
                          "JSON snapshot otherwise")
     ap.add_argument("--obs", action="store_true",
-                    help="enable wall-time observation: per-token latency "
-                         "histogram (p50/p99 logged) and wall_ms fields on "
-                         "trace spans")
+                    help="enable wall-time observation: each decoded token's "
+                         "gap since its request's previous token (p50/p99 "
+                         "logged) and wall_ms, durations, ids and start_ns/end_ns "
+                         "on trace records")
     ap.add_argument("--ckpt-dir", default=None,
                     help="serve the params of the newest checkpoint here")
     ap.add_argument("--device", default="cuda",
@@ -209,7 +212,7 @@ def _report(eng, cfg, args, results, dt, tracer, mesh) -> None:
         log.info("collectives (calls, bytes) on rank 0: %s", mesh.stats)
     if args.obs:
         hist = eng.metrics.get("token_latency_ms")
-        log.info("token latency p50 %.3fms p99 %.3fms (%d tokens)",
+        log.info("inter-token gap p50 %.3fms p99 %.3fms (%d decoded tokens)",
                  hist.percentile(50), hist.percentile(99), hist.count())
     registries = [eng.metrics]
     if args.phi:

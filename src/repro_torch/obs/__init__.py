@@ -3,7 +3,8 @@
 Three pillars, one package (port of ``repro/obs``):
 
 * :mod:`repro_torch.obs.trace` — span tracer for the request lifecycle and
-  dispatch decisions, deterministic JSONL via pluggable sinks;
+  dispatch decisions, deterministic JSONL via pluggable sinks, and the
+  program's spans on the profiler's clock while a profiler records;
 * :mod:`repro_torch.obs.metrics` — typed counter/gauge/histogram registry with
   Prometheus-text and JSON snapshot writers, engine-scoped namespaces and
   reset plumbing;

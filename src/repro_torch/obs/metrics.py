@@ -14,11 +14,11 @@ semantics. This module is the one place all of them now live:
   their bucket-count vectors are deterministic functions of the observed
   values (wall-clock histograms are only populated when the caller
   explicitly enables wall-time observation);
-* a registry renders itself as **Prometheus text exposition** format
-  (:meth:`MetricsRegistry.to_prometheus`) and as a **deterministic JSON
-  snapshot** (:meth:`MetricsRegistry.snapshot` — sorted keys, stable label
-  ordering), and :meth:`MetricsRegistry.reset` zeroes values while keeping
-  every registration (the engine-scoped reset plumbing).
+* registries render as **Prometheus text exposition** format
+  (:func:`prometheus_many`) and as a **deterministic JSON snapshot**
+  (:meth:`MetricsRegistry.snapshot`, :func:`snapshot_many` — sorted keys,
+  stable label ordering), and :meth:`MetricsRegistry.reset` zeroes values
+  while keeping every registration (the engine-scoped reset plumbing).
 
 Mutation is thread-safe under one lock per metric. Sums and counts are
 order-independent, so metrics fed from several threads stay deterministic.
@@ -27,7 +27,6 @@ them in only where they are read (its reporting surface flushes first).
 """
 from __future__ import annotations
 
-import json
 import threading
 from typing import Any, Iterable
 
@@ -299,14 +298,6 @@ class MetricsRegistry:
                 entry["edges"] = list(m.edges)
             out[self.full_name(m.name)] = entry
         return out
-
-    def to_json(self) -> str:
-        """The snapshot as a deterministic JSON document (sorted keys)."""
-        return json.dumps(self.snapshot(), sort_keys=True, indent=2)
-
-    def to_prometheus(self) -> str:
-        """Prometheus text exposition format (# HELP / # TYPE / samples)."""
-        return prometheus_many([self])
 
 
 def _prom_labels(labels: dict[str, str], extra: dict[str, str] | None = None

@@ -10,6 +10,13 @@ allocated once on the params' device. Per tick:
   2. one ``decode_step`` advances *all* active slots;
   3. finished slots (EOS / budget) emit results and free up.
 
+Spans (``obs.trace.span``; off, they cost a call and read no clock): the
+tick (``serve.tick``), each prefill to its first token's logits on the host
+(``serve.prefill``), the decode step to its logits on the host
+(``serve.decode_step``), each host sampling (``serve.sample``), and the
+request events ``serve.submit``, ``serve.admit``, ``serve.first_token``,
+``serve.retire``.
+
 Paged KV cache (``paged=True``): full-attention KV leaves live in a shared
 page pool (``serve/page_manager.py``) and each slot holds a page *table*;
 slot memory is O(tokens generated) and decode is bitwise identical to the
@@ -51,7 +58,6 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import math
-import time
 from typing import Any
 
 import numpy as np
@@ -60,6 +66,7 @@ import torch
 from repro_torch.distributed.sharding import SERVE_RULES, local_shape, use_rules
 from repro_torch.models import model
 from repro_torch.models.config import ModelConfig
+from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import DEFAULT_BUCKETS, TICK_BUCKETS, MetricsRegistry
 from repro_torch.obs.trace import Tracer
 from repro_torch.serve.page_manager import PageManager
@@ -126,11 +133,13 @@ class Engine:
                  wall_time: bool = False, matmul=None, mesh=None):
         """Allocate the decode state (dense slots or page pool).
 
-        ``tracer`` records the request lifecycle as spans (obs/trace.py);
-        ``wall_time=True`` additionally samples per-token decode wall time
-        into the ``serve_token_latency_ms`` histogram — off by default so
-        the metric snapshot stays deterministic. Both are host-side only:
-        instrumented runs are bitwise identical to uninstrumented ones.
+        ``tracer`` records the request lifecycle as spans (obs/trace.py),
+        which also go into the profiled record while ``torch.profiler``
+        records; ``wall_time=True`` additionally observes each
+        decoded token's gap since its request's previous token into the
+        ``serve_token_latency_ms`` histogram — off by default so the metric
+        snapshot stays deterministic. Both are host-side only: instrumented
+        runs are bitwise identical to uninstrumented ones.
         """
         if cfg.frontend != "none":
             raise ValueError("the engine serves token-in token-out archs")
@@ -165,9 +174,11 @@ class Engine:
             buckets=TICK_BUCKETS)
         self._m_token_ms = self.metrics.histogram(
             "token_latency_ms",
-            "per-token decode wall latency (wall_time engines only)",
+            "gap between a request's consecutive tokens, one per decoded token, "
+            "stalls by prefills included (wall_time engines only)",
             buckets=DEFAULT_BUCKETS)
         self._admit_tick = [0] * batch_slots
+        self._token_ns = [0] * batch_slots      # when each slot's last token came
         self.record_logits = record_logits
         self.logit_trace: dict[int, list[np.ndarray]] = {}
         # Right-padding is exact only for causal full attention (see module
@@ -212,16 +223,19 @@ class Engine:
         """Tokens decoded so far (thin view over ``serve_decoded_tokens``)."""
         return int(self._m_decoded.get())
 
-    def _emit(self, kind: str, **attrs: Any) -> None:
-        """Tracer event carrying the current tick counter (no-op untraced)."""
+    def _event(self, name: str, **attrs: Any) -> None:
+        """A request event (``obs.trace.event``); the tracer's record carries
+        the current tick counter."""
         if self.tracer is not None:
-            self.tracer.emit(kind, tick=self.ticks, **attrs)
+            attrs["tick"] = self.ticks
+        obs_trace.event(name, self.tracer, **attrs)
 
-    def _span(self, kind: str, **attrs: Any):
-        """Tracer span (emit-on-exit) or a null context when untraced."""
-        if self.tracer is None:
-            return contextlib.nullcontext()
-        return self.tracer.span(kind, tick=self.ticks, **attrs)
+    def _span(self, name: str, **attrs: Any):
+        """A span around engine work (``obs.trace.span``); the tracer's
+        record carries the tick counter at its start."""
+        if self.tracer is not None:
+            attrs["tick"] = self.ticks
+        return obs_trace.span(name, self.tracer, **attrs)
 
     def _ctx(self):
         """The context of the model calls: on a mesh, its serving rules (the
@@ -279,13 +293,16 @@ class Engine:
                 f"max_context or truncate the prompt")
         self.queue.append(req)
         self._m_submitted.inc()
-        self._emit("submit", rid=req.rid, prompt_len=plen)
+        self._event("serve.submit", rid=req.rid, prompt_len=plen)
 
     # ----------------------------------------------------------------- tick
-    def _admit(self) -> None:
+    def _admit(self) -> int:
+        """Admit queued requests into free slots; returns how many were
+        prefilled."""
         free = [s for s in range(self.B) if not self.active[s]]
         if not free or not self.queue:
-            return
+            return 0
+        admitted = 0
         # Non-phi models have no dispatch sites of their own: pin FIFO via an
         # empty snapshot so leftover telemetry from other models served in
         # this process can never steer their admission order.
@@ -305,27 +322,30 @@ class Engine:
                     Result(req.rid, list(req.prefix), len(req.tokens)))
                 self.scheduler.note("retire_context_full")
                 self._m_retired.inc()
-                self._emit("retire", rid=req.rid, reason="context_full",
-                           tokens=len(req.prefix))
+                self._event("serve.retire", rid=req.rid, reason="context_full",
+                            tokens=len(req.prefix))
                 continue
             if self.paged:
                 bl = bucket_len(plen, self.max_context)
                 if not self.pm.reserve_prefill(free[0], bl):
                     # Pool dry: stop admitting, put the rest back in order.
                     self.scheduler.note("admit_blocked_pool")
-                    self._emit("admit_blocked", rid=req.rid)
+                    self._event("serve.admit_blocked", rid=req.rid)
                     picks.insert(0, req)
                     break
             self._admit_one(free.pop(0), req, prompt)
+            admitted += 1
         if picks:
             self.queue[:0] = picks
+        return admitted
 
     def _admit_one(self, slot: int, req: Request, prompt: np.ndarray) -> None:
         plen = len(prompt)
         bl = bucket_len(plen, self.max_context) if self.bucketed else plen
-        self._emit("resume" if req.prefix else "admit", rid=req.rid,
-                   slot=slot, prompt_len=plen, bucket=bl)
-        with self._span("prefill", rid=req.rid, slot=slot, bucket=bl):
+        self._event("serve.resume" if req.prefix else "serve.admit", rid=req.rid,
+                    slot=slot, prompt_len=plen, bucket=bl)
+        # to the first token's logits on the host: the copy waits for the card
+        with self._span("serve.prefill", rid=req.rid, slot=slot, bucket=bl, prompt_len=plen):
             tokens = np.zeros((1, bl), np.int32)
             tokens[0, :plen] = prompt
             batch = {"tokens": torch.as_tensor(tokens, device=self.device)}
@@ -337,13 +357,18 @@ class Engine:
                 else:
                     logits, new_state = model.prefill(self.cfg, self.params, batch,
                                                       matmul=self.matmul)
-        if self.paged:
-            n = max(1, -(-bl // self.pm.page_size))
-            self._splice(new_state, self.pm.tables[slot, :n].copy())
-        else:
-            self._insert(model.extend_caches(self.cfg, new_state, self.max_context), slot)
-        logits = logits.to(torch.float32).cpu()
-        first = sample(logits, self.gen, temperature=req.temperature)
+            if self.paged:
+                n = max(1, -(-bl // self.pm.page_size))
+                self._splice(new_state, self.pm.tables[slot, :n].copy())
+            else:
+                self._insert(model.extend_caches(self.cfg, new_state, self.max_context), slot)
+            logits = logits.to(torch.float32).cpu()
+        with self._span("serve.sample", rows=1, rid=req.rid):
+            first = sample(logits, self.gen, temperature=req.temperature)
+        if not req.prefix:
+            self._event("serve.first_token", rid=req.rid, slot=slot)
+        if self.wall_time:
+            self._token_ns[slot] = obs_trace.now_ns()
         if self.record_logits:
             self.logit_trace.setdefault(req.rid, []).append(logits[0].numpy())
         self.out_tokens[slot] = [int(first[0])]
@@ -362,8 +387,8 @@ class Engine:
         self.queue.insert(0, req)
         self.scheduler.note("requeue_preempted")
         self._m_preempted.inc()
-        self._emit("preempt", rid=req.rid, slot=slot,
-                   generated=len(self.out_tokens[slot]))
+        self._event("serve.preempt", rid=req.rid, slot=slot,
+                    generated=len(self.out_tokens[slot]))
         self.pm.release(slot)
         self.active[slot] = False
         self.slot_req[slot] = None
@@ -404,41 +429,46 @@ class Engine:
                 # their own admit/preempt spans.
                 lat = self.ticks - self._admit_tick[slot]
                 self._m_latency_ticks.observe(lat)
-                self._emit("retire", rid=req.rid, slot=slot,
-                           tokens=len(req.prefix) + len(toks),
-                           latency_ticks=lat)
+                self._event("serve.retire", rid=req.rid, slot=slot,
+                            tokens=len(req.prefix) + len(toks),
+                            latency_ticks=lat)
 
     def tick(self) -> bool:
         """One engine iteration; returns False when fully idle."""
-        with torch.no_grad():
-            return self._tick()
+        with torch.no_grad(), self._span("serve.tick") as span:
+            return self._tick(span)
 
-    def _tick(self) -> bool:
-        self._admit()
+    def _tick(self, span) -> bool:
+        admitted = self._admit()
         if self.paged:
             self._ensure_pages()
         if not self.active.any():
+            span.set(admitted=admitted, rows=0)
             return bool(self.queue)
         last = np.array([self.out_tokens[b][-1] if self.active[b] else 0
                          for b in range(self.B)], np.int32)
         last_t = torch.as_tensor(last, device=self.device)
         pos = torch.as_tensor(self.pos.astype(np.int32), device=self.device)
         n_active = int(self.active.sum())
-        t0 = time.perf_counter() if self.wall_time else 0.0
-        with self._ctx():
-            if self.paged:
-                table = torch.as_tensor(self.pm.tables, device=self.device)
-                logits, self.pools = model.decode_step_paged(
-                    self.cfg, self.params, last_t, pos, self.pools, table, matmul=self.matmul)
-            else:
-                logits, self.state = model.decode_step(self.cfg, self.params, last_t, pos,
-                                                       self.state, matmul=self.matmul)
-        logits = logits.to(torch.float32).cpu()       # waits for the card
+        span.set(admitted=admitted, rows=n_active)
+        with self._span("serve.decode_step", rows=n_active):
+            with self._ctx():
+                if self.paged:
+                    table = torch.as_tensor(self.pm.tables, device=self.device)
+                    logits, self.pools = model.decode_step_paged(
+                        self.cfg, self.params, last_t, pos, self.pools, table,
+                        matmul=self.matmul)
+                else:
+                    logits, self.state = model.decode_step(self.cfg, self.params, last_t, pos,
+                                                           self.state, matmul=self.matmul)
+            logits = logits.to(torch.float32).cpu()       # waits for the card
         # Per-slot temperatures: a sampled request batched next to a greedy
         # one must not perturb the greedy stream.
         temps = np.array([r.temperature if r is not None else 0.0
                           for r in self.slot_req], np.float32)
-        nxt = sample(logits, self.gen, temperature=temps).numpy()
+        with self._span("serve.sample", rows=n_active):
+            nxt = sample(logits, self.gen, temperature=temps).numpy()
+        now = obs_trace.now_ns() if self.wall_time else 0
         if self.record_logits:
             logits_np = logits.numpy()
             for b in range(self.B):
@@ -451,14 +481,10 @@ class Engine:
                 self.out_tokens[b].append(int(nxt[b]))
                 self.pos[b] += 1
                 decoded += 1
-        if self.wall_time and decoded:
-            # The copy of the logits above synchronised the card, so the
-            # window covers the decode step; one observation per token keeps
-            # the histogram's count equal to decoded_tokens.
-            per_tok_ms = (time.perf_counter() - t0) * 1e3 / decoded
-            for _ in range(decoded):
-                self._m_token_ms.observe(per_tok_ms)
-        self._emit("decode", active=n_active, tokens=decoded)
+                if self.wall_time:
+                    self._m_token_ms.observe((now - self._token_ns[b]) / 1e6)
+                    self._token_ns[b] = now
+        self._event("serve.decode", active=n_active, tokens=decoded)
         self._m_decoded.inc(decoded)
         self._m_ticks.inc()
         self._retire()
@@ -505,12 +531,6 @@ class Engine:
         if include_policy:
             from repro_torch.kernels import dispatch
             dispatch.get_policy().reset(keep_usage=True)
-
-    def phi_report(self) -> dict:
-        """Execution-policy telemetry for the traffic served so far:
-        per-site dispatch decisions + l2_nnz packer budgets."""
-        from repro_torch.kernels import dispatch
-        return dispatch.get_policy().report()
 
     def cache_report(self) -> dict:
         """Cache-memory accounting: the contiguous allocation this

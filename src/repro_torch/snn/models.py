@@ -22,6 +22,7 @@ from repro_torch.core.patterns import (
     PhiConfig, active_pattern_sets, calibrate, pattern_usage, pattern_weight_products)
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.phi_fused import pack_patterns
+from repro_torch.obs import trace as obs_trace
 from repro_torch.snn.lif import LIFConfig, lif_sequence
 from repro_torch.utils import cdiv, resolve_device
 
@@ -413,6 +414,8 @@ def phi_apply(params: Params, cfg: SNNConfig, phi: PhiState, x: torch.Tensor,
         return spike_flash_attention(qh, kh, vh, phi.patterns.get(name), site=f"snn.{name}",
                                      impl=attn_impl, packed=phi.packed.get(name))
 
-    with torch.no_grad():
+    # the host's time to enqueue the batch: it returns before the card is done
+    with torch.no_grad(), obs_trace.span("snn.phi_apply", obs_trace.get_tracer(),
+                                         rows=x.shape[0]):
         return apply(params, cfg, x, matmul=phi_mm,
                      attention=phi_attn if cfg.attn == "flash" else None)

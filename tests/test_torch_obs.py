@@ -18,6 +18,7 @@ import torch
 import repro.obs as ref_obs
 import repro_torch.obs as port_obs
 from repro_torch.kernels import dispatch
+from repro_torch.obs import trace
 from repro_torch.obs import (DRIFT_THRESHOLD, DriftMonitor, ListSink,
                              MetricsRegistry, Tracer, get_tracer, prometheus_many, psi,
                              set_tracer, site_drift, snapshot_many)
@@ -79,6 +80,95 @@ def test_set_tracer_returns_previous():
     assert get_tracer() is prev
 
 
+# ------------------------------------------------- the program's spans --
+def test_span_lies_on_the_profilers_clock():
+    """A span's start and end lie within 1 ms of a ``record_function`` range
+    opened around the same block: the record shares the profiler's clock."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("warm"):
+            pass
+        with record_function("block"), trace.span("test.block", rows=3):
+            time.sleep(0.02)
+    (rec,) = [s for s in trace.profiled_spans() if s["name"] == "test.block"]
+    (ev,) = [e for e in prof.profiler.kineto_results.events() if e.name() == "block"]
+    start, end = ev.start_ns(), ev.start_ns() + ev.duration_ns()
+    assert abs(rec["start_ns"] - start) < 1e6 and abs(rec["end_ns"] - end) < 1e6
+    assert rec["end_ns"] - rec["start_ns"] >= 20e6 and rec["rows"] == 3
+
+
+def test_span_off_is_one_null_object_and_records_nothing(monkeypatch):
+    def no_clock():
+        raise AssertionError("an untraced span read the clock")
+
+    monkeypatch.setattr(trace, "_RECORD", [])
+    monkeypatch.setattr(trace, "now_ns", no_clock)
+    spans = [trace.span("test.a"), trace.span("test.b", rows=1)]
+    assert spans[0] is spans[1] is trace.NULL_SPAN
+    with spans[0] as s:
+        s.set(rows=2)
+    trace.event("test.c", rid=1)
+    assert trace.profiled_spans() == []
+
+
+def test_profiled_spans_nest_and_hold_the_latest_window():
+    from torch.profiler import ProfilerActivity, profile
+
+    trace.event("test.unprofiled")
+    with profile(activities=[ProfilerActivity.CPU]):
+        with trace.span("test.old"):
+            pass
+    with trace.span("test.between"):            # no profiler: ends that record
+        pass
+    with profile(activities=[ProfilerActivity.CPU]):
+        with trace.span("test.outer", rows=2) as outer:
+            trace.event("test.event", rid=7)
+            with trace.span("test.inner"):
+                pass
+            outer.set(admitted=1)
+    got = {s["name"]: s for s in trace.profiled_spans()}
+    assert list(got) == ["test.event", "test.inner", "test.outer"]
+    o = got["test.outer"]
+    assert o["parent"] is None and o["rows"] == 2 and o["admitted"] == 1
+    assert got["test.event"]["parent"] == got["test.inner"]["parent"] == o["id"]
+    assert got["test.event"]["rid"] == 7
+    assert got["test.event"]["start_ns"] == got["test.event"]["end_ns"]
+    assert o["start_ns"] <= got["test.inner"]["start_ns"] <= got["test.inner"]["end_ns"] \
+        <= o["end_ns"]
+
+
+def test_timed_tracer_records_carry_ids_and_the_profilers_clock():
+    sink = ListSink()
+    tr = Tracer(sink, wall_time=True)
+    with trace.span("serve.tick", tr, tick=0):
+        trace.event("serve.submit", tr, rid=1)
+    sub, tick = sink.records
+    assert (sub["kind"], tick["kind"]) == ("submit", "tick")
+    assert sub["parent"] == tick["id"] and "parent" not in tick
+    assert tick["start_ns"] <= sub["start_ns"] == sub["end_ns"] <= tick["end_ns"]
+    assert abs(tick["end_ns"] - trace.now_ns()) < 1e9 and tick["dur_ms"] >= 0
+    cold = ListSink()
+    tr = Tracer(cold)
+    with trace.span("serve.tick", tr, tick=0):
+        trace.event("serve.submit", tr, rid=1)
+    assert [sorted(r) for r in cold.records] == [["kind", "rid", "seq"],
+                                                 ["kind", "seq", "tick"]]
+
+
+def test_the_program_opens_no_record_function():
+    """Under CUDA a ``record_function`` range is mirrored onto the device
+    timeline, where the benchmark would count it as device work."""
+    import re
+    from pathlib import Path
+
+    root = Path(port_obs.__file__).resolve().parents[1]
+    call = re.compile(r"record_function\s*\(|RecordFunction|_record_function_enter")
+    assert not [str(p) for p in root.rglob("*.py") if call.search(p.read_text())]
+
+
 # ---------------------------------------------------------------- metrics --
 def _fill(reg):
     c = reg.counter("hits", "h", labelnames=("kind",))
@@ -99,8 +189,8 @@ def test_prometheus_and_snapshots_equal_the_references():
     ref = [_fill(ref_obs.MetricsRegistry("serve")), _fill(ref_obs.MetricsRegistry("phi"))]
     assert prometheus_many(ours) == ref_obs.prometheus_many(ref)
     assert snapshot_many(ours) == ref_obs.snapshot_many(ref)
-    assert ours[0].to_json() == ref[0].to_json()
-    assert ours[0].to_prometheus() == ref[0].to_prometheus()
+    assert prometheus_many(ours[:1]) == ref_obs.prometheus_many(ref[:1])
+    assert snapshot_many(ours[:1]) == ref_obs.snapshot_many(ref[:1])
     h, rh = ours[0].get("lat_ms"), ref[0].get("lat_ms")
     for p in (0, 10, 50, 90, 99, 100):
         assert h.percentile(p) == rh.percentile(p)

@@ -110,7 +110,12 @@ def test_dense_engine_matches_the_reference_engine(paged):
             np.testing.assert_allclose(g, np.asarray(w), rtol=0, atol=LOGIT_ATOL)
     assert eng.scheduler.report() == ref.scheduler.report()
     assert eng.cache_report() == ref.cache_report()
-    assert eng.metrics.snapshot() == ref.metrics.snapshot()
+    snap, ref_snap = eng.metrics.snapshot(), ref.metrics.snapshot()
+    # token_latency_ms observes each request's gap between tokens here and a
+    # tick's per-token mean in the reference: only its help text differs
+    latency = "serve_token_latency_ms"
+    assert snap[latency].pop("help") != ref_snap[latency].pop("help")
+    assert snap == ref_snap
 
 
 # ----------------------------------------------------------------- paged ---
@@ -351,6 +356,107 @@ def test_instrumented_run_is_bitwise_and_traced():
     kinds = [r["kind"] for r in sink.records]
     assert kinds.count("submit") == 3 and kinds.count("retire") == 3
     assert traced.metrics.get("token_latency_ms").count() == traced.decoded_tokens
+
+
+def _profiled(fn):
+    """(fn's result, the program's spans, the profiler's host event names)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs import trace
+
+    trace.event("test.unprofiled")      # found no profiler: the window starts a record
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    return out, trace.profiled_spans(), {e.name() for e in prof.profiler.kineto_results.events()}
+
+
+def test_profiled_run_is_bitwise_and_its_spans_nest():
+    cfg, params = _dense_setup()
+    plain = Engine(cfg, params, batch_slots=2, max_context=32, record_logits=True)
+    plain_res = _run(plain, _requests(cfg, (5, 9, 7), 3))
+    prof = Engine(cfg, params, batch_slots=2, max_context=32, record_logits=True)
+    res, spans, events = _profiled(lambda: _run(prof, _requests(cfg, (5, 9, 7), 3)))
+    assert res == plain_res and set(prof.logit_trace) == set(plain.logit_trace)
+    for rid, rows in plain.logit_trace.items():
+        assert all(np.array_equal(a, b) for a, b in zip(rows, prof.logit_trace[rid]))
+    # nothing of the program in the profiler's own trace
+    assert not [n for n in events if n.startswith(("serve.", "snn."))]
+    ticks = {s["id"]: s for s in spans if s["name"] == "serve.tick"}
+    assert len(ticks) == prof.ticks
+    work = [s for s in spans if s["name"] in ("serve.prefill", "serve.decode_step")]
+    samples = [s for s in spans if s["name"] == "serve.sample"]
+    assert sum(s["name"] == "serve.prefill" for s in work) == 3
+    assert len(samples) == 3 + sum(s["name"] == "serve.decode_step" for s in work)
+    for s in work + samples:
+        t = ticks[s["parent"]]
+        assert t["start_ns"] <= s["start_ns"] <= s["end_ns"] <= t["end_ns"]
+        if s["name"] == "serve.decode_step":
+            assert s["rows"] == t["rows"] > 0
+    for a in samples:
+        assert all(a["end_ns"] <= w["start_ns"] or w["end_ns"] <= a["start_ns"] for w in work)
+    assert sum(t["admitted"] for t in ticks.values()) == 3
+
+
+@pytest.fixture
+def fake_clock(monkeypatch):
+    """The program's clock advances only in the model's calls and sampling:
+    7 ms a prefill, 10 a decode step, 1 a sampling."""
+    from repro_torch.obs import trace
+    from repro_torch.serve import engine as engine_mod
+
+    now = [0]
+
+    def advancing(fn, ms):
+        def call(*a, **k):
+            now[0] += int(ms * 1e6)
+            return fn(*a, **k)
+        return call
+
+    monkeypatch.setattr(trace, "now_ns", lambda: now[0])
+    monkeypatch.setattr(model, "prefill_padded", advancing(model.prefill_padded, 7))
+    monkeypatch.setattr(model, "decode_step", advancing(model.decode_step, 10))
+    monkeypatch.setattr(engine_mod, "sample", advancing(engine_mod.sample, 1))
+    return now
+
+
+def test_request_spans_add_up_to_the_first_token(fake_clock):
+    """Per request: admit - submit + prefill + the admission's sampling =
+    first_token - submit, on the clock the spans share."""
+    cfg, params = _dense_setup()
+    eng = Engine(cfg, params, batch_slots=2, max_context=32)
+    _, spans, _ = _profiled(lambda: _run(eng, _requests(cfg, (5, 9, 7), 3)))
+    at = {}
+    for s in spans:
+        if "rid" in s:
+            at.setdefault((s["name"], s["rid"]), s)
+
+    def dur(s):
+        return s["end_ns"] - s["start_ns"]
+
+    firsts = []
+    for rid in range(3):
+        submit = at["serve.submit", rid]["start_ns"]
+        first = at["serve.first_token", rid]["start_ns"]
+        assert (at["serve.admit", rid]["start_ns"] - submit + dur(at["serve.prefill", rid])
+                + dur(at["serve.sample", rid])) == first - submit
+        firsts.append(first / 1e6)
+    assert firsts == [8.0, 16.0, 46.0]
+
+
+def test_token_latency_is_each_requests_gap_between_tokens(fake_clock, monkeypatch):
+    """One observation a decoded token: the time since its own request's
+    previous token. Request 0's second token waits for request 1's prefill
+    (7 ms) and sampling (1) in the same tick: 19 ms; every other gap is a
+    decode step and its sampling, 11 ms."""
+    cfg, params = _dense_setup()
+    eng = Engine(cfg, params, batch_slots=2, max_context=32, wall_time=True)
+    seen = []
+    hist = eng.metrics.get("token_latency_ms")
+    real = hist.observe
+    monkeypatch.setattr(hist, "observe", lambda v, **kw: (seen.append(v), real(v, **kw)))
+    _run(eng, _requests(cfg, (5, 6, 7), 3))
+    assert seen == [19.0, 11.0, 11.0, 11.0, 11.0, 11.0]
+    assert hist.count() == eng.decoded_tokens == len(seen)
 
 
 # -------------------------------------------------------------- launcher ---
